@@ -5,22 +5,42 @@
 
 Phases, each reported on its own line; any failure exits nonzero:
   1. device: name, power limit, TF32 settings (no GPU -> exit 1);
-  2. build: compile the CUDA kernel(s) from fal_net_torch/csrc;
-  3. kernel vs plain: the MED forward kernel against the plain PyTorch head
+  2. build: compile the CUDA kernels from fal_net_torch/csrc, one nvcc per
+     source, all started together;
+  3. K1 vs plain: the MED forward kernel against the plain PyTorch head
      on shared seeded inputs, every mode, at the TPU kernel tests' shapes, with
      per-sample bound tensors, and at the serving shape (8, 49, 384, 1280),
      with those tests' tolerances;
-  4. the slice: FAL_netB N=49 with seeded random weights is saved to a .pt,
-     19 synthetic 384x1280 PNGs go through ``fal_net_torch.cli.infer`` at
-     batch 8, then the disp+pan forward runs at batch 1 and 8, and at batch 8
-     with per-sample bound tensors; each run must launch the kernel, and the
+  3b. K2 vs plain: the MED backward kernel against the plain VJP at the TPU
+     gradient tests' shapes (N = 7, 33, 49 at 8x128), with per-sample bound
+     tensors, disp-only and pan-only cotangents, with and without the image
+     gradient, through autograd after a subocc forward (the masks carry no
+     gradient), and at the training shape (8, 49, 192, 640); rtol 1e-4,
+     atol 1e-5 as the TPU gradient tests;
+  4. the serving slice: FAL_netB N=49 with seeded random weights is saved to
+     a .pt, 19 synthetic 384x1280 PNGs go through ``fal_net_torch.cli.infer``
+     at batch 8, then the disp+pan forward runs at batch 1 and 8, and at batch
+     8 with per-sample bound tensors; each run must launch the kernel, and the
      kernel and the plain head must agree on the model's own logits;
-  5. times (CUDA events, median after warm-up): kernel vs plain head at
-     (8, 49, 384, 1280), and the whole forward at batch 8 and batch 1;
+  5. times (CUDA events, median after warm-up): K1 vs plain head at
+     (8, 49, 384, 1280), the whole forward at batch 8 and batch 1, the
+     stage-1 training step at batch 8, 192x640, K1 disp+pan, K2, the plain VJP
+     and autograd of the plain head at (8, 49, 192, 640), peak device memory;
   6. only with ``--profile DIR``: ``torch.profiler`` over the disp-only
-     forward at batch 8 and 1 (device window, busy share, kernel time by
-     kind; the per-kernel table goes to DIR), and the forward with TF32
-     convolutions off.
+     forward at batch 8 and 1 and over the stage-1 training step (device
+     window, busy share, kernel time by kind; the per-kernel tables go to
+     DIR), and the forward with TF32 convolutions off;
+  7. the training slice: a synthetic KITTI-raw tree (32 smooth 375x1242 stereo
+     pairs, right = left shifted by 20 px) trains FAL_netB N=49 through
+     ``fal_net_torch.cli.train --stage 1`` at batch 8, 192x640, for 4 steps;
+     K1 and K2 launch once per step (and once each in the setup gate), every
+     loss is finite, the checkpoint serves two frames through cli.infer; then
+     one step with per-sample bound tensors (fix_order=False), and K2 against
+     the plain VJP on the model's own logits;
+  8. convergence (scripts/verify_train_tpu.py on the card): the tiny model,
+     N=9 over 2..18 px, 64x128, batch 4, Adam 5e-4 (beta1 0.5), 400 stage-1
+     steps through K1 and K2 on smooth stereo shifted by 6 px; the median
+     disparity must land within half a level spacing of 6.00 px.
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -44,7 +64,8 @@ from fal_net_torch.models import create_model
 from fal_net_torch.models.checkpoint import save_checkpoint
 from fal_net_torch.ops import _build
 from fal_net_torch.ops.med import med_outputs
-from fal_net_torch.ops.med_kernel import MedForward, med_outputs_fused
+from fal_net_torch.ops.med_kernel import MedForward, med_outputs_fused, med_vjp_fused
+from fal_net_torch.ops.med_vjp import med_vjp
 
 # (rtol, atol) of the TPU kernel's own tests (tests/test_med_pallas.py:34-37)
 TOL = {"disp": (1e-5, 1e-4), "pan": (1e-4, 1e-4), "maskL": (1e-4, 1e-4), "maskR": (1e-4, 1e-4)}
@@ -70,6 +91,31 @@ SHAPES = [
     (8, 49, 384, 1280, 3, 2.0, 300.0),  # serving shape
 ]
 SERVE_H, SERVE_W, N_IMAGES, BATCH = 384, 1280, 19, 8
+GRAD_TOL = (1e-4, 1e-5)  # (rtol, atol) of tests/test_med_pallas.py's gradient tests
+# (B, N, H, W, C, min_disp, max_disp) for K2
+GRAD_SHAPES = [
+    (2, 7, 8, 128, 3, 2.0, 60.0),  # tests/test_med_pallas.py:102-110
+    (2, 33, 8, 128, 3, 2.0, 18.0),
+    (2, 49, 8, 128, 3, 2.0, 300.0),
+    (2, 7, 16, 48, 4, 2.0, 300.0),  # W below the largest shift
+    (3, 9, 8, 96, 3, (2.0, -1.0, 1.0), (300.0, -30.0, 30.0)),  # per-sample bounds
+    (2, 49, 16, 1280, 3, (2.0, 1.0), 300.0),  # per-sample min, shared 0-d max
+    (8, 49, 192, 640, 3, 2.0, 300.0),  # training shape
+]
+# cotangents given to K2: (g_disp, g_pan, image_grad)
+GRAD_MODES = {
+    "disp+pan": (True, True, False),  # the training step's mode
+    "disp+pan+g_img": (True, True, True),
+    "disp": (True, False, False),
+    "pan+g_img": (False, True, True),
+}
+TRAIN_H, TRAIN_W, TRAIN_STEPS, KITTI_H, KITTI_W, KITTI_PAIRS, KITTI_DISP = 192, 640, 4, 375, 1242, 32, 20
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores, NVIDIA data sheet
+# fp32 operations per logit, counted from the kernel sources: K1 disp-only
+# (compare, subtract, exp, two multiply-adds); K2 in the training mode (pass 1
+# ~25 with two exps, pass 2 ~35 with three exps, C=3)
+OPS_PER_LOGIT = {"med_fwd": 6, "med_bwd": 60}
 
 
 def line(msg: str) -> None:
@@ -113,6 +159,37 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def bound(nbytes: int, ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the fp32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def compare_grads(got, want, label: str) -> float:
+    """K2's (g_logits, g_image) vs the plain VJP's at GRAD_TOL."""
+    worst = 0.0
+    errs = {}
+    for name, g, w in zip(("g_logits", "g_image"), got, want):
+        if (g is None) != (w is None):
+            raise AssertionError(f"{label}: {name} present in only one VJP")
+        if g is None:
+            continue
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{label}: {name} shape {tuple(g.shape)} or non-finite")
+        err = float((g - w).abs().max())
+        errs[name] = err
+        worst = max(worst, err)
+        if not torch.allclose(g, w, rtol=GRAD_TOL[0], atol=GRAD_TOL[1]):
+            raise AssertionError(f"{label}: {name} differs, max abs err {err:.3e} {GRAD_TOL}")
+    line(f"  {label}: " + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+    return worst
 
 
 def phase_device():
@@ -164,6 +241,36 @@ def phase_kernel_vs_plain(rng, dev) -> float:
     return worst
 
 
+def phase_bwd_vs_plain(rng, dev) -> float:
+    worst = 0.0
+    for b, n, h, w, c, mn, mx in GRAD_SHAPES:
+        draw = lambda ch: torch.from_numpy(rng.standard_normal((b, ch, h, w), np.float32)).to(dev)
+        logits, image, g_disp, g_pan = draw(n), draw(c), draw(1), draw(c)
+        label = f"{(b, n, h, w, c)} [{mn},{mx}]"
+        if isinstance(mn, tuple) or isinstance(mx, tuple):
+            mn, mx = (torch.tensor(v, dtype=torch.float32, device=dev).expand(b) for v in (mn, mx))
+        for mode, (want_d, want_p, img) in GRAD_MODES.items():
+            gd, gp = (g_disp if want_d else None), (g_pan if want_p else None)
+            got = med_vjp_fused(logits, image, mn, mx, gd, gp, image_grad=img)
+            torch.cuda.synchronize()
+            want = med_vjp(logits, image, mn, mx, gd, gp, image_grad=img)
+            worst = max(worst, compare_grads(got, want, f"{label} {mode}"))
+        # through autograd after a subocc forward: the masks carry no gradient
+        lg = logits.clone().requires_grad_()
+        im = image.clone().requires_grad_()
+        out = med_outputs_fused(lg, im, mn, mx, ret_disp=True, ret_pan=True, ret_subocc=True)
+        if out.maskL.requires_grad or out.maskR.requires_grad:
+            raise AssertionError(f"{label}: a mask requires grad")
+        loss = (out.disp * g_disp).sum() + (out.pan * g_pan).sum() + out.maskL.sum() + out.maskR.sum()
+        got = torch.autograd.grad(loss, (lg, im))
+        torch.cuda.synchronize()
+        want = med_vjp(logits, image, mn, mx, g_disp, g_pan)
+        worst = max(worst, compare_grads(got, want, f"{label} autograd after subocc forward"))
+    line(f"phase 3b K2 vs plain: {len(GRAD_SHAPES)} shapes x {len(GRAD_MODES) + 1} modes agree, "
+         f"worst abs err {worst:.3e}")
+    return worst
+
+
 def synthetic_image(rng) -> np.ndarray:
     """A smooth seeded 384x1280 RGB frame with noise, uint8."""
     yy, xx = np.mgrid[0:SERVE_H, 0:SERVE_W].astype(np.float32)
@@ -192,7 +299,7 @@ def phase_slice(rng, dev, seed: int, workdir: str):
         for b in (1, BATCH)
     }
 
-    MedForward.launches = 0
+    MedForward.launches = MedForward.bwd_launches = 0
     t0 = time.perf_counter()
     written = infer.main([
         "--pretrained", ckpt, "--images", img_dir, "--out_dir", out_dir,
@@ -222,7 +329,7 @@ def phase_slice(rng, dev, seed: int, workdir: str):
         raise AssertionError(f"disparity PNGs have shape {disp_png.shape}")
     if not (disp_png.min() >= 2.0 - 1 / 256 and disp_png.max() <= 300.0):
         raise AssertionError(f"PNG disparities span [{disp_png.min()}, {disp_png.max()}]")
-    if cli_launches != batches or launches != expect:
+    if cli_launches != batches or launches != expect or MedForward.bwd_launches:
         raise AssertionError(
             f"kernel launches: {cli_launches} in cli.infer (want {batches}), "
             f"{launches} in all (want {expect})"
@@ -254,23 +361,252 @@ def phase_slice(rng, dev, seed: int, workdir: str):
     return model, lefts, launches, worst
 
 
-def phase_times(model, lefts, card: str):
+def smooth_frame(rng, h: int, w: int) -> np.ndarray:
+    """A smooth seeded RGB frame with a little noise, uint8: a shifted lerp
+    of it stays close to the shifted frame."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    phase = rng.uniform(0, 2 * np.pi, 3)
+    base = np.stack([np.sin(xx / (40 + 15 * k) + yy / 60 + phase[k]) for k in range(3)], axis=-1)
+    img = 127.5 + 90 * base + rng.normal(0, 4, base.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_kitti_tree(rng, root: str) -> None:
+    """KITTI_PAIRS stereo pairs laid out like KITTI raw, right = left shifted
+    by KITTI_DISP px (right[x] = left[x + d]), and the Eigen-style list."""
+    from PIL import Image
+
+    stem = "2011_09_26/2011_09_26_drive_0001_sync"
+    lines = []
+    for i in range(KITTI_PAIRS):
+        wide = smooth_frame(rng, KITTI_H, KITTI_W + KITTI_DISP)
+        for cam, img in (("image_02", wide[:, :KITTI_W]), ("image_03", wide[:, KITTI_DISP:])):
+            d = os.path.join(root, stem, cam, "data")
+            os.makedirs(d, exist_ok=True)
+            Image.fromarray(np.ascontiguousarray(img)).save(os.path.join(d, f"{i:010d}.png"))
+        lines.append(f"{stem}/image_02/data/{i:010d}.png {stem}/image_03/data/{i:010d}.png")
+    with open(os.path.join(root, "kitti_eigen_train.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def phase_train(rng, dev, workdir: str):
+    """cli.train on a synthetic tree, then one per-sample-bound step."""
+    from PIL import Image
+
+    from fal_net_torch.cli import train
+    from fal_net_torch.data.loader import to_device
+    from fal_net_torch.losses.photometric import rec_loss
+    from fal_net_torch.losses.smoothness import smoothness
+    from fal_net_torch.train.config import Stage1Config
+    from fal_net_torch.train.trainer import Trainer
+
+    root = os.path.join(workdir, "kitti")
+    t0 = time.perf_counter()
+    write_kitti_tree(rng, root)
+    tree_s = time.perf_counter() - t0
+    MedForward.launches = MedForward.bwd_launches = 0
+    t0 = time.perf_counter()
+    result = train.main([
+        "--stage", "1", "--model", "B", "--no_levels", "49", "--batch_size", "8",
+        "--a_p", "0", "--epochs", "1", "--epoch_size", str(TRAIN_STEPS), "--print_freq", "1",
+        "--data_root", root, "--lists_dir", root, "--save_path", os.path.join(workdir, "runs"),
+    ])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    k1, k2 = MedForward.launches, MedForward.bwd_launches
+    (epoch,) = result["history"]
+    if not (np.isfinite(epoch["loss"]) and np.isfinite(epoch["rec_loss"])):
+        raise AssertionError(f"non-finite training loss: {epoch}")
+    # the setup gate launches each kernel once; each step once more
+    if (k1, k2) != (TRAIN_STEPS + 1, TRAIN_STEPS + 1):
+        raise AssertionError(f"cli.train launched K1 {k1} and K2 {k2} times, want {TRAIN_STEPS} + 1 each")
+    ckpt = os.path.join(result["save_path"], "checkpoint.pt")
+    if not os.path.isfile(ckpt):
+        raise AssertionError(f"no checkpoint at {ckpt}")
+    line(f"phase 7a cli.train FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B=8: {TRAIN_STEPS} steps in {train_s:.2f} s "
+         f"(setup, gate and data included; tree written in {tree_s:.2f} s), epoch loss "
+         f"{epoch['loss']:.6f} rec {epoch['rec_loss']:.6f}; K1 {k1}, K2 {k2} launches")
+
+    frames, out_dir = os.path.join(workdir, "frames"), os.path.join(workdir, "frames_out")
+    os.makedirs(frames)
+    for i in range(2):
+        Image.fromarray(smooth_frame(rng, KITTI_H, KITTI_W)).save(os.path.join(frames, f"f{i}.png"))
+    MedForward.launches = 0
+    written = infer.main(["--pretrained", ckpt, "--images", frames, "--out_dir", out_dir, "--batch_size", "2"])
+    torch.cuda.synchronize()
+    infer_k1 = MedForward.launches
+    disp = np.stack([np.asarray(Image.open(os.path.join(out_dir, f"f{i}_disp.png"))) for i in range(2)])
+    if written != 2 or infer_k1 != 1 or disp.shape != (2, KITTI_H, KITTI_W):
+        raise AssertionError(f"cli.infer on the checkpoint: {written} PNGs {disp.shape}, {infer_k1} K1 launches")
+    line(f"phase 7b cli.infer on the trained checkpoint: 2 frames at {KITTI_H}x{KITTI_W}, 1 K1 launch, "
+         f"PNG disparity in [{disp.min() / 256:.4f}, {disp.max() / 256:.4f}] px")
+
+    cfg = Stage1Config(
+        model="B", num_levels=49, data_root=root, lists_dir=root, batch_size=8, a_p=0.0,
+        epochs=1, epoch_size=1, fix_order=False, print_freq=1,
+    )
+    trainer = Trainer(cfg, device=dev)
+    trainer.setup()  # the gate with (B,) bound tensors of both signs
+    MedForward.launches = MedForward.bwd_launches = 0
+    metrics = trainer.train_epoch(0)
+    torch.cuda.synchronize()
+    k1_t, k2_t = MedForward.launches, MedForward.bwd_launches
+    if (k1_t, k2_t) != (1, 1) or not np.isfinite(metrics["loss"]):
+        raise AssertionError(f"per-sample-bound step: K1 {k1_t}, K2 {k2_t} launches, {metrics}")
+    ds = trainer.train_loader.dataset
+    items = [ds.get(i, np.random.default_rng((9, i))) for i in range(8)]
+    batch = to_device({k: np.stack([it[k] for it in items]) for k in ("left", "right", "max_disp")}, dev)
+    mx = batch["max_disp"]
+    mn = mx * (cfg.min_disp / cfg.max_disp)
+    signs = int((mx < 0).sum())
+    with torch.no_grad():
+        logits = trainer.model.logits(batch["left"], mx)
+    # the stage-1 loss in sum form (times the pan's element count), so that
+    # the cotangents are O(1) and atol 1e-5 means something
+    lg = logits.clone().requires_grad_()
+    out = med_outputs_fused(lg, batch["left"], mn, mx, ret_disp=True, ret_pan=True)
+    x0 = int(0.2 * TRAIN_W)
+    loss = out.pan.numel() * (
+        rec_loss(1.0, out.pan, batch["right"], None, 0.0)
+        + cfg.a_sm * smoothness(batch["left"][..., x0:], out.disp[..., x0:], gamma=2.0)
+    )
+    g_disp, g_pan = torch.autograd.grad(loss, (out.disp, out.pan), retain_graph=True)
+    (g_k2,) = torch.autograd.grad(loss, lg)
+    torch.cuda.synchronize()
+    g_plain, _ = med_vjp(logits, batch["left"], mn, mx, g_disp, g_pan, image_grad=False)
+    worst = compare_grads((g_k2, None), (g_plain, None), f"model logits B=8 per-sample bounds ({signs} swapped)")
+    line(f"phase 7c per-sample-bound step (fix_order=False): loss {metrics['loss']:.6f}, K1 {k1_t}, "
+         f"K2 {k2_t} launches; K2 vs plain VJP on the model's logits, worst abs err {worst:.3e}")
+    return {"k1": k1 + infer_k1 + k1_t, "k2": k2 + k2_t, "worst": worst}
+
+
+def phase_converge(dev):
+    """scripts/verify_train_tpu.py on the card: stage-1 training on smooth
+    synthetic stereo whose true disparity, 6 px, is plane 4 of 2..18, N=9."""
+    import scipy.ndimage as ndi
+
+    from fal_net_torch.ops.med import disparity_levels
+    from fal_net_torch.train.stages import stage1_loss
+
+    disp_px, h, w, b, n, mn, mx, steps = 6, 64, 128, 4, 9, 2.0, 18.0, 400
+    rng = np.random.default_rng(0)
+    coarse = rng.random((b, h // 8 + 2, (w + disp_px) // 8 + 2, 3)).astype(np.float32)
+    wide = np.stack([ndi.zoom(c, (8, 8, 1), order=3)[:h, : w + disp_px] for c in coarse]) - 0.5
+    nchw = lambda a: torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2))).to(dev)
+    batch = {"left": nchw(wide[:, :, :w]), "right": nchw(wide[:, :, disp_px:])}
+    model = create_model("tiny", n, generator=torch.Generator().manual_seed(0), device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4, betas=(0.5, 0.999))
+    MedForward.launches = MedForward.bwd_launches = 0
+    t0 = time.perf_counter()
+    for step in range(steps):
+        opt.zero_grad(set_to_none=True)
+        loss, _ = stage1_loss(model, batch, min_disp=mn, max_disp=mx, a_p=0.0, a_sm=0.2 * 2 / 512)
+        loss.backward()
+        opt.step()
+    with torch.no_grad():
+        med = float(model(batch["left"], mn, mx).disp.median())
+    secs = time.perf_counter() - t0
+    levels = disparity_levels(mn, mx, n).numpy()
+    spacing = levels[5] - levels[4]
+    launches = (MedForward.launches, MedForward.bwd_launches)
+    if launches != (steps + 1, steps) or not abs(med - disp_px) < spacing / 2:
+        raise AssertionError(f"convergence: median disp {med:.4f} (want {disp_px} +- {spacing / 2:.4f}), "
+                             f"launches {launches}, last loss {loss.item():.6f}")
+    line(f"phase 8 convergence: {steps} steps in {secs:.2f} s, loss {loss.item():.6f}, median disparity "
+         f"{med:.4f} px (target {disp_px}.00, half spacing {spacing / 2:.4f}); K1 {launches[0]}, "
+         f"K2 {launches[1]} launches")
+
+
+def train_setup(dev, seed: int):
+    """FAL_netB N=49, its Adam and a seeded B=8 192x640 batch: the stage-1
+    step that phase 5 times and phase 6 profiles."""
+    from fal_net_torch.train.state import create_optimizer
+
+    model = create_model("B", 49, generator=torch.Generator().manual_seed(seed), device=dev)
+    opt, sched = create_optimizer(
+        model, lr=1e-4, beta1=0.5, beta2=0.999, milestones=(30, 40), lr_gamma=0.5, steps_per_epoch=1000,
+    )
+    rng = np.random.default_rng(seed)
+    batch = {
+        k: torch.from_numpy(
+            np.stack([normalize(smooth_frame(rng, TRAIN_H, TRAIN_W)) for _ in range(BATCH)]).transpose(0, 3, 1, 2).copy()
+        ).to(dev)
+        for k in ("left", "right")
+    }
+    return model, opt, sched, batch
+
+
+def train_step_fn(model, opt, sched, batch):
+    from fal_net_torch.train.stages import stage1_loss
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss, _ = stage1_loss(model, batch, min_disp=2.0, max_disp=300.0, a_p=0.0, a_sm=0.2 * 2 / 512)
+        loss.backward()
+        opt.step()
+        sched.step()
+
+    return step
+
+
+def phase_times(model, lefts, card: str, dev, seed: int):
     image = lefts[BATCH]
+    times = {}
     with torch.inference_mode():
         logits = model.logits(image, 300.0)
-        times = {}
         for mode in ("disp", "disp+pan", "disp+pan+subocc"):
             kw = MODES[mode]
             k = median_ms(lambda: med_outputs_fused(logits, image, 2.0, 300.0, **kw))
             p = median_ms(lambda: med_outputs(logits, image, 2.0, 300.0, **kw))
-            times[mode] = (k, p)
+            out = med_outputs_fused(logits, image, 2.0, 300.0, **kw)
+            moved = nbytes(logits, image if "pan" in mode else None, *out)
+            times[mode] = (k, p, moved)
             line(f"phase 5 MED head ({BATCH}, 49, {SERVE_H}, {SERVE_W}) {mode}: kernel {k:.4f} ms, "
-                 f"plain {p:.4f} ms [{card}]")
+                 f"plain {p:.4f} ms, bound {moved / HBM_BYTES_PER_S * 1e3:.4f} ms from "
+                 f"{moved / 1e6:.1f} MB [{card}]")
         for mode in ("disp", "disp+pan"):
             for b in (BATCH, 1):
                 ms = median_ms(lambda: model(lefts[b], 2.0, 300.0, **MODES[mode]))
                 line(f"phase 5 forward FAL_netB N=49 {SERVE_H}x{SERVE_W} {mode} B={b}: {ms:.3f} ms, "
                      f"{1000 * b / ms:.2f} imgs/s [{card}]")
+        times["disp_logits"] = logits.numel()
+        del logits
+
+    # the training shape: K1 disp+pan, K2 in the step's mode, plain versions
+    rng = np.random.default_rng(seed)
+    draw = lambda c: torch.from_numpy(rng.standard_normal((BATCH, c, TRAIN_H, TRAIN_W), np.float32)).to(dev)
+    tl, ti, gd, gp = draw(49), draw(3), draw(1), draw(3)
+    k1 = median_ms(lambda: med_outputs_fused(tl, ti, 2.0, 300.0, ret_disp=True, ret_pan=True))
+    k2 = median_ms(lambda: med_vjp_fused(tl, ti, 2.0, 300.0, gd, gp, image_grad=False))
+    k2_img = median_ms(lambda: med_vjp_fused(tl, ti, 2.0, 300.0, gd, gp, image_grad=True))
+    vjp = median_ms(lambda: med_vjp(tl, ti, 2.0, 300.0, gd, gp, image_grad=False))
+
+    def autograd_plain():
+        lg = tl.detach().requires_grad_()
+        out = med_outputs(lg, ti, 2.0, 300.0, ret_disp=True, ret_pan=True)
+        torch.autograd.grad((out.disp * gd).sum() + (out.pan * gp).sum(), lg)
+
+    auto = median_ms(autograd_plain, reps=10)
+    g_logits, g_image = med_vjp_fused(tl, ti, 2.0, 300.0, gd, gp, image_grad=True)
+    k1_bytes = nbytes(tl, ti, *med_outputs_fused(tl, ti, 2.0, 300.0, ret_disp=True, ret_pan=True))
+    times["k2"] = (k2, vjp)
+    times["k2_bytes"] = nbytes(tl, ti, gd, gp, g_logits)
+    times["k2_logits"] = tl.numel()
+    ms_of = lambda b: b / HBM_BYTES_PER_S * 1e3
+    line(f"phase 5 MED at the training shape ({BATCH}, 49, {TRAIN_H}, {TRAIN_W}): K1 disp+pan {k1:.4f} ms "
+         f"(bound {ms_of(k1_bytes):.4f} ms from {k1_bytes / 1e6:.1f} MB); K2 disp+pan {k2:.4f} ms (bound "
+         f"{ms_of(times['k2_bytes']):.4f} ms from {times['k2_bytes'] / 1e6:.1f} MB), with g_img "
+         f"{k2_img:.4f} ms (bound {ms_of(times['k2_bytes'] + nbytes(g_image)):.4f} ms); plain VJP "
+         f"{vjp:.4f} ms, autograd of the plain head {auto:.4f} ms [{card}]")
+    del tl, ti, gd, gp, g_logits, g_image
+
+    tmodel, opt, sched, batch = train_setup(dev, seed)
+    torch.cuda.reset_peak_memory_stats()
+    ms = median_ms(train_step_fn(tmodel, opt, sched, batch), reps=20, warmup=5)
+    times["step"] = ms
+    line(f"phase 5 stage-1 step FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B={BATCH} (forward, backward, Adam): "
+         f"{ms:.3f} ms, {1000 * BATCH / ms:.2f} imgs/s; peak device memory "
+         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
     return times
 
 
@@ -290,54 +626,70 @@ def _union_us(spans) -> float:
 # kernel kinds, matched in order against device kernel names
 KINDS = [
     ("K1 med_fwd", "med_fwd_kernel"),
+    ("K2 med_bwd", "med_bwd_kernel"),
     ("layout transposes", "nchwtonhwc|nhwctonchw|transpose"),
     ("nearest upsample", "upsample"),
     ("ELU", "elu"),
     ("concat", "catarray|cat_"),
-    ("convolutions", "conv|xmma|cudnn|implicit|gemm|cutlass|sm90|winograd|fft"),
+    ("convolutions", "conv|xmma|cudnn|implicit|gemm|cutlass|sm90|winograd|fft|dgrad|wgrad"),
+    ("Adam", "adam|multi_tensor|foreach"),
+    ("reductions", "reduce"),
     ("adds", "add"),
 ]
 
 
-def phase_profile(model, lefts, card: str, out_dir: str, reps: int = 5) -> None:
+def profile_kinds(fn, reps: int, title: str, path: str, card: str, unit: str, no_grad: bool) -> None:
+    """torch.profiler over ``reps`` calls of ``fn``: device window, busy
+    share and device time by kind per call; the per-kernel table to ``path``."""
     import re
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    ctx = torch.inference_mode if no_grad else torch.enable_grad
+    with ctx():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    # device work only: the GPU-side ranges of user annotations such as
+    # "Optimizer.step#Adam.step" would count their kernels twice
+    kernels = [
+        e for e in prof.events()
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+    ]
+    if not kernels:
+        raise AssertionError("torch.profiler recorded no device activity")
+    spans = [(e.time_range.start, e.time_range.end) for e in kernels]
+    window = max(e for _, e in spans) - min(s for s, _ in spans)
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    kind_of = lambda name: next((k for k, rx in KINDS if re.search(rx, name.lower())), "other")
+    by_kind = {k: 0.0 for k, _ in KINDS} | {"other": 0.0}
+    for name, us in by_name.items():
+        by_kind[kind_of(name)] += us
+    with open(path, "w") as f:
+        f.write(f"{title}, {reps} calls [{card}]\n")
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
+            f.write(f"{us / reps / 1000:10.4f} ms/{unit}  {kind_of(name):18s} {name}\n")
+    line(f"phase 6 profile {title}: device window {window / reps / 1000:.4f} ms/{unit}, "
+         f"busy share {_union_us(spans) / window:.4f}; ms/{unit} by kind: "
+         + ", ".join(f"{k} {us / reps / 1000:.4f}" for k, us in by_kind.items())
+         + f"; table {path} [{card}]")
+
+
+def phase_profile(model, lefts, card: str, out_dir: str, dev, seed: int, reps: int = 5) -> None:
     os.makedirs(out_dir, exist_ok=True)
     for b in (BATCH, 1):
-        fwd = lambda: model(lefts[b], 2.0, 300.0, ret_disp=True)
-        with torch.inference_mode():
-            for _ in range(3):
-                fwd()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    fwd()
-                torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if not kernels:
-            raise AssertionError("torch.profiler recorded no device activity")
-        spans = [(e.time_range.start, e.time_range.end) for e in kernels]
-        window = max(e for _, e in spans) - min(s for s, _ in spans)
-        by_name: dict[str, float] = {}
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-        by_kind = {k: 0.0 for k, _ in KINDS} | {"other": 0.0}
-        for name, us in by_name.items():
-            kind = next((k for k, rx in KINDS if re.search(rx, name.lower())), "other")
-            by_kind[kind] += us
-        path = os.path.join(out_dir, f"profile_b{b}.txt")
-        with open(path, "w") as f:
-            f.write(f"FAL_netB N=49 {SERVE_H}x{SERVE_W} disp-only B={b}, {reps} forwards [{card}]\n")
-            for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
-                kind = next((k for k, rx in KINDS if re.search(rx, name.lower())), "other")
-                f.write(f"{us / reps / 1000:10.4f} ms/fwd  {kind:18s} {name}\n")
-        line(f"phase 6 profile B={b} disp: device window {window / reps / 1000:.4f} ms/fwd, "
-             f"busy share {_union_us(spans) / window:.4f}; ms/fwd by kind: "
-             + ", ".join(f"{k} {us / reps / 1000:.4f}" for k, us in by_kind.items())
-             + f"; table {path} [{card}]")
+        profile_kinds(
+            lambda: model(lefts[b], 2.0, 300.0, ret_disp=True), reps,
+            f"FAL_netB N=49 {SERVE_H}x{SERVE_W} disp-only B={b}",
+            os.path.join(out_dir, f"profile_b{b}.txt"), card, "fwd", no_grad=True,
+        )
     torch.backends.cudnn.allow_tf32 = False
     try:
         with torch.inference_mode():
@@ -347,6 +699,12 @@ def phase_profile(model, lefts, card: str, out_dir: str, reps: int = 5) -> None:
                      f"{ms:.3f} ms [{card}]")
     finally:
         torch.backends.cudnn.allow_tf32 = True
+    tmodel, opt, sched, batch = train_setup(dev, seed)
+    profile_kinds(
+        train_step_fn(tmodel, opt, sched, batch), reps,
+        f"stage-1 step FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B={BATCH}",
+        os.path.join(out_dir, "profile_train_step.txt"), card, "step", no_grad=False,
+    )
     line(f"phase 6 peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
 
 
@@ -360,21 +718,46 @@ def main() -> None:
     rng = np.random.default_rng(args.seed)
     phase_build()
     worst3 = phase_kernel_vs_plain(rng, dev)
+    worst3b = phase_bwd_vs_plain(rng, dev)
     with tempfile.TemporaryDirectory() as workdir:
-        model, lefts, launches, worst4 = phase_slice(rng, dev, args.seed, workdir)
-    times = phase_times(model, lefts, card)
+        model, lefts, serve_launches, worst4 = phase_slice(rng, dev, args.seed, workdir)
+    times = phase_times(model, lefts, card, dev, args.seed)
     if args.profile:
-        phase_profile(model, lefts, card, args.profile)
-    print(json.dumps({"kernels": [{
-        "name": "med_fwd",
-        "route": "cuda",
-        "source": "fal_net_torch/csrc/med_fwd.cu",
-        "replaces": "fal_net_tpu/ops/med_pallas.py:116",
-        "launches": launches,
-        "max_abs_err": max(worst3, worst4),
-        "ms": times["disp"][0],
-        "plain_ms": times["disp"][1],
-    }]}))
+        phase_profile(model, lefts, card, args.profile, dev, args.seed)
+    del model, lefts
+    with tempfile.TemporaryDirectory() as workdir:
+        train = phase_train(rng, dev, workdir)
+    phase_converge(dev)
+    k1_bound, k1_by = bound(times["disp"][2], OPS_PER_LOGIT["med_fwd"] * times["disp_logits"])
+    k2_bound, k2_by = bound(times["k2_bytes"], OPS_PER_LOGIT["med_bwd"] * times["k2_logits"])
+    print(json.dumps({"kernels": [
+        {
+            "name": "med_fwd",
+            "route": "cuda",
+            "source": "fal_net_torch/csrc/med_fwd.cu",
+            "replaces": "fal_net_tpu/ops/med_pallas.py:116",
+            "launches": serve_launches + train["k1"],  # serving (phase 4) and training (phase 7) paths
+            "max_abs_err": max(worst3, worst4),
+            "ms": times["disp"][0],  # disp-only at (8, 49, 384, 1280)
+            "plain_ms": times["disp"][1],
+            "bound_ms": k1_bound,
+            "bound_by": k1_by,
+            "library_ms": None,
+        },
+        {
+            "name": "med_bwd",
+            "route": "cuda",
+            "source": "fal_net_torch/csrc/med_bwd.cu",
+            "replaces": "fal_net_tpu/ops/med_pallas.py:253",
+            "launches": train["k2"],  # training path (phase 7)
+            "max_abs_err": max(worst3b, train["worst"]),
+            "ms": times["k2"][0],  # disp+pan cotangents, no g_img, at (8, 49, 192, 640)
+            "plain_ms": times["k2"][1],
+            "bound_ms": k2_bound,
+            "bound_by": k2_by,
+            "library_ms": None,
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}))

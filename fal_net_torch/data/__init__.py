@@ -1,1 +1,2 @@
-"""Host data helpers of the serving path (normalization)."""
+"""Host data path: normalization, stereo co-transforms, the bundled split
+lists, the training dataset and the batch loader."""

@@ -1,0 +1,52 @@
+"""Reconstruction (photometric + perceptual) loss (counterpart of
+fal_net_tpu/losses/photometric.py).
+
+Reference: ``rec_loss_fnc`` / ``perceptual_loss`` (loss_functions.py:52-67):
+
+  rec = mean(mask * |synth - label|)
+      + a_p * sum_{i<3} MSE(vgg_i(mask*synth + (1-mask)*label), vgg_i(label))
+
+The composited image routes gradients only through the occlusion-visible
+region; ``vgg_label`` features are computed once per step by the caller.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import torch
+
+
+def perceptual_loss(
+    out_features: Sequence[torch.Tensor],
+    label_features: Sequence[torch.Tensor],
+    layer: Optional[int] = None,
+) -> torch.Tensor:
+    if layer is not None:
+        return torch.mean(torch.square(out_features[layer] - label_features[layer]))
+    total = 0.0
+    for i in range(3):
+        total = total + torch.mean(torch.square(out_features[i] - label_features[i]))
+    return total
+
+
+def rec_loss(
+    mask,
+    synth: torch.Tensor,
+    label: torch.Tensor,
+    vgg_label: Optional[Sequence[torch.Tensor]],
+    a_p: float,
+    vgg_apply: Optional[Callable[[torch.Tensor], Sequence[torch.Tensor]]] = None,
+) -> torch.Tensor:
+    """Masked L1 + optional perceptual term.
+
+    ``mask`` may be a plain scalar 1 (stage-1 left-only training,
+    Train_Stage1_K.py:246) or a (B,1,H,W) occlusion mask (stage 2).
+    ``vgg_apply`` maps an image to its VGG feature tuple; required when
+    ``a_p > 0`` and ``vgg_label`` is given.
+    """
+    loss = torch.mean(mask * torch.abs(synth - label))
+    if a_p > 0 and vgg_label is not None:
+        composited = mask * synth + (1 - mask) * label
+        loss = loss + a_p * perceptual_loss(vgg_apply(composited), vgg_label)
+    return loss

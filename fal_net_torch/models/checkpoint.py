@@ -45,18 +45,25 @@ def save_checkpoint(path: str, model: FalNet) -> None:
     torch.save({"m_model": model.spec.torch_name, "state_dict": model.state_dict()}, path)
 
 
+def read_state_dict(path: str) -> Dict[str, Any]:
+    """The state_dict of a port ``.pt`` or reference ``.pth.tar`` (on the
+    CPU, ``module.`` prefixes stripped)."""
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    return strip_data_parallel(data["state_dict"] if "state_dict" in data else data)
+
+
 def load_checkpoint(
     path: str,
     *,
     variant: Optional[str] = None,
     num_levels: Optional[int] = None,
-    device: Union[str, torch.device, None] = None,
+    device: Union[str, torch.device] = "cuda",
 ) -> FalNet:
-    """Build the model a checkpoint holds and load its weights;
-    ``variant`` / ``num_levels`` override what the checkpoint says."""
-    data = torch.load(path, map_location="cpu", weights_only=True)
-    sd = strip_data_parallel(data["state_dict"] if "state_dict" in data else data)
+    """Build the model a checkpoint holds on ``device`` (the GPU unless the
+    caller asks for the CPU) and load its weights; ``variant`` /
+    ``num_levels`` override what the checkpoint says."""
+    sd = read_state_dict(path)
     spec = resolve_variant(variant) if variant else detect_variant(sd)
-    model = create_model(spec.name, num_levels or sd["conv0.weight"].shape[0])
+    model = create_model(spec.name, num_levels or sd["conv0.weight"].shape[0], device=device)
     model.load_state_dict(sd)
-    return model.to(device) if device is not None else model
+    return model

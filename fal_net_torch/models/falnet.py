@@ -30,6 +30,7 @@ from fal_net_torch.models.backbone import VARIANTS, FalNetBackbone, VariantSpec
 from fal_net_torch.models.layers import conv, init_conv
 from fal_net_torch.ops.med import MedOutputs, med_outputs
 from fal_net_torch.ops.med_kernel import med_outputs_fused
+from fal_net_torch.utils.device import resolve_device
 
 Bound = Union[float, torch.Tensor]
 MED_IMPLS = ("auto", "fused", "reference")
@@ -97,12 +98,14 @@ def create_model(
     num_levels: Optional[int] = None,
     *,
     med_impl: str = "auto",
-    device: Union[str, torch.device, None] = None,
+    device: Union[str, torch.device] = "cuda",
     generator: Optional[torch.Generator] = None,
 ) -> FalNet:
     """Build a FAL-net variant with weights drawn from ``generator`` (a CPU
-    ``torch.Generator``; the global one if None), then move it to ``device``."""
+    ``torch.Generator``; the global one if None) on ``device``: the GPU
+    unless the caller asks for the CPU.  Without a card, "cuda" raises."""
+    device = resolve_device(device)
     spec = resolve_variant(variant)
     model = FalNet(spec, num_levels or spec.default_levels, med_impl=med_impl)
     model.reset_parameters(generator)
-    return model.to(device) if device is not None else model
+    return model.to(device)

@@ -1,6 +1,7 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
-At first use, ``fal_net_torch/csrc/*.cu`` is compiled for sm_90a into one
+At first use, each ``fal_net_torch/csrc/*.cu`` is compiled for sm_90a by
+its own nvcc, all started together, and the objects are linked into one
 shared library with a plain C interface, under ``fal_net_torch/_build/``
 (git-ignored), named by a hash of the sources and flags so that a changed
 source rebuilds and an unchanged one loads at once.  A missing ``nvcc`` or
@@ -17,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -24,7 +26,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -63,6 +65,14 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"fal_net_torch_{h.hexdigest()[:16]}.so")
 
 
+def _run(cmd: list[str]) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise BuildError(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}")
+    return log
+
+
 def build() -> tuple[str, str]:
     """Compile the sources unless the hashed library exists.
 
@@ -73,17 +83,21 @@ def build() -> tuple[str, str]:
         return out, ""
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise BuildError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}"
-        )
+    tmp = f"{out}.{os.getpid()}"
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src] for src, obj in zip(_sources(), objs)]
+    try:
+        with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+            logs = list(pool.map(_run, cmds))
+        logs.append(_run([nvcc, "-shared", "-o", f"{tmp}.tmp", *objs]))
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    log = "".join(logs)
     with open(out[: -len(".so")] + ".log", "w") as f:
         f.write(log)
-    os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+    os.replace(f"{tmp}.tmp", out)  # atomic: a concurrent build never loads a partial file
     return out, log
 
 
@@ -93,6 +107,7 @@ def load_library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.med_fwd.argtypes = [p] * 7 + [i] * 9 + [p]
-    lib.med_fwd.restype = i
+    for fn in (lib.med_fwd, lib.med_bwd):
+        fn.argtypes = [p] * 7 + [i] * 9 + [p]
+        fn.restype = i
     return lib

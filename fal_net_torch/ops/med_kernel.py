@@ -1,12 +1,15 @@
-"""Wrapper of the CUDA MED forward kernel (``csrc/med_fwd.cu``).
+"""Wrappers of the CUDA MED kernels: K1, the forward (``csrc/med_fwd.cu``),
+and K2, its backward (``csrc/med_bwd.cu``).
 
-The kernel replaces fal_net_tpu/ops/med_pallas.py::_fwd_kernel.  It takes
-CUDA fp32 contiguous NCHW tensors and disparity bounds that are numbers,
-0-d tensors or per-sample (B,) tensors; anything else raises here.  The
-plain version is :func:`fal_net_torch.ops.med.med_outputs`.
+K1 replaces fal_net_tpu/ops/med_pallas.py::_fwd_kernel and K2 replaces
+``_bwd_kernel``.  They take CUDA fp32 contiguous NCHW tensors and disparity
+bounds that are numbers, 0-d tensors or per-sample (B,) tensors; anything
+else raises here.  The plain versions are
+:func:`fal_net_torch.ops.med.med_outputs` and
+:func:`fal_net_torch.ops.med_vjp.med_vjp`.
 
-``MedForward.launches`` counts the kernel's launches, so that a run can show
-that its main path went through the kernel.
+``MedForward.launches`` and ``MedForward.bwd_launches`` count the launches of
+K1 and K2, so that a run can show that its main path went through them.
 """
 
 from __future__ import annotations
@@ -95,6 +98,23 @@ def _check(logits, image, min_disp, max_disp, want_disp, want_pan, want_subocc):
         raise ValueError(f"W={w} needs {smem} B of shared memory, above {MAX_SMEM_BYTES}")
 
 
+def _check_bwd(logits, image, g_disp, g_pan):
+    """The cotangents K2 reads: contiguous CUDA fp32 of disp's and pan's
+    shapes; its shared memory (2N + 3W for disp, (3 + 2C)W for pan floats)."""
+    b, n, h, w = logits.shape
+    c = image.shape[1]
+    for name, g, ch in (("g_disp", g_disp, 1), ("g_pan", g_pan, c)):
+        if g is None:
+            continue
+        if g.shape != (b, ch, h, w) or not g.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {(b, ch, h, w)} tensor, got {tuple(g.shape)}")
+        if g.device != logits.device or g.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 on {logits.device}, got {g.dtype} on {g.device}")
+    smem = 4 * (2 * n + (3 * w if g_disp is not None else 0) + ((3 + 2 * c) * w if g_pan is not None else 0))
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"W={w} needs {smem} B of shared memory in K2, above {MAX_SMEM_BYTES}")
+
+
 def _launch(logits, image, tables, tab_stride, want_disp, want_pan, want_subocc):
     from fal_net_torch.ops._build import load_library
 
@@ -122,24 +142,58 @@ def _launch(logits, image, tables, tab_stride, want_disp, want_pan, want_subocc)
     return disp, pan, mask_l, mask_r
 
 
-class MedForward(torch.autograd.Function):
-    """K1 as an autograd node.  The masks are stop-gradient; the gradient of
-    disp and pan is the backward kernel, still to be ported."""
+def _launch_bwd(logits, image, g_disp, g_pan, tables, tab_stride, image_grad):
+    from fal_net_torch.ops._build import load_library
 
-    launches = 0
+    lib = load_library()
+    b, n, h, w = logits.shape
+    c = image.shape[1]
+    want_gimg = image_grad and g_pan is not None
+    g_logits = torch.empty_like(logits)
+    g_image = torch.empty_like(image) if want_gimg else None
+    dptr = lambda t: 0 if t is None else t.data_ptr()
+    with torch.cuda.device(logits.device):
+        err = lib.med_bwd(
+            logits.data_ptr(), image.data_ptr(), dptr(g_disp), dptr(g_pan),
+            g_logits.data_ptr(), dptr(g_image), tables.data_ptr(), tab_stride,
+            b, n, c, h, w, int(g_disp is not None), int(g_pan is not None), int(want_gimg),
+            torch.cuda.current_stream(logits.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"med_bwd launch failed: CUDA error {err}")
+    MedForward.bwd_launches += 1
+    return g_logits, g_image
+
+
+class MedForward(torch.autograd.Function):
+    """K1 as an autograd node whose backward is K2.  The masks are
+    stop-gradient; only disp and pan carry cotangents, and an output that
+    got none (unrequested or unused) adds no term."""
+
+    launches = 0  # K1
+    bwd_launches = 0  # K2
 
     @staticmethod
     def forward(ctx, logits, image, tables, tab_stride, want_disp, want_pan, want_subocc):
         outs = _launch(logits, image, tables, tab_stride, want_disp, want_pan, want_subocc)
         ctx.mark_non_differentiable(*(t for t in outs[2:] if t is not None))
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(logits, image, tables)
+        ctx.tab_stride = tab_stride
         return outs
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "the MED backward kernel (K2, fal_net_tpu/ops/med_pallas.py::"
-            "_bwd_kernel) is not ported yet; train with med_impl='reference'"
+    def backward(ctx, g_disp, g_pan, _g_mask_l, _g_mask_r):
+        if g_disp is None and g_pan is None:
+            return (None,) * 7
+        logits, image, tables = ctx.saved_tensors
+        g_disp = None if g_disp is None else g_disp.contiguous()
+        g_pan = None if g_pan is None else g_pan.contiguous()
+        _check_bwd(logits, image, g_disp, g_pan)
+        g_logits, g_image = _launch_bwd(
+            logits, image, g_disp, g_pan, tables, ctx.tab_stride, ctx.needs_input_grad[1]
         )
+        return g_logits, g_image, None, None, None, None, None
 
 
 def med_outputs_fused(
@@ -163,3 +217,24 @@ def med_outputs_fused(
         logits, image, tables, tab_stride, ret_disp, ret_pan, ret_subocc
     )
     return MedOutputs(pan=pan, disp=disp, maskL=mask_l, maskR=mask_r)
+
+
+def med_vjp_fused(
+    logits: torch.Tensor,
+    image: torch.Tensor,
+    min_disp,
+    max_disp,
+    g_disp,
+    g_pan,
+    *,
+    image_grad: bool = True,
+):
+    """K2 called directly: (g_logits, g_image) of the MED head's disp and pan,
+    the same function as :func:`fal_net_torch.ops.med_vjp.med_vjp`.  A None
+    cotangent adds no term; g_image is None without ``image_grad`` or g_pan."""
+    want_disp, want_pan = g_disp is not None, g_pan is not None
+    _check(logits, image, min_disp, max_disp, want_disp, want_pan, False)
+    _check_bwd(logits, image, g_disp, g_pan)
+    _, n, _, w = logits.shape
+    tables, tab_stride = _device_tables(min_disp, max_disp, n, w, logits.device)
+    return _launch_bwd(logits, image, g_disp, g_pan, tables, tab_stride, image_grad)

@@ -1,7 +1,8 @@
-"""Guards of the port: no JAX in fal_net_torch, no silent CPU or plain-head
-stand-in for the CUDA kernel, a clear build error without nvcc, and
-chip_smoke.py refusing to run without a GPU.  The last test needs a GPU and
-skips without one."""
+"""Guards of the port: no JAX in fal_net_torch, entry points that run on the
+GPU unless asked for the CPU, no silent CPU or plain stand-in for the CUDA
+kernels, a MED kernel gate that raises, a clear build error without nvcc,
+and chip_smoke.py refusing to run without a GPU.  The tests marked cuda need
+a GPU and skip without one."""
 
 import os
 import shutil
@@ -15,7 +16,9 @@ import torch
 from fal_net_torch.models import create_model
 from fal_net_torch.ops import _build
 from fal_net_torch.ops.med import med_outputs
-from fal_net_torch.ops.med_kernel import MedForward, med_outputs_fused
+from fal_net_torch.ops import med_kernel, med_selfcheck
+from fal_net_torch.ops.med_kernel import MedForward, med_outputs_fused, med_vjp_fused
+from fal_net_torch.ops.med_vjp import med_vjp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -36,10 +39,14 @@ import fal_net_torch
 for m in pkgutil.walk_packages(fal_net_torch.__path__, "fal_net_torch."):
     importlib.import_module(m.name)
 from fal_net_torch.models import create_model
-model = create_model("tiny", 5, generator=torch.Generator().manual_seed(0))
+from fal_net_torch.train.stages import stage1_loss
+model = create_model("tiny", 5, generator=torch.Generator().manual_seed(0), device="cpu")
 with torch.no_grad():
     out = model(torch.zeros(1, 3, 32, 64), 2.0, 30.0, ret_disp=True, ret_pan=True, ret_subocc=True)
 assert torch.isfinite(out.disp).all()
+batch = {"left": torch.zeros(1, 3, 32, 64), "right": torch.zeros(1, 3, 32, 64)}
+loss, _ = stage1_loss(model, batch, min_disp=2.0, max_disp=30.0, a_p=0.0, a_sm=0.1)
+loss.backward()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "fal_net_tpu"))
 print("IMPORTED", bad)
 assert not bad, bad
@@ -50,7 +57,7 @@ assert not bad, bad
 
 
 def test_fused_head_raises_on_cpu_tensors():
-    model = create_model("tiny", 5, med_impl="fused")
+    model = create_model("tiny", 5, med_impl="fused", device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         model(torch.zeros(1, 3, 32, 64), 2.0, 30.0, ret_disp=True)
     logits, image = torch.zeros(1, 5, 4, 16), torch.zeros(1, 3, 4, 16)
@@ -65,6 +72,60 @@ def test_fused_head_raises_on_cpu_tensors():
     with pytest.raises(TypeError, match="number or a tensor"):
         med_outputs_fused(logits, image, "2", 30.0)
     assert MedForward.launches == launches
+
+
+def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
+    """create_model, load_checkpoint and cli.train default to the GPU; without
+    one they raise instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_model("tiny", 5)
+    from fal_net_torch.cli import train
+    from fal_net_torch.models.checkpoint import load_checkpoint, save_checkpoint
+
+    path = str(tmp_path / "tiny.pt")
+    save_checkpoint(path, create_model("tiny", 5, device="cpu"))
+    with pytest.raises(RuntimeError, match="is_available"):
+        load_checkpoint(path)
+    with pytest.raises(RuntimeError, match="is_available"):
+        train.main(["--data_root", str(tmp_path), "--model", "tiny", "--a_p", "0"])
+
+
+def test_k2_raises_on_cpu_tensors():
+    logits, image = torch.zeros(1, 5, 4, 16), torch.zeros(1, 3, 4, 16)
+    g_disp, g_pan = torch.zeros(1, 1, 4, 16), torch.zeros(1, 3, 4, 16)
+    launches = MedForward.bwd_launches
+    with pytest.raises(ValueError, match="CUDA"):
+        med_vjp_fused(logits, image, 2.0, 30.0, g_disp, g_pan)
+    assert MedForward.bwd_launches == launches
+
+
+def _plain_kernels(monkeypatch, offset=0.0):
+    """Stand the plain versions in for K1 and K2 (shifted by ``offset``), so
+    that the gate runs on the CPU."""
+    def fwd(*a, **kw):
+        out = med_outputs(*a, **kw)
+        return out._replace(pan=out.pan + offset)
+
+    def bwd(*a, **kw):
+        g_logits, g_image = med_vjp(*a, **kw)
+        return g_logits + offset, g_image
+
+    monkeypatch.setattr(med_kernel, "med_outputs_fused", fwd)
+    monkeypatch.setattr(med_kernel, "med_vjp_fused", bwd)
+
+
+def test_med_selfcheck_passes_agreeing_kernels(monkeypatch):
+    _plain_kernels(monkeypatch)
+    assert med_selfcheck.med_selfcheck(8, 48, 5, [2.0], [30.0], "cpu") == 0.0
+    assert med_selfcheck.med_selfcheck(8, 48, 5, [2.0, -2.0], [30.0, -30.0], "cpu") == 0.0
+
+
+def test_med_selfcheck_raises_on_disagreement(monkeypatch):
+    _plain_kernels(monkeypatch, offset=1e-2)
+    with pytest.raises(med_selfcheck.MedSelfcheckError, match="pan disagrees"):
+        med_selfcheck.med_selfcheck(8, 48, 5, [2.0], [30.0], "cpu")
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -137,3 +198,42 @@ def test_auto_takes_kernel_for_tensor_bounds_on_gpu(cuda_device):
         ref = want(left, mn, mx, ret_disp=True, ret_pan=True)
     torch.testing.assert_close(got.disp, ref.disp, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(got.pan, ref.pan, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_sample", [False, True])
+@pytest.mark.parametrize("want_disp,want_pan,image_grad", [(True, True, False), (True, True, True), (True, False, False), (False, True, True)])
+def test_med_bwd_kernel_matches_plain_on_gpu(cuda_device, want_disp, want_pan, image_grad, per_sample):
+    rng = np.random.default_rng(0)
+    draw = lambda c: torch.from_numpy(rng.standard_normal((2, c, 16, 300), np.float32)).to(cuda_device)
+    logits, image = draw(49), draw(3)
+    g_disp = draw(1) if want_disp else None
+    g_pan = draw(3) if want_pan else None
+    mn, mx = 2.0, 300.0
+    if per_sample:
+        mn, mx = torch.tensor([2.0, -1.0], device=cuda_device), torch.tensor([300.0, -30.0], device=cuda_device)
+    got = med_vjp_fused(logits, image, mn, mx, g_disp, g_pan, image_grad=image_grad)
+    torch.cuda.synchronize()
+    want = med_vjp(logits, image, mn, mx, g_disp, g_pan, image_grad=image_grad)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5)
+    assert (got[1] is None) == (want[1] is None)
+    if want[1] is not None:
+        torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_training_step_launches_k1_and_k2_once_on_gpu(cuda_device):
+    """One stage-1 backward through the model: one K1 and one K2 launch, and
+    the logits' gradient equals the plain VJP's on the same logits."""
+    from fal_net_torch.train.stages import stage1_loss
+
+    model = create_model("tiny", 9, generator=torch.Generator().manual_seed(0), device=cuda_device)
+    rng = np.random.default_rng(0)
+    draw = lambda: torch.from_numpy(rng.standard_normal((2, 3, 32, 64), np.float32)).to(cuda_device)
+    batch = {"left": draw(), "right": draw()}
+    k1, k2 = MedForward.launches, MedForward.bwd_launches
+    loss, _ = stage1_loss(model, batch, min_disp=2.0, max_disp=30.0, a_p=0.0, a_sm=0.1)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (MedForward.launches - k1, MedForward.bwd_launches - k2) == (1, 1)
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())

@@ -41,17 +41,17 @@ def _assert_trees_equal(a, b):
 
 @pytest.mark.parametrize("variant,num_levels", sorted(EXPECTED_PARAM_COUNTS))
 def test_param_count(variant, num_levels):
-    model = create_model(variant, num_levels, generator=torch.Generator().manual_seed(0))
+    model = create_model(variant, num_levels, generator=torch.Generator().manual_seed(0), device="cpu")
     assert sum(p.numel() for p in model.parameters()) == EXPECTED_PARAM_COUNTS[(variant, num_levels)]
 
 
 def test_registry_names():
     for name in ("FAL_netA", "FAL_netB", "FAL_netC", "A", "B", "C", "falnet_a", "falnet_b", "falnet_c"):
-        model = registry.get(name)
+        model = registry.get(name, device="cpu")
         assert model.num_levels == JAX_VARIANTS[name[-1].upper()].default_levels
         assert model.spec.name == name[-1].upper()
     with pytest.raises(ValueError, match="unknown variant"):
-        registry.get("FAL_netD")
+        registry.get("FAL_netD", device="cpu")
 
 
 @pytest.mark.parametrize("variant", ["A", "B", "C", "tiny"])
@@ -67,12 +67,12 @@ def test_weights_round_trip(variant):
     rng = np.random.default_rng(0)
     jax_params = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
 
-    port = create_model(variant, num_levels)
+    port = create_model(variant, num_levels, device="cpu")
     port.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict_from_jax(jax_params, variant).items()})
     assert detect_variant(port.state_dict()).name == variant
     _assert_trees_equal(convert_state_dict(_numpy_sd(port), JAX_VARIANTS[variant]), jax_params)
 
-    port = create_model(variant, num_levels, generator=torch.Generator().manual_seed(1))
+    port = create_model(variant, num_levels, generator=torch.Generator().manual_seed(1), device="cpu")
     sd = _numpy_sd(port)
     back = state_dict_from_jax(convert_state_dict(sd, JAX_VARIANTS[variant]), variant)
     assert back.keys() == sd.keys()
@@ -95,7 +95,7 @@ def test_forward_matches_jax(rng, variant, h, w):
     )
     want_logits = np.asarray(inter["intermediates"]["logits_1x1"]["__call__"][0])
 
-    port = create_model(variant, num_levels)
+    port = create_model(variant, num_levels, device="cpu")
     port.load_state_dict(
         {k: torch.from_numpy(v) for k, v in state_dict_from_jax(variables["params"], variant).items()}
     )
@@ -112,8 +112,8 @@ def test_forward_matches_jax(rng, variant, h, w):
 
 def test_med_impl_reference_matches_auto_on_cpu(rng):
     """On CPU tensors "auto" selects the plain head, the same as "reference"."""
-    auto = create_model("tiny", 5, generator=torch.Generator().manual_seed(0))
-    ref = create_model("tiny", 5, med_impl="reference")
+    auto = create_model("tiny", 5, generator=torch.Generator().manual_seed(0), device="cpu")
+    ref = create_model("tiny", 5, med_impl="reference", device="cpu")
     ref.load_state_dict(auto.state_dict())
     left = torch.from_numpy(rng.standard_normal((1, 3, 32, 64)).astype(np.float32))
     with torch.no_grad():

@@ -34,7 +34,7 @@ def models():
     variables = jax_model.init(
         jax.random.PRNGKey(0), jnp.zeros((1, H, W, 3)), 2.0, 30.0, ret_disp=True
     )
-    port = create_model("tiny", N)
+    port = create_model("tiny", N, device="cpu")
     port.load_state_dict(
         {k: torch.from_numpy(v) for k, v in state_dict_from_jax(variables["params"], "tiny").items()}
     )
@@ -129,7 +129,7 @@ def test_load_reference_style_checkpoint(models, tmp_path):
          "state_dict": {f"module.{k}": v for k, v in port.state_dict().items()}},
         path,
     )
-    model = load_checkpoint(path)
+    model = load_checkpoint(path, device="cpu")
     assert model.spec.name == "tiny" and model.num_levels == N
     for k, v in port.state_dict().items():
         torch.testing.assert_close(model.state_dict()[k], v, rtol=0, atol=0)
