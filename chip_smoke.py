@@ -40,7 +40,13 @@ Phases, each reported on its own line; any failure exits nonzero:
   8. convergence (scripts/verify_train_tpu.py on the card): the tiny model,
      N=9 over 2..18 px, 64x128, batch 4, Adam 5e-4 (beta1 0.5), 400 stage-1
      steps through K1 and K2 on smooth stereo shifted by 6 px; the median
-     disparity must land within half a level spacing of 6.00 px.
+     disparity must land within half a level spacing of 6.00 px;
+  9. the ported kernel scripts (``fal_net_torch.scripts``), TF32 off: K3
+     (``proto_conv_kernel``) and K4 (``proto_conv_kernel_v2``) against their
+     plain versions and ``F.conv2d`` at rtol 1e-5, atol 1e-4 in each of the
+     JAX scripts' cases, timed beside cuDNN with TF32 off and on; K5
+     (``probe_roll_bug``) exact over the probe's sweep and wrapping shifts;
+     each launch count must equal the calls the scripts made.
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -66,6 +72,7 @@ from fal_net_torch.ops import _build
 from fal_net_torch.ops.med import med_outputs
 from fal_net_torch.ops.med_kernel import MedForward, med_outputs_fused, med_vjp_fused
 from fal_net_torch.ops.med_vjp import med_vjp
+from fal_net_torch.utils.timing import median_ms, tf32
 
 # (rtol, atol) of the TPU kernel's own tests (tests/test_med_pallas.py:34-37)
 TOL = {"disp": (1e-5, 1e-4), "pan": (1e-4, 1e-4), "maskL": (1e-4, 1e-4), "maskR": (1e-4, 1e-4)}
@@ -112,6 +119,8 @@ GRAD_MODES = {
 TRAIN_H, TRAIN_W, TRAIN_STEPS, KITTI_H, KITTI_W, KITTI_PAIRS, KITTI_DISP = 192, 640, 4, 375, 1242, 32, 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores, NVIDIA data sheet
+TF32_FLOPS = 494.7e12  # H100 SXM TF32 tensor cores, dense, NVIDIA data sheet
+CONV_TIMED = (8, 64, 192, 640, 64)  # the conv case whose times go into the kernels line
 # fp32 operations per logit, counted from the kernel sources: K1 disp-only
 # (compare, subtract, exp, two multiply-adds); K2 in the training mode (pass 1
 # ~25 with two exps, pass 2 ~35 with three exps, C=3)
@@ -143,22 +152,6 @@ def compare(got, want, label: str) -> float:
             )
     line(f"  {label}: " + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
     return worst
-
-
-def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def bound(nbytes: int, ops: float):
@@ -690,15 +683,11 @@ def phase_profile(model, lefts, card: str, out_dir: str, dev, seed: int, reps: i
             f"FAL_netB N=49 {SERVE_H}x{SERVE_W} disp-only B={b}",
             os.path.join(out_dir, f"profile_b{b}.txt"), card, "fwd", no_grad=True,
         )
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        with torch.inference_mode():
-            for b in (BATCH, 1):
-                ms = median_ms(lambda: model(lefts[b], 2.0, 300.0, ret_disp=True))
-                line(f"phase 6 forward TF32 off FAL_netB N=49 {SERVE_H}x{SERVE_W} disp B={b}: "
-                     f"{ms:.3f} ms [{card}]")
-    finally:
-        torch.backends.cudnn.allow_tf32 = True
+    with tf32(False), torch.inference_mode():
+        for b in (BATCH, 1):
+            ms = median_ms(lambda: model(lefts[b], 2.0, 300.0, ret_disp=True))
+            line(f"phase 6 forward TF32 off FAL_netB N=49 {SERVE_H}x{SERVE_W} disp B={b}: "
+                 f"{ms:.3f} ms [{card}]")
     tmodel, opt, sched, batch = train_setup(dev, seed)
     profile_kinds(
         train_step_fn(tmodel, opt, sched, batch), reps,
@@ -706,6 +695,63 @@ def phase_profile(model, lefts, card: str, out_dir: str, dev, seed: int, reps: i
         os.path.join(out_dir, "profile_train_step.txt"), card, "step", no_grad=False,
     )
     line(f"phase 6 peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+
+
+def phase_scripts(card: str) -> list[dict]:
+    """Phase 9: the ported kernel scripts' main() on the card; returns the
+    kernels line's entries of K3, K4 and K5."""
+    from fal_net_torch.ops import conv3x3, roll_probe
+    from fal_net_torch.scripts import probe_roll_bug, proto_conv_kernel, proto_conv_kernel_v2
+
+    for counts in (conv3x3.LAUNCHES, roll_probe.LAUNCHES):
+        counts.update(dict.fromkeys(counts, 0))
+    t0 = time.perf_counter()
+    with tf32(False):  # TF32 error (~1e-3 at K = 864) would swamp fp32 agreement
+        k3 = proto_conv_kernel.main([])
+        k4 = proto_conv_kernel_v2.main([])
+        k5 = probe_roll_bug.main([])
+    secs = time.perf_counter() - t0
+    if not k5["ok"]:
+        raise AssertionError("K5: ROLL PROBE: FAIL")
+    launches = {
+        "conv3x3_packed": conv3x3.LAUNCHES["conv3x3_packed"],
+        "conv3x3_v2": conv3x3.LAUNCHES["conv3x3_v2"],
+        "roll_window": roll_probe.LAUNCHES["roll_window"],
+    }
+    calls = {"conv3x3_packed": k3["calls"], "conv3x3_v2": k4["calls"], "roll_window": k5["calls"]}
+    if launches != calls:
+        raise AssertionError(f"launch counts {launches} differ from the calls made {calls}")
+    entries = []
+    for name, run, source, replaces in (
+        ("conv3x3_packed", k3, "fal_net_torch/csrc/conv3x3_packed.cu", "scripts/proto_conv_kernel.py:42"),
+        ("conv3x3_v2", k4, "fal_net_torch/csrc/conv3x3_v2.cu", "scripts/proto_conv_kernel_v2.py:41"),
+    ):
+        (c,) = [c for c in run["cases"] if c["case"] == CONV_TIMED]
+        b_ms, b_by = bound(c["bytes"], c["flops"])
+        line(f"phase 9 {name} {CONV_TIMED}: kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, cuDNN fp32 "
+             f"{c['cudnn_fp32_ms']:.4f} ms, TF32 {c['cudnn_tf32_ms']:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+             f"({c['flops'] / 1e9:.2f} GFLOP at {FP32_FLOPS / 1e12:.0f} TFLOP/s fp32, {c['bytes'] / 1e6:.1f} MB), "
+             f"TF32 tensor-core bound {c['flops'] / TF32_FLOPS * 1e3:.4f} ms at {TF32_FLOPS / 1e12:.1f} TFLOP/s; "
+             f"{launches[name]} launches over {len(run['cases'])} cases [{card}]")
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": max(x["err_plain"] for x in run["cases"]),
+            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": c["cudnn_fp32_ms"],  # F.conv2d with TF32 off, the kernel's precision
+        })
+    b_ms, b_by = bound(k5["bytes"], 0)
+    line(f"phase 9 roll_window (8, 128) wp={probe_roll_bug.TIMED_WP}: kernel {k5['ms']:.4f} ms, plain "
+         f"{k5['plain_ms']:.4f} ms, bound {b_ms:.6f} ms by {b_by}; {launches['roll_window']} launches [{card}]")
+    entries.append({
+        "name": "roll_window", "route": "cuda", "source": "fal_net_torch/csrc/roll_probe.cu",
+        "replaces": "scripts/probe_roll_bug.py:25", "launches": launches["roll_window"],
+        "max_abs_err": k5["max_abs_err"], "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    })
+    line(f"phase 9 scripts: K3, K4 agree with their plain versions and cuDNN fp32 in every case, K5 exact, "
+         f"launches {launches} in {secs:.2f} s")
+    return entries
 
 
 def main() -> None:
@@ -728,6 +774,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as workdir:
         train = phase_train(rng, dev, workdir)
     phase_converge(dev)
+    script_kernels = phase_scripts(card)
     k1_bound, k1_by = bound(times["disp"][2], OPS_PER_LOGIT["med_fwd"] * times["disp_logits"])
     k2_bound, k2_by = bound(times["k2_bytes"], OPS_PER_LOGIT["med_bwd"] * times["k2_logits"])
     print(json.dumps({"kernels": [
@@ -757,6 +804,7 @@ def main() -> None:
             "bound_by": k2_by,
             "library_ms": None,
         },
+        *script_kernels,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

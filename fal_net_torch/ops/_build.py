@@ -24,6 +24,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
+MAX_SMEM_BYTES = 232_448  # dynamic shared memory one Hopper block may use
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -109,5 +110,9 @@ def load_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.med_fwd, lib.med_bwd):
         fn.argtypes = [p] * 7 + [i] * 9 + [p]
+    lib.conv3x3_packed.argtypes = [p] * 3 + [i] * 5 + [p]
+    lib.conv3x3_v2.argtypes = [p] * 3 + [i] * 6 + [p]
+    lib.roll_window.argtypes = [p] * 3 + [i] * 4 + [p]
+    for fn in (lib.med_fwd, lib.med_bwd, lib.conv3x3_packed, lib.conv3x3_v2, lib.roll_window):
         fn.restype = i
     return lib

@@ -19,11 +19,11 @@ import numbers
 
 import torch
 
+from fal_net_torch.ops._build import MAX_SMEM_BYTES
 from fal_net_torch.ops.med import MedOutputs, disparity_levels
 
 MAX_PLANES = 128  # kMaxPlanes in med_fwd.cu
 MAX_CHANNELS = 4  # kMaxChannels in med_fwd.cu
-MAX_SMEM_BYTES = 232_448  # dynamic shared memory one Hopper block may use
 
 
 def plane_tables(min_disp, max_disp, num_levels: int, width: int, *, device=None) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """Guards of the port: no JAX in fal_net_torch, entry points that run on the
 GPU unless asked for the CPU, no silent CPU or plain stand-in for the CUDA
-kernels, a MED kernel gate that raises, a clear build error without nvcc,
+kernels (the MED kernels and the ported scripts' conv and roll kernels), a
+MED kernel gate that raises, a clear build error without nvcc,
 and chip_smoke.py refusing to run without a GPU.  The tests marked cuda need
 a GPU and skip without one."""
 
+import importlib
 import os
 import shutil
 import subprocess
@@ -16,7 +18,7 @@ import torch
 from fal_net_torch.models import create_model
 from fal_net_torch.ops import _build
 from fal_net_torch.ops.med import med_outputs
-from fal_net_torch.ops import med_kernel, med_selfcheck
+from fal_net_torch.ops import conv3x3, med_kernel, med_selfcheck, roll_probe
 from fal_net_torch.ops.med_kernel import MedForward, med_outputs_fused, med_vjp_fused
 from fal_net_torch.ops.med_vjp import med_vjp
 
@@ -99,6 +101,30 @@ def test_k2_raises_on_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         med_vjp_fused(logits, image, 2.0, 30.0, g_disp, g_pan)
     assert MedForward.bwd_launches == launches
+
+
+def test_script_kernels_raise_on_cpu_tensors():
+    """K3, K4 and K5 raise on CPU tensors instead of running their plain
+    versions, and count no launch."""
+    counts = dict(conv3x3.LAUNCHES), dict(roll_probe.LAUNCHES)
+    x, w = torch.zeros(1, 4, 8, 8), torch.zeros(2, 4, 3, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        conv3x3.conv3x3_packed(x, conv3x3.repack_weights(w))
+    with pytest.raises(ValueError, match="CUDA"):
+        conv3x3.conv3x3_v2(x, conv3x3.permuted_weights(w))
+    with pytest.raises(ValueError, match="CUDA"):
+        roll_probe.roll_window(torch.zeros(8, 128), torch.zeros(1, dtype=torch.int32), 384)
+    assert (dict(conv3x3.LAUNCHES), dict(roll_probe.LAUNCHES)) == counts
+
+
+@pytest.mark.parametrize("script", ["proto_conv_kernel", "proto_conv_kernel_v2", "probe_roll_bug"])
+def test_ported_scripts_need_cuda(script):
+    """The ported kernel scripts run on the card or raise; never on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the script would run for real")
+    module = importlib.import_module(f"fal_net_torch.scripts.{script}")
+    with pytest.raises(RuntimeError, match="is_available"):
+        module.main([])
 
 
 def _plain_kernels(monkeypatch, offset=0.0):
