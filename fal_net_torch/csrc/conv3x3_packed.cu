@@ -17,10 +17,7 @@
 //     three input rows it needs over the 130 columns of the tile's halo, in
 //     shared memory (64 KB, above the 48 KB default: opted in);
 //   * the zero padding is done in the staging: reads out of range store 0;
-//   * 8 warps each own 8 output channels and a lane owns the 4 columns
-//     lane + 32k, so the input reads of a warp are consecutive words (no
-//     bank conflicts) and its weight reads are two broadcast 16-byte loads
-//     per tap; each thread keeps an 8 x 4 register tile of sums.
+//   * each thread keeps an 8 x 4 register tile of sums (conv3x3_tile.cuh).
 // What bounds it on the card: operations.  At (8, 64, 192, 640) -> 64 the
 // conv is 72.5 GFLOP, 1.08 ms at the 67 TFLOP/s fp32 rate, against 0.15 ms
 // for its 503 MB; this simple kernel does 32 FMAs per 6 shared-memory
@@ -28,16 +25,13 @@
 
 #include <cuda_runtime.h>
 
+#include "conv3x3_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRC = 8;                 // output channels per thread (per warp)
-constexpr int kRX = 4;                 // columns per thread: lane + 32 k
-constexpr int kCoTile = 8 * kRC;       // 64 output channels per block
-constexpr int kXTile = 32 * kRX;       // 128 output columns per block
-constexpr int kHalo = kXTile + 2;      // staged input columns
-constexpr int kCiTile = 16;            // input channels per K chunk
-constexpr int kWs = kCoTile + 4;       // weight row stride: 16-byte aligned, fewer store conflicts
+using namespace conv3x3;
+
+constexpr int kCiTile = 16;  // input channels per K chunk
 constexpr int kSmemFloats = kCiTile * 9 * kWs + kCiTile * 3 * kHalo;
 
 __global__ void __launch_bounds__(kThreads)
@@ -50,25 +44,12 @@ __global__ void __launch_bounds__(kThreads)
   const int y = blockIdx.y;
   const int b = blockIdx.z / co_tiles;
   const int co0 = (blockIdx.z % co_tiles) * kCoTile;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int K = 9 * Cin;
   const float* xb = x + (size_t)b * Cin * H * W;
 
-  float acc[kRC][kRX];
-#pragma unroll
-  for (int r = 0; r < kRC; ++r)
-#pragma unroll
-    for (int k = 0; k < kRX; ++k) acc[r][k] = 0.f;
-
+  Tile acc;
+  zero_tile(acc);
   for (int c0 = 0; c0 < Cin; c0 += kCiTile) {
-    // weights of this chunk: ws[(cl * 9 + t) * kWs + co] = w2[co0 + co, t * Cin + c0 + cl];
-    // cl runs fastest, so the global reads are 64-byte runs
-    for (int i = threadIdx.x; i < kCiTile * 9 * kCoTile; i += kThreads) {
-      const int cl = i % kCiTile, t = (i / kCiTile) % 9, co = i / (kCiTile * 9);
-      const int ci = c0 + cl, cg = co0 + co;
-      ws[(cl * 9 + t) * kWs + co] =
-          (ci < Cin && cg < Cout) ? __ldg(w2 + (size_t)cg * K + t * Cin + ci) : 0.f;
-    }
+    stage_weights<kCiTile>(ws, w2, Cin, Cout, c0, co0);
     // input rows y-1, y, y+1 over columns [x0 - 1, x0 + kXTile + 1), zero outside
     for (int i = threadIdx.x; i < kCiTile * 3 * kHalo; i += kThreads) {
       const int j = i % kHalo, dy = (i / kHalo) % 3, cl = i / (3 * kHalo);
@@ -80,42 +61,12 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     const int nc = min(kCiTile, Cin - c0);
 #pragma unroll 2
-    for (int cl = 0; cl < nc; ++cl) {
+    for (int cl = 0; cl < nc; ++cl)
 #pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        const float* xr = xs + (cl * 3 + dy) * kHalo + lane;
-        float v[kRX][3];
-#pragma unroll
-        for (int k = 0; k < kRX; ++k)
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) v[k][dx] = xr[32 * k + dx];
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const float4* wr =
-              reinterpret_cast<const float4*>(ws + (cl * 9 + dy * 3 + dx) * kWs + warp * kRC);
-          const float4 a = wr[0], c = wr[1];
-          const float wv[kRC] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
-#pragma unroll
-          for (int r = 0; r < kRC; ++r)
-#pragma unroll
-            for (int k = 0; k < kRX; ++k) acc[r][k] = fmaf(wv[r], v[k][dx], acc[r][k]);
-        }
-      }
-    }
+      for (int dy = 0; dy < 3; ++dy) fma_row(acc, xs + (cl * 3 + dy) * kHalo, ws + (cl * 9 + dy * 3) * kWs);
     __syncthreads();
   }
-
-#pragma unroll
-  for (int r = 0; r < kRC; ++r) {
-    const int co = co0 + warp * kRC + r;
-    if (co >= Cout) break;
-    float* orow = out + (((size_t)b * Cout + co) * H + y) * W;
-#pragma unroll
-    for (int k = 0; k < kRX; ++k) {
-      const int xx = x0 + lane + 32 * k;
-      if (xx < W) orow[xx] = acc[r][k];
-    }
-  }
+  store_tile(acc, out, b, co0, y, x0, Cout, H, W);
 }
 
 }  // namespace
@@ -124,12 +75,12 @@ extern "C" {
 
 // Launch K3 on `stream`: x (B, Cin, H, W), w2 (Cout, 9*Cin) and out
 // (B, Cout, H, W), fp32 contiguous device buffers.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// cudaErrorInvalidValue, launching nothing, for sizes the grid cannot
+// hold; else cudaGetLastError() after the launch (0 on success).
 int conv3x3_packed(const float* x, const float* w2, float* out, int B, int Cin, int H, int W,
                    int Cout, void* stream) {
+  if (bad_sizes(B, Cin, H, W, Cout, H)) return (int)cudaErrorInvalidValue;
   const int co_tiles = (Cout + kCoTile - 1) / kCoTile;
-  if (B < 1 || Cin < 1 || H < 1 || W < 1 || Cout < 1 || H > 65535 || B * co_tiles > 65535)
-    return (int)cudaErrorInvalidValue;
   const size_t smem = kSmemFloats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(conv3x3_packed_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -7,9 +7,9 @@
 // g with g mod 3 == s, and output row r uses variant p = r mod 3, which maps
 // slot s to dy = (s - p) mod 3.  It keeps that kernel's design as the
 // Hopper analogue of what it does on the TPU:
-//   * a block owns (batch, 128 columns, 64 output channels, a band of
+//   * a block owns (batch, 128 columns, 64 output channels, a band of 16
 //     output rows) and walks down the band; grid
-//     (ceil(W/128), ceil(H/band), B * ceil(Cout/64));
+//     (ceil(W/128), ceil(H/16), B * ceil(Cout/64));
 //   * three input-row slots in shared memory (all Cin channels over the
 //     130 columns of the tile's halo) form a ring, so each output row loads
 //     one new input row instead of three;
@@ -20,11 +20,10 @@
 //     by swapping pointers, so no row is copied twice;
 //   * zero padding is done while staging: halo reads out of range store 0;
 //   * the weights of variant p are staged per chunk of 8 input channels,
-//     transposed to [(ci, s, dx)][co]; 8 warps each own 8 output channels
-//     and a lane the 4 columns lane + 32k, an 8 x 4 register tile of sums,
-//     as in K3.
+//     transposed to [(ci, s, dx)][co]; each thread keeps an 8 x 4 register
+//     tile of sums, as in K3 (conv3x3_tile.cuh).
 // Shared memory: 4 * Cin * 130 + 8 * 9 * 68 floats (153 KB at Cin = 64;
-// Cin <= 102 fits in a block's 227 KB).
+// Cin <= 102 fits in a block's 227 KB, and the C entry refuses more).
 // What bounds it on the card: operations, as K3 (1.08 ms for 72.5 GFLOP at
 // (8, 64, 192, 640) -> 64 at 67 TFLOP/s fp32, against 0.15 ms for the
 // bytes).  The ring saves input reads from L2, not arithmetic.
@@ -32,17 +31,16 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "conv3x3_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRC = 8;                 // output channels per thread (per warp)
-constexpr int kRX = 4;                 // columns per thread: lane + 32 k
-constexpr int kCoTile = 8 * kRC;       // 64 output channels per block
-constexpr int kXTile = 32 * kRX;       // 128 output columns per block
-constexpr int kHalo = kXTile + 2;      // staged input columns
-constexpr int kCiTile = 8;             // input channels per weight chunk
-constexpr int kWs = kCoTile + 4;       // weight row stride: 16-byte aligned, fewer store conflicts
+using namespace conv3x3;
+
+constexpr int kCiTile = 8;  // input channels per weight chunk
+constexpr int kBand = 16;   // output rows one block walks down
 constexpr int kWsFloats = kCiTile * 9 * kWs;
+constexpr size_t kMaxSmemBytes = 232448;  // dynamic shared memory one Hopper block may use
 
 // Start copying padded input row g (input row g - 1) of all Cin channels
 // over the tile's halo columns into buf, as 4-byte cp.async; out-of-range
@@ -64,18 +62,15 @@ __device__ __forceinline__ void load_row(float* buf, const float* __restrict__ x
 
 __global__ void __launch_bounds__(kThreads)
     conv3x3_v2_kernel(const float* __restrict__ x, const float* __restrict__ w3,
-                      float* __restrict__ out, int Cin, int H, int W, int Cout, int co_tiles,
-                      int band) {
+                      float* __restrict__ out, int Cin, int H, int W, int Cout, int co_tiles) {
   extern __shared__ float4 smem4[];
   float* ws = reinterpret_cast<float*>(smem4);  // [kCiTile * 9][kWs]
   float* rows = ws + kWsFloats;                 // 4 buffers of [Cin][kHalo]
   const int x0 = blockIdx.x * kXTile;
-  const int r0 = blockIdx.y * band;
-  const int r1 = min(r0 + band, H);
+  const int r0 = blockIdx.y * kBand;
+  const int r1 = min(r0 + kBand, H);
   const int b = blockIdx.z / co_tiles;
   const int co0 = (blockIdx.z % co_tiles) * kCoTile;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int K = 9 * Cin;
   const float* xb = x + (size_t)b * Cin * H * W;
 
   // slot[s] holds padded row g with g % 3 == s; stage receives the next row
@@ -94,60 +89,21 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int r = r0; r < r1; ++r) {
     const int p = r % 3;
-    const float* wp = w3 + (size_t)p * Cout * K;
-    float acc[kRC][kRX];
-#pragma unroll
-    for (int i = 0; i < kRC; ++i)
-#pragma unroll
-      for (int k = 0; k < kRX; ++k) acc[i][k] = 0.f;
-
+    const float* wp = w3 + (size_t)p * Cout * 9 * Cin;
+    Tile acc;
+    zero_tile(acc);
     for (int c0 = 0; c0 < Cin; c0 += kCiTile) {
       // ws[(cl * 9 + s * 3 + dx) * kWs + co] = w3[p, co0 + co, s*3*Cin + dx*Cin + c0 + cl]
-      for (int i = threadIdx.x; i < kCiTile * 9 * kCoTile; i += kThreads) {
-        const int cl = i % kCiTile, t = (i / kCiTile) % 9, co = i / (kCiTile * 9);
-        const int ci = c0 + cl, cg = co0 + co;
-        ws[(cl * 9 + t) * kWs + co] =
-            (ci < Cin && cg < Cout) ? __ldg(wp + (size_t)cg * K + t * Cin + ci) : 0.f;
-      }
+      stage_weights<kCiTile>(ws, wp, Cin, Cout, c0, co0);
       __syncthreads();
       const int nc = min(kCiTile, Cin - c0);
 #pragma unroll 2
-      for (int cl = 0; cl < nc; ++cl) {
+      for (int cl = 0; cl < nc; ++cl)
 #pragma unroll
-        for (int s = 0; s < 3; ++s) {
-          const float* xr = slot[s] + (c0 + cl) * kHalo + lane;
-          float v[kRX][3];
-#pragma unroll
-          for (int k = 0; k < kRX; ++k)
-#pragma unroll
-            for (int dx = 0; dx < 3; ++dx) v[k][dx] = xr[32 * k + dx];
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            const float4* wr =
-                reinterpret_cast<const float4*>(ws + (cl * 9 + s * 3 + dx) * kWs + warp * kRC);
-            const float4 a = wr[0], c = wr[1];
-            const float wv[kRC] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
-#pragma unroll
-            for (int i = 0; i < kRC; ++i)
-#pragma unroll
-              for (int k = 0; k < kRX; ++k) acc[i][k] = fmaf(wv[i], v[k][dx], acc[i][k]);
-          }
-        }
-      }
+        for (int s = 0; s < 3; ++s) fma_row(acc, slot[s] + (c0 + cl) * kHalo, ws + (cl * 9 + s * 3) * kWs);
       __syncthreads();  // ws is restaged; after the last chunk, slot[p] is free
     }
-
-#pragma unroll
-    for (int i = 0; i < kRC; ++i) {
-      const int co = co0 + warp * kRC + i;
-      if (co >= Cout) break;
-      float* orow = out + (((size_t)b * Cout + co) * H + r) * W;
-#pragma unroll
-      for (int k = 0; k < kRX; ++k) {
-        const int xx = x0 + lane + 32 * k;
-        if (xx < W) orow[xx] = acc[i][k];
-      }
-    }
+    store_tile(acc, out, b, co0, r, x0, Cout, H, W);
 
     if (r + 1 < r1) {
       // padded row r + 3 has landed in stage; it takes slot (r + 3) % 3 == p
@@ -175,23 +131,24 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" {
 
 // Launch K4 on `stream`: x (B, Cin, H, W), w3 (3, Cout, 9*Cin) and out
-// (B, Cout, H, W), fp32 contiguous device buffers; each block walks `band`
-// output rows.  Returns cudaGetLastError() after the launch (0 on success).
+// (B, Cout, H, W), fp32 contiguous device buffers.  Returns
+// cudaErrorInvalidValue, launching nothing, for sizes the grid or a block's
+// shared memory cannot hold (Cin > 102); else cudaGetLastError() after the
+// launch (0 on success).
 int conv3x3_v2(const float* x, const float* w3, float* out, int B, int Cin, int H, int W, int Cout,
-               int band, void* stream) {
-  const int co_tiles = (Cout + kCoTile - 1) / kCoTile;
-  const int bands = band > 0 ? (H + band - 1) / band : 0;
+               void* stream) {
+  const int bands = (H + kBand - 1) / kBand;
   const size_t smem = (kWsFloats + (size_t)4 * Cin * kHalo) * sizeof(float);
-  if (B < 1 || Cin < 1 || H < 1 || W < 1 || Cout < 1 || band < 1 || bands > 65535 ||
-      B * co_tiles > 65535 || smem > 232448)
-    return (int)cudaErrorInvalidValue;
+  if (bad_sizes(B, Cin, H, W, Cout, bands) || smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  const int co_tiles = (Cout + kCoTile - 1) / kCoTile;
   cudaError_t err = cudaFuncSetAttribute(conv3x3_v2_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W + kXTile - 1) / kXTile, bands, B * co_tiles);
   conv3x3_v2_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, w3, out, Cin, H, W, Cout, co_tiles, band);
+      x, w3, out, Cin, H, W, Cout, co_tiles);
   return (int)cudaGetLastError();
 }
 
 }  // extern "C"
+

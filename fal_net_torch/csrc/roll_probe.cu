@@ -19,6 +19,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr size_t kMaxSmemBytes = 232448;  // dynamic shared memory one Hopper block may use
 
 __global__ void __launch_bounds__(kThreads)
     roll_window_kernel(const float* __restrict__ x, const int* __restrict__ f,
@@ -45,12 +46,15 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" {
 
 // Launch K5 on `stream`: x and out (H, W) fp32, f one int32, all on the
-// device.  Needs 0 <= left, left + W <= wp.  Returns cudaGetLastError()
-// after the launch (0 on success).
+// device.  Returns cudaErrorInvalidValue, launching nothing, unless
+// 0 <= left, left + W <= wp and the row of wp floats fits a block's shared
+// memory (wp <= 58112); else cudaGetLastError() after the launch (0 on
+// success).
 int roll_window(const float* x, const int* f, float* out, int H, int W, int wp, int left,
                 void* stream) {
-  if (H < 1 || W < 1 || left < 0 || left + W > wp) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)wp * sizeof(float);
+  if (H < 1 || W < 1 || left < 0 || (long long)left + W > wp || smem > kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(roll_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

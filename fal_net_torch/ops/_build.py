@@ -3,10 +3,11 @@
 At first use, each ``fal_net_torch/csrc/*.cu`` is compiled for sm_90a by
 its own nvcc, all started together, and the objects are linked into one
 shared library with a plain C interface, under ``fal_net_torch/_build/``
-(git-ignored), named by a hash of the sources and flags so that a changed
-source rebuilds and an unchanged one loads at once.  A missing ``nvcc`` or
-a failed build raises :class:`BuildError` with the compiler's output; no
-caller falls back to a plain version instead.
+(git-ignored), named by a hash of the sources, their headers (``*.cuh``)
+and the flags, so that a changed source rebuilds and an unchanged one loads
+at once.  A missing ``nvcc`` or a failed build raises :class:`BuildError`
+with the compiler's output; no caller falls back to a plain version
+instead.  :func:`launch` calls a C entry on the current stream.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import os
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
+
+import torch
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -60,7 +63,7 @@ def _sources() -> list[str]:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu*"))):  # sources and headers
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"fal_net_torch_{h.hexdigest()[:16]}.so")
@@ -110,9 +113,22 @@ def load_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.med_fwd, lib.med_bwd):
         fn.argtypes = [p] * 7 + [i] * 9 + [p]
-    lib.conv3x3_packed.argtypes = [p] * 3 + [i] * 5 + [p]
-    lib.conv3x3_v2.argtypes = [p] * 3 + [i] * 6 + [p]
+    for fn in (lib.conv3x3_packed, lib.conv3x3_v2):
+        fn.argtypes = [p] * 3 + [i] * 5 + [p]
     lib.roll_window.argtypes = [p] * 3 + [i] * 4 + [p]
     for fn in (lib.med_fwd, lib.med_bwd, lib.conv3x3_packed, lib.conv3x3_v2, lib.roll_window):
         fn.restype = i
     return lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the C entry ``name`` with ``args`` and the current stream of
+    ``device``, on that device; raise if it returns a CUDA error.  Every C
+    entry returns cudaErrorInvalidValue (1), launching nothing, for sizes
+    its kernel does not take."""
+    with torch.cuda.device(device):  # the runtime launches on the current device
+        err = getattr(load_library(), name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err == 1:
+        raise ValueError(f"{name}: sizes beyond the kernel's limits (cudaErrorInvalidValue)")
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")

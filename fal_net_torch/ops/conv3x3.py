@@ -15,9 +15,11 @@ weight (Cout, Cin, 3, 3); the JAX scripts make them from HWIO.  Any H and
 W are taken (the TPU kernels' H % 8 == 0 is a TPU tiling rule).
 
 The wrappers take CUDA fp32 contiguous tensors and raise on anything else,
-the CPU included; the plain versions (``*_plain``) build the patch tensor
-step by step, as the TPU kernels do, and serve the tests and the card's
-comparisons.  ``LAUNCHES`` counts each kernel's launches.
+the CPU included; the C entries own the size limits (grid, and for K4 a
+block's shared memory: Cin <= 102) and the wrappers raise when they refuse.
+The plain versions (``*_plain``) build the patch tensor step by step, as
+the TPU kernels do, and serve the tests and the card's comparisons.
+``LAUNCHES`` counts each kernel's launches.
 """
 
 from __future__ import annotations
@@ -25,15 +27,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from fal_net_torch.ops._build import MAX_SMEM_BYTES, load_library
+from fal_net_torch.ops._build import launch
 
 LAUNCHES = {"conv3x3_packed": 0, "conv3x3_v2": 0}
-CO_TILE = 64  # kCoTile in both sources
-X_TILE = 128  # kXTile in both sources
-V2_CI_TILE = 8  # kCiTile in conv3x3_v2.cu
-V2_BAND_ROWS = 16  # output rows one K4 block walks down
-MAX_GRID_YZ = 65_535
-MAX_NUMEL = 2**31 - 1  # the kernels index with 32-bit ints inside an image
 
 
 def repack_weights(w: torch.Tensor) -> torch.Tensor:
@@ -103,45 +99,24 @@ def _check(x: torch.Tensor, w: torch.Tensor, name: str) -> tuple[int, int, int, 
     want = (cout, 9 * cin) if name == "w2" else (3, cout, 9 * cin)
     if tuple(w.shape) != want:
         raise ValueError(f"{name} must have shape {want} for x {tuple(x.shape)}, got {tuple(w.shape)}")
-    if min(b, cin, h, wd, cout) < 1:
-        raise ValueError(f"empty shapes: x {tuple(x.shape)}, {name} {tuple(w.shape)}")
-    z = b * -(-cout // CO_TILE)
-    if h > MAX_GRID_YZ or z > MAX_GRID_YZ:
-        raise ValueError(f"H={h} or B*ceil(Cout/{CO_TILE})={z} above {MAX_GRID_YZ}")
-    if max(x.numel(), w.numel(), b * cout * h * wd) > MAX_NUMEL:
-        raise ValueError("a tensor of more than 2**31 - 1 elements")
     return b, cin, h, wd, cout
 
 
-def v2_smem_bytes(cin: int) -> int:
-    """K4's shared memory: four input-row buffers of (Cin, X_TILE + 2) and
-    one weight chunk of (V2_CI_TILE * 9, CO_TILE + 4) floats."""
-    return 4 * (4 * cin * (X_TILE + 2) + V2_CI_TILE * 9 * (CO_TILE + 4))
-
-
-def _launch(name: str, args: tuple, x: torch.Tensor) -> None:
-    with torch.cuda.device(x.device):  # the runtime launches on the current device
-        err = getattr(load_library(), name)(*args, torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+def _run(name: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    b, cin, h, wd, cout = _check(x, w, "w2" if name == "conv3x3_packed" else "w3")
+    out = x.new_empty((b, cout, h, wd))
+    launch(name, x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), b, cin, h, wd, cout)
     LAUNCHES[name] += 1
+    return out
 
 
 def conv3x3_packed(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     """K3: the 3x3 same conv of NCHW ``x`` with ``repack_weights`` output
     ``w2``.  Launches on the current stream and does not synchronize."""
-    b, cin, h, w, cout = _check(x, w2, "w2")
-    out = x.new_empty((b, cout, h, w))
-    _launch("conv3x3_packed", (x.data_ptr(), w2.data_ptr(), out.data_ptr(), b, cin, h, w, cout), x)
-    return out
+    return _run("conv3x3_packed", x, w2)
 
 
 def conv3x3_v2(x: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
     """K4: the same conv from ``permuted_weights`` output ``w3``, streaming
     input rows through a ring of three shared-memory row slots."""
-    b, cin, h, w, cout = _check(x, w3, "w3")
-    if v2_smem_bytes(cin) > MAX_SMEM_BYTES:
-        raise ValueError(f"Cin={cin} needs {v2_smem_bytes(cin)} B of shared memory in K4, above {MAX_SMEM_BYTES}")
-    out = x.new_empty((b, cout, h, w))
-    _launch("conv3x3_v2", (x.data_ptr(), w3.data_ptr(), out.data_ptr(), b, cin, h, w, cout, V2_BAND_ROWS), x)
-    return out
+    return _run("conv3x3_v2", x, w3)

@@ -19,7 +19,7 @@ import numbers
 
 import torch
 
-from fal_net_torch.ops._build import MAX_SMEM_BYTES
+from fal_net_torch.ops._build import MAX_SMEM_BYTES, launch
 from fal_net_torch.ops.med import MedOutputs, disparity_levels
 
 MAX_PLANES = 128  # kMaxPlanes in med_fwd.cu
@@ -116,9 +116,6 @@ def _check_bwd(logits, image, g_disp, g_pan):
 
 
 def _launch(logits, image, tables, tab_stride, want_disp, want_pan, want_subocc):
-    from fal_net_torch.ops._build import load_library
-
-    lib = load_library()
     b, n, h, w = logits.shape
     c = image.shape[1]
 
@@ -128,39 +125,28 @@ def _launch(logits, image, tables, tab_stride, want_disp, want_pan, want_subocc)
     disp, pan = out(1, want_disp), out(c, want_pan)
     mask_l, mask_r = out(1, want_subocc), out(1, want_subocc)
     dptr = lambda t: 0 if t is None else t.data_ptr()
-    with torch.cuda.device(logits.device):  # the runtime launches on the current device
-        err = lib.med_fwd(
-            logits.data_ptr(), image.data_ptr(),
-            dptr(disp), dptr(pan), dptr(mask_l), dptr(mask_r),
-            tables.data_ptr(), tab_stride,
-            b, n, c, h, w, int(want_disp), int(want_pan), int(want_subocc),
-            torch.cuda.current_stream(logits.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"med_fwd launch failed: CUDA error {err}")
+    launch(
+        "med_fwd", logits.device, logits.data_ptr(), image.data_ptr(),
+        dptr(disp), dptr(pan), dptr(mask_l), dptr(mask_r),
+        tables.data_ptr(), tab_stride,
+        b, n, c, h, w, int(want_disp), int(want_pan), int(want_subocc),
+    )
     MedForward.launches += 1
     return disp, pan, mask_l, mask_r
 
 
 def _launch_bwd(logits, image, g_disp, g_pan, tables, tab_stride, image_grad):
-    from fal_net_torch.ops._build import load_library
-
-    lib = load_library()
     b, n, h, w = logits.shape
     c = image.shape[1]
     want_gimg = image_grad and g_pan is not None
     g_logits = torch.empty_like(logits)
     g_image = torch.empty_like(image) if want_gimg else None
     dptr = lambda t: 0 if t is None else t.data_ptr()
-    with torch.cuda.device(logits.device):
-        err = lib.med_bwd(
-            logits.data_ptr(), image.data_ptr(), dptr(g_disp), dptr(g_pan),
-            g_logits.data_ptr(), dptr(g_image), tables.data_ptr(), tab_stride,
-            b, n, c, h, w, int(g_disp is not None), int(g_pan is not None), int(want_gimg),
-            torch.cuda.current_stream(logits.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"med_bwd launch failed: CUDA error {err}")
+    launch(
+        "med_bwd", logits.device, logits.data_ptr(), image.data_ptr(), dptr(g_disp), dptr(g_pan),
+        g_logits.data_ptr(), dptr(g_image), tables.data_ptr(), tab_stride,
+        b, n, c, h, w, int(g_disp is not None), int(g_pan is not None), int(want_gimg),
+    )
     MedForward.bwd_launches += 1
     return g_logits, g_image
 

@@ -10,6 +10,8 @@ amount f, and the window is read back:
 
 f is a (1,) int32 tensor, which the kernel reads from device memory as the
 TPU kernel reads it from SMEM; any f wraps, negative or past the row.
+The C entry owns the size limits (the window inside the row, the row in a
+block's shared memory) and the wrapper raises when it refuses.
 ``LAUNCHES`` counts K5's launches.
 """
 
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from fal_net_torch.ops._build import MAX_SMEM_BYTES, load_library
+from fal_net_torch.ops._build import launch
 
 LAUNCHES = {"roll_window": 0}
 
@@ -42,17 +44,7 @@ def roll_window(x: torch.Tensor, f: torch.Tensor, wp: int, left: int = 128) -> t
     if x.ndim != 2 or not x.is_contiguous() or f.shape != (1,):
         raise ValueError(f"x must be a contiguous (H, W) and f a (1,) tensor, got {tuple(x.shape)}, {tuple(f.shape)}")
     h, w = x.shape
-    if not (h >= 1 and w >= 1 and left >= 0 and left + w <= wp):
-        raise ValueError(f"the window [left, left + W) = [{left}, {left + w}) must lie in a row of wp={wp}")
-    if 4 * wp > MAX_SMEM_BYTES or h * wp > 2**31 - 1:
-        raise ValueError(f"wp={wp} needs {4 * wp} B of shared memory, above {MAX_SMEM_BYTES}")
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = load_library().roll_window(
-            x.data_ptr(), f.data_ptr(), out.data_ptr(), h, w, wp, left,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"roll_window launch failed: CUDA error {err}")
+    launch("roll_window", x.device, x.data_ptr(), f.data_ptr(), out.data_ptr(), h, w, wp, left)
     LAUNCHES["roll_window"] += 1
     return out

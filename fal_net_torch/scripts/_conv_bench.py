@@ -1,11 +1,10 @@
 """What the two conv scripts share: for each (B, Cin, H, W, Cout) case, a
 conv kernel against its plain version and against ``F.conv2d`` (cuDNN, the
 yardstick; the port never calls it), and its time beside cuDNN's with TF32
-off and on."""
+off and on.  The inputs come from seed 0 and each time is the median of 20
+calls, as in the JAX scripts."""
 
 from __future__ import annotations
-
-import argparse
 
 import numpy as np
 import torch
@@ -15,16 +14,10 @@ from fal_net_torch.utils.device import resolve_device
 from fal_net_torch.utils.timing import median_ms, tf32
 
 RTOL, ATOL = 1e-5, 1e-4  # fp32 sums of up to 9 * 96 terms in another order
+SEED, REPS = 0, 20
 
 
-def parse_args(description: str, argv=None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(description=description)
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--reps", type=int, default=20, help="timed calls per measurement (median)")
-    return p.parse_args(argv)
-
-
-def run_cases(label: str, kernel, plain, make_weights, cases, args) -> dict:
+def run_cases(label: str, kernel, plain, make_weights, cases) -> dict:
     """Run ``kernel(x, make_weights(w))`` on every case, compare and time it.
 
     Raises AssertionError on a disagreement beyond (RTOL, ATOL) with the
@@ -32,7 +25,7 @@ def run_cases(label: str, kernel, plain, make_weights, cases, args) -> dict:
     case], "calls": kernel calls made}."""
     dev = resolve_device("cuda")
     card = torch.cuda.get_device_name(dev)
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(SEED)
     calls = 0
     results = []
     for case in cases:
@@ -57,11 +50,11 @@ def run_cases(label: str, kernel, plain, make_weights, cases, args) -> dict:
                         f"{label} {case}: kernel vs {name} max abs err {errs[name]:.3e} (rtol {RTOL}, atol {ATOL})"
                     )
             del got, want
-            ms = median_ms(launch, reps=args.reps)
+            ms = median_ms(launch, reps=REPS)
             plain_ms = median_ms(lambda: plain(x, wk), reps=3, warmup=1)
-            lib_ms = median_ms(lambda: F.conv2d(x, w_oihw, padding=1), reps=args.reps)
+            lib_ms = median_ms(lambda: F.conv2d(x, w_oihw, padding=1), reps=REPS)
         with tf32(True):
-            lib_tf32_ms = median_ms(lambda: F.conv2d(x, w_oihw, padding=1), reps=args.reps)
+            lib_tf32_ms = median_ms(lambda: F.conv2d(x, w_oihw, padding=1), reps=REPS)
         flops = 2 * b * h * w * cin * cout * 9
         results.append(dict(
             case=case, ms=ms, plain_ms=plain_ms, cudnn_fp32_ms=lib_ms, cudnn_tf32_ms=lib_tf32_ms,

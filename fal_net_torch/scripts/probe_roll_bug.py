@@ -2,14 +2,15 @@
 JAX probe's row lengths and shifts (scripts/probe_roll_bug.py), plus shifts
 that wrap (wp - 1, -3, wp + 5).
 
-    python -m fal_net_torch.scripts.probe_roll_bug [--seed 0] [--reps 20]
+    python -m fal_net_torch.scripts.probe_roll_bug
 
 A zero row of wp columns holds x (8, 128) at [128, 256); the kernel rolls
 it left by f, read from device memory, and reads the window back.  Each
 (wp, f) must equal numpy's roll of the same row exactly, and so must the
 plain version.  Prints one line per wp, the kernel's and the plain
-version's times at wp = 640, and ``ROLL PROBE: PASS`` or ``FAIL``; exits
-nonzero on FAIL.  Runs on the GPU only.
+version's times at wp = 640 (median of 20 calls), and ``ROLL PROBE: PASS``
+or ``FAIL``; exits nonzero on FAIL.  x comes from seed 0.  Runs on the GPU
+only.
 """
 
 from __future__ import annotations
@@ -28,15 +29,13 @@ H, W, L = 8, 128, 128  # the window [L, L + W), as the MED kernel's pad
 TILES = (3, 4, 5, 6, 8)  # wp = tiles * 128
 SHIFTS = (0, 1, 5, 17, 127)
 TIMED_WP = 640
+SEED, REPS = 0, 20
 
 
 def main(argv=None) -> dict:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--reps", type=int, default=20, help="timed calls per measurement (median)")
-    args = p.parse_args(argv)
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)  # --help only
     dev = resolve_device("cuda")
-    xn = np.random.default_rng(args.seed).standard_normal((H, W)).astype(np.float32)
+    xn = np.random.default_rng(SEED).standard_normal((H, W)).astype(np.float32)
     x = torch.from_numpy(xn).to(dev)
     calls, ok_all, worst = 0, True, 0.0
     for tiles in TILES:
@@ -64,8 +63,8 @@ def main(argv=None) -> dict:
         calls += 1
         return roll_window(x, ft, TIMED_WP, L)
 
-    ms = median_ms(launch, reps=args.reps)
-    plain_ms = median_ms(lambda: roll_window_plain(x, ft, TIMED_WP, L), reps=args.reps)
+    ms = median_ms(launch, reps=REPS)
+    plain_ms = median_ms(lambda: roll_window_plain(x, ft, TIMED_WP, L), reps=REPS)
     print(f"wp={TIMED_WP} f=17 ({H}, {W}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
           f"[{torch.cuda.get_device_name(dev)}]", flush=True)
     print("ROLL PROBE:", "PASS" if ok_all else "FAIL", flush=True)

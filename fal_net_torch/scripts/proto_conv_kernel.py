@@ -2,7 +2,7 @@
 the JAX prototype's cases (scripts/proto_conv_kernel.py), against its plain
 version and cuDNN.
 
-    python -m fal_net_torch.scripts.proto_conv_kernel [--seed 0] [--reps 20]
+    python -m fal_net_torch.scripts.proto_conv_kernel
 
 Per case it prints the kernel's time (CUDA events, median after warm-up)
 and TFLOP/s, the plain version's time, ``F.conv2d``'s time with TF32 off
@@ -13,8 +13,10 @@ the GPU only.
 
 from __future__ import annotations
 
+import argparse
+
 from fal_net_torch.ops.conv3x3 import conv3x3_packed, conv3x3_packed_plain, repack_weights
-from fal_net_torch.scripts._conv_bench import parse_args, run_cases
+from fal_net_torch.scripts._conv_bench import run_cases
 
 # (B, Cin, H, W, Cout), scripts/proto_conv_kernel.py:130-135
 CASES = [
@@ -26,8 +28,8 @@ CASES = [
 
 
 def main(argv=None) -> dict:
-    args = parse_args(__doc__.splitlines()[0], argv)
-    return run_cases("K3 packed", conv3x3_packed, conv3x3_packed_plain, repack_weights, CASES, args)
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)  # --help only
+    return run_cases("K3 packed", conv3x3_packed, conv3x3_packed_plain, repack_weights, CASES)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 weights (``csrc/conv3x3_v2.cu``) at the JAX prototype's cases
 (scripts/proto_conv_kernel_v2.py), against its plain version and cuDNN.
 
-    python -m fal_net_torch.scripts.proto_conv_kernel_v2 [--seed 0] [--reps 20]
+    python -m fal_net_torch.scripts.proto_conv_kernel_v2
 
 Prints what ``fal_net_torch.scripts.proto_conv_kernel`` prints, per case.
 A disagreement raises.  Runs on the GPU only.
@@ -10,8 +10,10 @@ A disagreement raises.  Runs on the GPU only.
 
 from __future__ import annotations
 
+import argparse
+
 from fal_net_torch.ops.conv3x3 import conv3x3_v2, conv3x3_v2_plain, permuted_weights
-from fal_net_torch.scripts._conv_bench import parse_args, run_cases
+from fal_net_torch.scripts._conv_bench import run_cases
 
 # (B, Cin, H, W, Cout), scripts/proto_conv_kernel_v2.py:168-171
 CASES = [
@@ -21,8 +23,8 @@ CASES = [
 
 
 def main(argv=None) -> dict:
-    args = parse_args(__doc__.splitlines()[0], argv)
-    return run_cases("K4 v2", conv3x3_v2, conv3x3_v2_plain, permuted_weights, CASES, args)
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)  # --help only
+    return run_cases("K4 v2", conv3x3_v2, conv3x3_v2_plain, permuted_weights, CASES)
 
 
 if __name__ == "__main__":

@@ -144,6 +144,18 @@ def test_conv_kernels_match_plain_on_gpu(cuda_device, b, cin, h, w, cout):
 
 
 @pytest.mark.cuda
+def test_conv_v2_refuses_what_shared_memory_cannot_hold(cuda_device):
+    """K4 holds four rows of all Cin channels in shared memory: its C entry
+    refuses Cin = 103 and the wrapper raises without counting a launch."""
+    x = torch.zeros(1, 103, 8, 8, device=cuda_device)
+    w3 = permuted_weights(torch.zeros(4, 103, 3, 3, device=cuda_device))
+    counts = dict(conv3x3.LAUNCHES)
+    with pytest.raises(ValueError, match="conv3x3_v2"):
+        conv3x3_v2(x, w3)
+    assert conv3x3.LAUNCHES == counts
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("wp", [384, 640, 1024])
 def test_roll_kernel_matches_plain_on_gpu(cuda_device, wp):
     x = torch.from_numpy(np.random.default_rng(wp).standard_normal((8, 128)).astype(np.float32)).to(cuda_device)
