@@ -113,10 +113,9 @@ def load_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.med_fwd, lib.med_bwd):
         fn.argtypes = [p] * 7 + [i] * 9 + [p]
-    for fn in (lib.conv3x3_packed, lib.conv3x3_v2):
-        fn.argtypes = [p] * 3 + [i] * 5 + [p]
+    lib.conv3x3_wgmma.argtypes = [p] * 3 + [i] * 5 + [p]
     lib.roll_window.argtypes = [p] * 3 + [i] * 4 + [p]
-    for fn in (lib.med_fwd, lib.med_bwd, lib.conv3x3_packed, lib.conv3x3_v2, lib.roll_window):
+    for fn in (lib.med_fwd, lib.med_bwd, lib.conv3x3_wgmma, lib.roll_window):
         fn.restype = i
     return lib
 

@@ -1,5 +1,6 @@
-"""The K-packed 3x3 convolutions: K3 (``csrc/conv3x3_packed.cu``) and K4
-(``csrc/conv3x3_v2.cu``), their weight layouts and their plain versions.
+"""The K-packed 3x3 convolutions K3 and K4, their weight layouts and their
+plain versions.  Both launch one kernel, ``csrc/conv3x3_wgmma.cu``: TF32
+``wgmma`` on NCHW fp32.
 
 K3 replaces scripts/proto_conv_kernel.py::_kernel and K4
 scripts/proto_conv_kernel_v2.py::_kernel: a 3x3, stride-1, zero-padded
@@ -10,16 +11,19 @@ scripts/proto_conv_kernel_v2.py::_kernel: a 3x3, stride-1, zero-padded
 
 K3 from the packed weights ``repack_weights(w)`` (Cout, 9*Cin) and K4 from
 the phase-permuted ``permuted_weights(w)`` (3, Cout, 9*Cin), where output
-row r uses variant r mod 3.  Both layouts are made from the torch OIHW
-weight (Cout, Cin, 3, 3); the JAX scripts make them from HWIO.  Any H and
-W are taken (the TPU kernels' H % 8 == 0 is a TPU tiling rule).
+row r uses variant r mod 3.  Variant 0 maps slot s to dy = s, so
+``permuted_weights(w)[0] == repack_weights(w)`` and K4 hands the kernel
+``w3[0]``.  Both layouts are made from the torch OIHW weight (Cout, Cin, 3,
+3); the JAX scripts make them from HWIO.  Any H and W are taken (the TPU
+kernels' H % 8 == 0 is a TPU tiling rule).
 
-The wrappers take CUDA fp32 contiguous tensors and raise on anything else,
-the CPU included; the C entries own the size limits (grid, and for K4 a
-block's shared memory: Cin <= 102) and the wrappers raise when they refuse.
-The plain versions (``*_plain``) build the patch tensor step by step, as
-the TPU kernels do, and serve the tests and the card's comparisons.
-``LAUNCHES`` counts each kernel's launches.
+The kernel truncates both operands to TF32 and sums in fp32:
+``conv3x3_tf32_plain`` is that function, ``tf32_round`` its rounding.  The
+fp32 plain versions (``conv3x3_packed_plain``, ``conv3x3_v2_plain``) build
+the patch tensor step by step, as the TPU kernels do.  The wrappers take
+CUDA fp32 contiguous tensors and raise on anything else, the CPU included;
+the C entry owns the size limits and the wrappers raise when it refuses.
+``LAUNCHES`` counts each wrapper's launches.
 """
 
 from __future__ import annotations
@@ -79,6 +83,19 @@ def conv3x3_v2_plain(x: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """fp32 ``t`` truncated to TF32 as the tensor cores read it: the low 13
+    mantissa bits cleared (toward zero; inf stays inf)."""
+    return (t.contiguous().view(torch.int32) & -(1 << 13)).view(torch.float32)
+
+
+def conv3x3_tf32_plain(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """What the kernel computes: K3's conv on TF32-truncated operands, summed
+    in fp32.  The products are exact in fp32, so only the order of the sums
+    differs from the kernel's.  Call it with TF32 matmuls off."""
+    return conv3x3_packed_plain(tf32_round(x), tf32_round(w2))
+
+
 def _check(x: torch.Tensor, w: torch.Tensor, name: str) -> tuple[int, int, int, int, int]:
     """Raise on what the kernels do not take; return (B, Cin, H, W, Cout).
     ``name`` is "w2" (Cout, 9*Cin) or "w3" (3, Cout, 9*Cin)."""
@@ -105,18 +122,19 @@ def _check(x: torch.Tensor, w: torch.Tensor, name: str) -> tuple[int, int, int, 
 def _run(name: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     b, cin, h, wd, cout = _check(x, w, "w2" if name == "conv3x3_packed" else "w3")
     out = x.new_empty((b, cout, h, wd))
-    launch(name, x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), b, cin, h, wd, cout)
+    w2 = w if w.ndim == 2 else w[0]  # variant 0 of permuted_weights is repack_weights
+    launch("conv3x3_wgmma", x.device, x.data_ptr(), w2.data_ptr(), out.data_ptr(), b, cin, h, wd, cout)
     LAUNCHES[name] += 1
     return out
 
 
 def conv3x3_packed(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     """K3: the 3x3 same conv of NCHW ``x`` with ``repack_weights`` output
-    ``w2``.  Launches on the current stream and does not synchronize."""
+    ``w2``, in TF32.  Launches on the current stream and does not synchronize."""
     return _run("conv3x3_packed", x, w2)
 
 
 def conv3x3_v2(x: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
-    """K4: the same conv from ``permuted_weights`` output ``w3``, streaming
-    input rows through a ring of three shared-memory row slots."""
+    """K4: the same conv from ``permuted_weights`` output ``w3``; the kernel
+    reads its variant 0."""
     return _run("conv3x3_v2", x, w3)

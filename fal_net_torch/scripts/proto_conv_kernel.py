@@ -1,14 +1,16 @@
-"""K3 on the card: the K-packed 3x3 conv (``csrc/conv3x3_packed.cu``) at
-the JAX prototype's cases (scripts/proto_conv_kernel.py), against its plain
-version and cuDNN.
+"""K3 on the card: the K-packed 3x3 conv (``ops.conv3x3.conv3x3_packed``, which
+launches the TF32 wgmma kernel ``csrc/conv3x3_wgmma.cu``) at the JAX
+prototype's cases (scripts/proto_conv_kernel.py), against its plain versions
+and cuDNN.
 
     python -m fal_net_torch.scripts.proto_conv_kernel
 
 Per case it prints the kernel's time (CUDA events, median after warm-up)
-and TFLOP/s, the plain version's time, ``F.conv2d``'s time with TF32 off
-and on, the speed-ups, and the kernel's max abs error against the plain
-version and against ``F.conv2d`` in fp32.  A disagreement raises.  Runs on
-the GPU only.
+and TFLOP/s, the TF32 plain version's time, ``F.conv2d``'s time with TF32
+off and on, the speed-ups, and the kernel's max abs error against the plain
+version on TF32-truncated operands (``conv3x3_tf32_plain``) and against the
+fp32 plain version, with cuDNN TF32's own error against the latter.  A
+disagreement raises.  Runs on the GPU only.
 """
 
 from __future__ import annotations

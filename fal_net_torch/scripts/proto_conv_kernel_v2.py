@@ -1,6 +1,7 @@
-"""K4 on the card: the 3x3 conv with a ring of input rows and phase-permuted
-weights (``csrc/conv3x3_v2.cu``) at the JAX prototype's cases
-(scripts/proto_conv_kernel_v2.py), against its plain version and cuDNN.
+"""K4 on the card: the 3x3 conv from phase-permuted weights
+(``ops.conv3x3.conv3x3_v2``, which launches ``csrc/conv3x3_wgmma.cu`` on
+their variant 0) at the JAX prototype's cases
+(scripts/proto_conv_kernel_v2.py), against its plain versions and cuDNN.
 
     python -m fal_net_torch.scripts.proto_conv_kernel_v2
 
