@@ -10,13 +10,18 @@ Phases, each reported on its own line; any failure exits nonzero:
   3. K1 vs plain: the MED forward kernel against the plain PyTorch head
      on shared seeded inputs, every mode, at the TPU kernel tests' shapes, with
      per-sample bound tensors, and at the serving shape (8, 49, 384, 1280),
-     with those tests' tolerances;
+     with those tests' tolerances.  Both MED kernels stage plane rows in
+     shared memory (csrc/med_stage.cuh) by one of three paths, printed beside
+     each shape: the whole row (N = 49, W = 640), a ring that streams the
+     planes once a sweep (N = 49, W = 1280; two column chunks at W = 1500),
+     and cp.async copies where W * 4 is not a multiple of 16 (W = 187);
   3b. K2 vs plain: the MED backward kernel against the plain VJP at the TPU
      gradient tests' shapes (N = 7, 33, 49 at 8x128), with per-sample bound
-     tensors, disp-only and pan-only cotangents, with and without the image
+     tensors, at W = 187 (cp.async), (2, 49, 16, 1280) and W = 1500 (ring),
+     disp-only and pan-only cotangents, with and without the image
      gradient, through autograd after a subocc forward (the masks carry no
-     gradient), and at the training shape (8, 49, 192, 640); rtol 1e-4,
-     atol 1e-5 as the TPU gradient tests;
+     gradient), and at the training shape (8, 49, 192, 640; whole row);
+     rtol 1e-4, atol 1e-5 as the TPU gradient tests;
   4. the serving slice: FAL_netB N=49 with seeded random weights is saved to
      a .pt, 19 synthetic 384x1280 PNGs go through ``fal_net_torch.cli.infer``
      at batch 8, then the disp+pan forward runs at batch 1 and 8, and at batch
@@ -26,6 +31,7 @@ Phases, each reported on its own line; any failure exits nonzero:
      (8, 49, 384, 1280), the whole forward at batch 8 and batch 1, the
      stage-1 training step at batch 8, 192x640, K1 disp+pan, K2, the plain VJP
      and autograd of the plain head at (8, 49, 192, 640), peak device memory;
+     each MED kernel's bytes moved (from its staging plan) beside its bound;
   6. only with ``--profile DIR``: ``torch.profiler`` over the disp-only
      forward at batch 8 and 1 and over the stage-1 training step (device
      window, busy share, kernel time by kind; the per-kernel tables go to
@@ -72,7 +78,7 @@ from fal_net_torch.models import create_model
 from fal_net_torch.models.checkpoint import save_checkpoint
 from fal_net_torch.ops import _build
 from fal_net_torch.ops.med import med_outputs
-from fal_net_torch.ops.med_kernel import MedForward, med_outputs_fused, med_vjp_fused
+from fal_net_torch.ops.med_kernel import MedForward, med_outputs_fused, med_vjp_fused, stage_plan
 from fal_net_torch.ops.med_vjp import med_vjp
 from fal_net_torch.utils.timing import median_ms, tf32
 
@@ -96,7 +102,8 @@ SHAPES = [
     (1, 9, 16, 256, 3, 1.0, 30.0),
     (1, 9, 8, 96, 3, -1.0, -30.0),  # swapped-order negative bounds
     (3, 9, 8, 96, 3, (2.0, -1.0, 1.0), (300.0, -30.0, 30.0)),  # per-sample bounds
-    (2, 49, 16, 1280, 3, (2.0, 1.0), 300.0),  # per-sample min, shared 0-d max
+    (2, 49, 16, 1280, 3, (2.0, 1.0), 300.0),  # per-sample min, shared 0-d max; ring path
+    (1, 49, 4, 1500, 3, 2.0, 300.0),  # two column chunks
     (8, 49, 384, 1280, 3, 2.0, 300.0),  # serving shape
 ]
 SERVE_H, SERVE_W, N_IMAGES, BATCH = 384, 1280, 19, 8
@@ -108,8 +115,11 @@ GRAD_SHAPES = [
     (2, 49, 8, 128, 3, 2.0, 300.0),
     (2, 7, 16, 48, 4, 2.0, 300.0),  # W below the largest shift
     (3, 9, 8, 96, 3, (2.0, -1.0, 1.0), (300.0, -30.0, 30.0)),  # per-sample bounds
-    (2, 49, 16, 1280, 3, (2.0, 1.0), 300.0),  # per-sample min, shared 0-d max
-    (8, 49, 192, 640, 3, 2.0, 300.0),  # training shape
+    (1, 9, 16, 187, 3, 2.0, 300.0),  # unaligned W: the cp.async path
+    (2, 49, 16, 1280, 3, (2.0, 1.0), 300.0),  # per-sample min, shared 0-d max; ring path
+    (2, 49, 16, 1280, 3, 2.0, 300.0),  # ring path, number bounds
+    (1, 49, 4, 1500, 3, 2.0, 300.0),  # ring path, two column chunks
+    (8, 49, 192, 640, 3, 2.0, 300.0),  # training shape: whole-row path
 ]
 # cotangents given to K2: (g_disp, g_pan, image_grad)
 GRAD_MODES = {
@@ -123,10 +133,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores, NVIDIA data sheet
 TF32_FLOPS = 494.7e12  # H100 SXM TF32 tensor cores, dense, NVIDIA data sheet
 CONV_TIMED = (8, 64, 192, 640, 64)  # the conv case whose times go into the kernels line
-# fp32 operations per logit, counted from the kernel sources: K1 disp-only
-# (compare, subtract, exp, two multiply-adds); K2 in the training mode (pass 1
-# ~25 with two exps, pass 2 ~35 with three exps, C=3)
-OPS_PER_LOGIT = {"med_fwd": 6, "med_bwd": 60}
+# fp32 operations per logit, counted from the kernel sources (an exp2 counts
+# one): K1 disp-only (multiply by log2 e, max, subtract, exp2, add,
+# multiply-add; the rescale once a stage of 7 planes is below one); K2 in the
+# training mode, C=3 (statistics sweep 23 with two exp2, gradient sweep 39
+# with three)
+OPS_PER_LOGIT = {"med_fwd": 6, "med_bwd": 62}
 
 
 def line(msg: str) -> None:
@@ -165,6 +177,24 @@ def bound(nbytes: int, ops: float, rate: float = FP32_FLOPS):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def plan_label(kernel: str, n: int, c: int, w: int, **flags) -> str:
+    """The staging path the MED kernel takes at this size (csrc/med_stage.cuh)."""
+    p = stage_plan(kernel, n, c, w, **flags)
+    path = "whole row" if p["whole"] else f"ring of {p['slots']}"
+    copy = "bulk copies" if w % 4 == 0 else "cp.async"
+    return (f"{path} in stages of {p['group']}, {p['chunks']} chunk(s), {p['loads']} stage loads a row, "
+            f"{copy}, {p['smem']} B")
+
+
+def moved_bytes(kernel: str, logits, c: int, others, **flags) -> int:
+    """Bytes a staged MED kernel moves to and from device memory at C = ``c``:
+    the logits once on the whole-row path and once a sweep on the ring path,
+    every other input and output once (``bound`` counts the logits once)."""
+    _, n, _, w = logits.shape
+    p = stage_plan(kernel, n, c, w, **flags)
+    return nbytes(logits) * (1 if p["whole"] else p["sweeps"]) + nbytes(*others)
 
 
 def compare_grads(got, want, label: str) -> float:
@@ -230,7 +260,9 @@ def phase_kernel_vs_plain(rng, dev) -> float:
                 want = med_outputs(logits, image, mn.expand(b), mx.expand(b), **kw)
             else:
                 want = med_outputs(logits, image, mn, mx, **kw)
-            worst = max(worst, compare(got, want, f"{label} {mode}"))
+            path = plan_label("med_fwd", n, c, w, disp=kw["ret_disp"], pan=kw.get("ret_pan", False),
+                              subocc=kw.get("ret_subocc", False))
+            worst = max(worst, compare(got, want, f"{label} {mode} [{path}]"))
     line(f"phase 3 kernel vs plain: {len(SHAPES)} shapes x {len(MODES)} modes agree, "
          f"worst abs err {worst:.3e}")
     return worst
@@ -249,7 +281,8 @@ def phase_bwd_vs_plain(rng, dev) -> float:
             got = med_vjp_fused(logits, image, mn, mx, gd, gp, image_grad=img)
             torch.cuda.synchronize()
             want = med_vjp(logits, image, mn, mx, gd, gp, image_grad=img)
-            worst = max(worst, compare_grads(got, want, f"{label} {mode}"))
+            path = plan_label("med_bwd", n, c, w, disp=want_d, pan=want_p, image_grad=img)
+            worst = max(worst, compare_grads(got, want, f"{label} {mode} [{path}]"))
         # through autograd after a subocc forward: the masks carry no gradient
         lg = logits.clone().requires_grad_()
         im = image.clone().requires_grad_()
@@ -554,11 +587,13 @@ def phase_times(model, lefts, card: str, dev, seed: int):
             k = median_ms(lambda: med_outputs_fused(logits, image, 2.0, 300.0, **kw))
             p = median_ms(lambda: med_outputs(logits, image, 2.0, 300.0, **kw))
             out = med_outputs_fused(logits, image, 2.0, 300.0, **kw)
-            moved = nbytes(logits, image if "pan" in mode else None, *out)
-            times[mode] = (k, p, moved)
+            need = nbytes(logits, image if "pan" in mode else None, *out)
+            moved = moved_bytes("med_fwd", logits, 3, [image if "pan" in mode else None, *out],
+                                disp=True, pan="pan" in mode, subocc="subocc" in mode)
+            times[mode] = (k, p, need)
             line(f"phase 5 MED head ({BATCH}, 49, {SERVE_H}, {SERVE_W}) {mode}: kernel {k:.4f} ms, "
-                 f"plain {p:.4f} ms, bound {moved / HBM_BYTES_PER_S * 1e3:.4f} ms from "
-                 f"{moved / 1e6:.1f} MB [{card}]")
+                 f"plain {p:.4f} ms, bound {need / HBM_BYTES_PER_S * 1e3:.4f} ms from "
+                 f"{need / 1e6:.1f} MB; the kernel moves {moved / 1e6:.1f} MB [{card}]")
         for mode in ("disp", "disp+pan"):
             for b in (BATCH, 1):
                 ms = median_ms(lambda: model(lefts[b], 2.0, 300.0, **MODES[mode]))
@@ -583,16 +618,20 @@ def phase_times(model, lefts, card: str, dev, seed: int):
 
     auto = median_ms(autograd_plain, reps=10)
     g_logits, g_image = med_vjp_fused(tl, ti, 2.0, 300.0, gd, gp, image_grad=True)
-    k1_bytes = nbytes(tl, ti, *med_outputs_fused(tl, ti, 2.0, 300.0, ret_disp=True, ret_pan=True))
+    k1_out = [ti, *med_outputs_fused(tl, ti, 2.0, 300.0, ret_disp=True, ret_pan=True)]
+    k1_bytes = nbytes(tl, *k1_out)
+    k1_moved = moved_bytes("med_fwd", tl, 3, k1_out, disp=True, pan=True)
+    k2_moved = moved_bytes("med_bwd", tl, 3, [ti, gd, gp, g_logits], disp=True, pan=True)
     times["k2"] = (k2, vjp)
     times["k2_bytes"] = nbytes(tl, ti, gd, gp, g_logits)
     times["k2_logits"] = tl.numel()
     ms_of = lambda b: b / HBM_BYTES_PER_S * 1e3
     line(f"phase 5 MED at the training shape ({BATCH}, 49, {TRAIN_H}, {TRAIN_W}): K1 disp+pan {k1:.4f} ms "
-         f"(bound {ms_of(k1_bytes):.4f} ms from {k1_bytes / 1e6:.1f} MB); K2 disp+pan {k2:.4f} ms (bound "
-         f"{ms_of(times['k2_bytes']):.4f} ms from {times['k2_bytes'] / 1e6:.1f} MB), with g_img "
-         f"{k2_img:.4f} ms (bound {ms_of(times['k2_bytes'] + nbytes(g_image)):.4f} ms); plain VJP "
-         f"{vjp:.4f} ms, autograd of the plain head {auto:.4f} ms [{card}]")
+         f"(bound {ms_of(k1_bytes):.4f} ms from {k1_bytes / 1e6:.1f} MB; the kernel moves {k1_moved / 1e6:.1f} MB); "
+         f"K2 disp+pan {k2:.4f} ms (bound {ms_of(times['k2_bytes']):.4f} ms from {times['k2_bytes'] / 1e6:.1f} MB; "
+         f"the kernel moves {k2_moved / 1e6:.1f} MB), with g_img {k2_img:.4f} ms (bound "
+         f"{ms_of(times['k2_bytes'] + nbytes(g_image)):.4f} ms); plain VJP {vjp:.4f} ms, autograd of the "
+         f"plain head {auto:.4f} ms [{card}]")
     del tl, ti, gd, gp, g_logits, g_image
 
     tmodel, opt, sched, batch = train_setup(dev, seed)

@@ -69,9 +69,7 @@
 //     register, the 8 lanes of a quad row write 8 consecutive pixels, whole
 //     32-byte sectors.  The Cout, H and W tails are masked.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "med_stage.cuh"  // mbarrier, TMA and cp.async helpers
 
 namespace {
 
@@ -97,68 +95,6 @@ template <int N> struct Stage {
   static constexpr int kBytes = kInRegion + 9 * kTapBytes;
   static constexpr int kSmem = kStages * kBytes + 2 * kStages * 8 + kAlign;  // + barriers, alignment slack
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done;
-}
-
-// Wait for the phase of `bar` after `parity`.  A wait of more than 4 s is a
-// fault of the pipeline: trap, so that the launch fails instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint64_t start = 0;
-  for (uint32_t i = 1; !mbar_try(bar, parity); ++i) {
-    if (i % 1024) continue;
-    uint64_t now;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
-    if (!start) start = now;
-    else if (now - start > 4000000000ull) __trap();
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
-      "[%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
-      "[%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// 4-byte cp.async that stores zero when `in` is false (src-size 0).
-__device__ __forceinline__ void cp_async_4(uint32_t dst, const float* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src), "r"(in ? 4 : 0) : "memory");
-}
 
 // The wgmma descriptor of a K-major tf32 operand in (N, 16) tiles with the
 // 64-byte swizzle: start address >> 4, leading offset unused by swizzled

@@ -3,7 +3,8 @@
 // Replaces fal_net_tpu/ops/med_pallas.py::_bwd_kernel, the hand-derived VJP
 // of the MED head.  It computes what that kernel computes, not how: the TPU
 // version recomputes an (N, 8, W) Dprob volume in VMEM per 8-row tile; here
-// one block owns one image row and keeps only per-column statistics.
+// a block stages one image row's plane rows in shared memory and keeps
+// per-column statistics.
 //
 // With S_n the lerp gather of plane n (f = floor(s_n), t = s_n - f, zero
 // outside [0, W)), sm0 = softmax_n(l), D = softmax_n(S_n l_n) and the masks
@@ -16,42 +17,48 @@
 // S^T reads zero outside [0, W).  Its shift is the FORWARD table's (f, t):
 // the backward rows of the table serve the forward kernel's maskL only.
 //
-// What bounds it on the card: memory.  At B=8, N=49, 192x640 it must read
-// the logits (193 MB) and write g_logits (193 MB); everything else is a few
-// MB, so ~0.12 ms at 3.35 TB/s, against ~60 flops per logit.  The design:
-//   * grid (H, B), 256 threads striding over the columns of one row;
-//   * S^T reads D_n and sum_m q_m at OTHER columns, so pass 1 puts per-column
-//     statistics in shared memory: (max, 1/sum) of the shifted-logit
-//     softmax, sum_m q_m, and (max, 1/sum, disp) of the plain softmax, with
-//     the image row and the g_pan row (6W + 2CW floats, 31 KB at W=640, C=3);
-//   * after a __syncthreads(), pass 2 writes each g_l_n(x) once.  The
-//     columns it reads are x-f and x-f-1, where the shifted logit and the
-//     shifted image read back at x-1, x, x+1: the logits are read again at
-//     the block's own columns (L1/L2 hits), and the image values at x-1..x+1
-//     sit in registers across the plane loop.  S^T is a gather, so there
-//     are no atomics and the result is deterministic.
+// What bounds it on the card: memory, in principle.  At B=8, N=49, 192x640
+// it must read the logits (193 MB) and write g_logits (193 MB); everything
+// else is a few MB, so ~0.12 ms at 3.35 TB/s, against ~62 fp32 operations
+// and 5 exponentials per logit.  The design (staging in med_stage.cuh):
+//   * S^T reads D_n and sum_m q_m at OTHER columns, so a statistics sweep
+//     puts per-column (log2-sum, sum_m q_m / sum) of the shifted-logit
+//     softmax in shared memory, beside the image and g_pan rows (a float4
+//     per column each); the plain softmax's (log2-sum, disp) stay in the
+//     registers of the column's thread;
+//   * after a barrier of the consumers, a gradient sweep writes each
+//     g_l_n(x) once: per stage, every thread puts g_shift_n(y) =
+//     D_n(y) (gD_n(y) - sum_m q_m(y)) of its own columns in shared memory
+//     (each value serves two columns of S^T), and after a barrier gathers
+//     them at x - f and x - f - 1: no atomics, deterministic;
+//   * whole-row path: where the N plane rows fit beside the rest
+//     (125,440 + 48,960 B at N = 49, W = 640), the gradient sweep reads the
+//     logits from shared memory, so they leave device memory once, and it
+//     releases a stage's slot (7 planes at N = 49) as soon as it has written
+//     their g_l_n, so that the next row's first stages are copied during the
+//     rest of the sweep.  Blocks are persistent over rows;
+//   * ring path (W = 1280 at N = 49: a 250,880 B row): the stages stream
+//     through fewer slots in both sweeps;
+//   * exponentials in base 2 (ex2.approx on l log2 e); the online softmaxes
+//     take a stage's maximum first and rescale their sums once a stage, with
+//     no branch;
+//   * columns wider than one chunk (W > 1280) recompute the plain softmax's
+//     statistics in a sweep before each chunk's gradient sweep.
+// On an H100 it is bound by the consumers' issue rate and shared-memory
+// loads, not by device memory (PERF.md).
 // Plane tables are K1's device buffer: (B or 1, 5, N) fp32 rows level,
-// fwd floor, fwd frac, bwd floor, bwd frac, with a per-sample stride.
+// fwd floor, fwd frac, bwd floor, bwd frac, with a per-sample stride; a
+// block copies its sample's into shared memory, floors as integers.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "med_stage.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxPlanes = 128;
-constexpr int kMaxChannels = 4;
+// Floats of the plane tables, a multiple of 4.
+__host__ __device__ inline int bwd_tab_floats(int N) { return 4 * (N + kGroup - 1); }
 
-__device__ __forceinline__ float read_pad(const float* __restrict__ v, int j, int W) {
-  return (j >= 0 && j < W) ? __ldg(v + j) : 0.f;
-}
-
-__device__ __forceinline__ float shared_pad(const float* v, int j, int W) {
-  return (j >= 0 && j < W) ? v[j] : 0.f;
-}
-
-template <bool kDisp, bool kPan, bool kImg>
-__global__ void __launch_bounds__(kThreads)
+template <bool kDisp, bool kPan, bool kImg, int kCpt>
+__global__ void __launch_bounds__(kStageThreads, 1)
 med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
                const float* __restrict__ image,   // (B, C, H, W)
                const float* __restrict__ g_disp,  // (B, 1, H, W)
@@ -59,199 +66,256 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
                float* __restrict__ g_logits,      // (B, N, H, W)
                float* __restrict__ g_image,       // (B, C, H, W)
                const float* __restrict__ tables,  // (B or 1, 5, N)
-               int tab_stride, int N, int C, int H, int W) {
-  extern __shared__ float smem[];
-  // layout: [t N][f N (int)] then, for disp, [m0 W][iz0 W][disp W],
-  //         then, for pan, [m1 W][iz1 W][sq W][img C*W][gpan C*W]
-  float* s_t = smem;
-  int* s_f = reinterpret_cast<int*>(s_t + N);
-  float* s_m0 = reinterpret_cast<float*>(s_f + N);
-  float* s_iz0 = s_m0 + W;
-  float* s_disp = s_iz0 + W;
-  float* s_m1 = s_m0 + (kDisp ? 3 * W : 0);
-  float* s_iz1 = s_m1 + W;
-  float* s_sq = s_iz1 + W;
-  float* s_img = s_sq + W;
-  float* s_gp = s_img + C * W;
+               int tab_stride, int N, int C, int H, int W, int rows, int bulk, const StagePlan p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* extra;
+  const RowStage st = stage_init(smem_raw, p, W, bulk, &extra);
+  // extra: [plane tables], then for pan [image row][g_pan row][(lse1, sq) W]
+  // [g_shift: G rows of pitch P][D: G rows, for g_img]; the rows as the
+  // staged ones, column 0 at offset 4 and zero guards
+  PlaneTab* s_tab = reinterpret_cast<PlaneTab*>(extra);
+  float4* s_img4 = reinterpret_cast<float4*>(extra + bwd_tab_floats(N)) + 1;  // column 0
+  float4* s_gp4 = s_img4 + W + 2;
+  float2* s_st = reinterpret_cast<float2*>(s_gp4 + W + 1);
+  float* s_gs = reinterpret_cast<float*>(s_st + W) + 4;
+  float* s_d = s_gs + p.group * st.P;
+  if (tab_stride == 0) load_plane_tabs(s_tab, nullptr, tables, N, threadIdx.x, blockDim.x);
+  __syncthreads();
 
-  const int y = blockIdx.x;
-  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  if (tid >= p.consumers) {
+    produce_rows(st, p, logits, N, H, rows, bulk);
+    return;
+  }
+
   const size_t plane = (size_t)H * W;
-  const size_t row0 = ((size_t)b * N * H + y) * W;  // plane 0 of row y
-  const float* lrow = logits + row0;
-  const size_t pix = ((size_t)b * H + y) * W;       // (b, 0, y, 0) of 1-ch tensors
-  const size_t crow = ((size_t)b * C * H + y) * W;  // (b, 0, y, 0) of C-ch tensors
-
-  const float* tab = tables + (size_t)b * tab_stride;
-  const float* lev = tab;
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    s_f[n] = (int)__ldg(tab + N + n);
-    s_t[n] = __ldg(tab + 2 * N + n);
-  }
-  if (kPan) {
-    for (int i = threadIdx.x; i < C * W; i += kThreads) {
-      const int c = i / W, x = i - c * W;
-      s_img[i] = __ldg(image + crow + c * plane + x);
-      s_gp[i] = __ldg(g_pan + crow + c * plane + x);
-    }
-  }
-  __syncthreads();
-
-  // Pass 1: per-column statistics.
-  for (int x = threadIdx.x; x < W; x += kThreads) {
-    float m0 = -INFINITY, z0 = 0.f, acc = 0.f;
-    float m1 = -INFINITY, z1 = 0.f, aq = 0.f;
-    float gp[kMaxChannels] = {0.f, 0.f, 0.f, 0.f};
-    if (kPan) {
-#pragma unroll
-      for (int c = 0; c < kMaxChannels; ++c)
-        if (c < C) gp[c] = s_gp[c * W + x];
-    }
-    for (int n = 0; n < N; ++n) {
-      const float* row = lrow + n * plane;
-      if (kDisp) {
-        const float l = __ldg(row + x);
-        if (l > m0) {
-          const float r = expf(m0 - l);
-          z0 = z0 * r + 1.f;
-          acc = acc * r + __ldg(lev + n);
-          m0 = l;
-        } else {
-          const float e = expf(l - m0);
-          z0 += e;
-          acc += __ldg(lev + n) * e;
-        }
-      }
+  Ring ring;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const int b = row / H, y = row - b * H;
+    const size_t row0 = ((size_t)b * N * H + y) * W;  // plane 0 of row y
+    const size_t pix = ((size_t)b * H + y) * W;       // (b, 0, y, 0) of 1-ch tensors
+    const size_t crow = ((size_t)b * C * H + y) * W;  // (b, 0, y, 0) of C-ch tensors
+    if (kPan || tab_stride) {
+      consumers_sync(p.consumers);  // the last row's readers are done
       if (kPan) {
-        const int f = s_f[n];
-        const float t = s_t[n];
-        const int j = x + f;
-        const float sl = (1.f - t) * read_pad(row, j, W) + t * read_pad(row, j + 1, W);
-        float r = 1.f, e = 1.f;  // rescale of the old sums, weight of this plane
-        if (sl > m1) {
-          r = expf(m1 - sl);
-          m1 = sl;
-        } else {
-          e = expf(sl - m1);
-        }
-        float gd = 0.f;
-#pragma unroll
-        for (int c = 0; c < kMaxChannels; ++c) {
-          if (c < C) {
-            const float* ic = s_img + c * W;
-            gd += ((1.f - t) * shared_pad(ic, j, W) + t * shared_pad(ic, j + 1, W)) * gp[c];
-          }
-        }
-        z1 = z1 * r + e;
-        aq = aq * r + e * gd;
+        load_image_row(s_img4, image + crow, C, W, plane, tid, p.consumers);
+        load_image_row(s_gp4, g_pan + crow, C, W, plane, tid, p.consumers);
       }
+      if (tab_stride) load_plane_tabs(s_tab, nullptr, tables + (size_t)b * tab_stride, N, tid, p.consumers);
+      consumers_sync(p.consumers);
     }
-    if (kDisp) {
-      s_m0[x] = m0;
-      s_iz0[x] = 1.f / z0;
-      s_disp[x] = acc / z0;
-    }
-    if (kPan) {
-      s_m1[x] = m1;
-      s_iz1[x] = 1.f / z1;
-      s_sq[x] = aq / z1;
-    }
-  }
-  __syncthreads();
+    RowSweeps sweeps(st, p, ring, N);
+    // the plain softmax of the columns of the current chunk: log2-sum, disp
+    float lse0[kCpt], disp[kCpt];
 
-  // Pass 2: g_l_n(x) for every plane, and g_img(x).
-  for (int x = threadIdx.x; x < W; x += kThreads) {
-    float gd = 0.f, m0 = 0.f, iz0 = 0.f, disp = 0.f;
-    if (kDisp) {
-      gd = __ldg(g_disp + pix + x);
-      m0 = s_m0[x];
-      iz0 = s_iz0[x];
-      disp = s_disp[x];
-    }
-    // image at x-1, x, x+1 (zero outside the row), the same for every plane
-    float im[kMaxChannels][3] = {};
-    float gi[kMaxChannels] = {0.f, 0.f, 0.f, 0.f};
-    if (kPan) {
+    // Statistics of chunk c: the plain softmax into registers (do_disp), the
+    // shifted one into shared memory (do_pan).
+    auto stats = [&](int ch, bool do_disp, bool do_pan) {
+      float m0[kCpt], z0[kCpt], a0[kCpt], m1[kCpt], z1[kCpt], aq[kCpt];
+      float4 gp[kCpt];  // g_pan at the column, zero past C
 #pragma unroll
-      for (int c = 0; c < kMaxChannels; ++c) {
-        if (c < C) {
-          const float* ic = s_img + c * W;
-          im[c][0] = shared_pad(ic, x - 1, W);
-          im[c][1] = ic[x];
-          im[c][2] = shared_pad(ic, x + 1, W);
-        }
+      for (int k = 0; k < kCpt; ++k) {
+        const int x = column(p, ch, k, tid);
+        m0[k] = m1[k] = -INFINITY;
+        z0[k] = a0[k] = z1[k] = aq[k] = 0.f;
+        gp[k] = (kPan && x < W) ? s_gp4[x] : make_float4(0.f, 0.f, 0.f, 0.f);
       }
-    }
-    for (int n = 0; n < N; ++n) {
-      const float* row = lrow + n * plane;
-      const float lx = __ldg(row + x);
-      float g = 0.f;
-      if (kDisp) {
-        const float sm = expf(lx - m0) * iz0;
-        g = sm * (__ldg(lev + n) - disp) * gd;
-      }
-      if (kPan) {
-        const int f = s_f[n];
-        const float t = s_t[n];
-        // y0 = x - f takes weight 1-t; its shifted reads land on x and x+1
-        const int y0 = x - f;
-        if (y0 >= 0 && y0 < W) {
-          const float sl = (1.f - t) * lx + t * read_pad(row, x + 1, W);
-          const float d = expf(sl - s_m1[y0]) * s_iz1[y0];
-          float gdp = 0.f;
+      // One stage: planes n0 .. n0 + g - 1 and dummies up to kGroup; each
+      // online softmax takes the stage's maximum first and rescales its sums
+      // once a stage.
+      sweeps.next([&](int n0, int g, const float* rows) {
+        const float* lr[kGroup];
+        stage_rows(st, rows, g, lr);
+        PlaneTab tb[kGroup];
 #pragma unroll
-          for (int c = 0; c < kMaxChannels; ++c) {
-            if (c < C) {
-              const float gpc = s_gp[c * W + y0];
-              gdp += ((1.f - t) * im[c][1] + t * im[c][2]) * gpc;
-              if (kImg) gi[c] += (1.f - t) * d * gpc;
+        for (int i = 0; i < kGroup; ++i) tb[i] = s_tab[n0 + i];
+#pragma unroll
+        for (int k = 0; k < kCpt; ++k) {
+          const int x = column(p, ch, k, tid);
+          if (x >= W) continue;
+          if (kDisp && do_disp) {
+            float a[kGroup], mx = m0[k];
+#pragma unroll
+            for (int i = 0; i < kGroup; ++i) {
+              a[i] = lr[i][x] * kLog2e;
+              mx = fmaxf(mx, a[i]);
+            }
+            const float r = ex2(m0[k] - mx);  // 0 on the first stage
+            z0[k] *= r;
+            a0[k] *= r;
+            m0[k] = mx;
+#pragma unroll
+            for (int i = 0; i < kGroup; ++i) {
+              const float e = ex2(a[i] - mx);
+              z0[k] += e;
+              a0[k] = fmaf(e, tb[i].lev, a0[k]);
             }
           }
-          g += (1.f - t) * d * (gdp - s_sq[y0]);
-        }
-        // y1 = x - f - 1 takes weight t; its shifted reads land on x-1 and x
-        const int y1 = y0 - 1;
-        if (y1 >= 0 && y1 < W) {
-          const float sl = (1.f - t) * read_pad(row, x - 1, W) + t * lx;
-          const float d = expf(sl - s_m1[y1]) * s_iz1[y1];
-          float gdp = 0.f;
+          if (kPan && do_pan) {
+            float a[kGroup], gd[kGroup], mx = m1[k];
 #pragma unroll
-          for (int c = 0; c < kMaxChannels; ++c) {
-            if (c < C) {
-              const float gpc = s_gp[c * W + y1];
-              gdp += ((1.f - t) * im[c][0] + t * im[c][1]) * gpc;
-              if (kImg) gi[c] += t * d * gpc;
+            for (int i = 0; i < kGroup; ++i) {
+              const int j = x + tb[i].f;
+              a[i] = lerp_at(lr[i], j, tb[i].t, W) * kLog2e;
+              mx = fmaxf(mx, a[i]);
+              const float4 v = lerp4_at(s_img4, j, tb[i].t, W);
+              gd[i] = fmaf(v.x, gp[k].x, fmaf(v.y, gp[k].y, fmaf(v.z, gp[k].z, v.w * gp[k].w)));
+            }
+            const float r = ex2(m1[k] - mx);
+            z1[k] *= r;
+            aq[k] *= r;
+            m1[k] = mx;
+#pragma unroll
+            for (int i = 0; i < kGroup; ++i) {
+              const float e = ex2(a[i] - mx);
+              z1[k] += e;
+              aq[k] = fmaf(e, gd[i], aq[k]);
             }
           }
-          g += t * d * (gdp - s_sq[y1]);
+        }
+      });
+#pragma unroll
+      for (int k = 0; k < kCpt; ++k) {
+        const int x = column(p, ch, k, tid);
+        if (x >= W) continue;
+        if (kDisp && do_disp) {
+          lse0[k] = m0[k] + log2f(z0[k]);
+          disp[k] = a0[k] / z0[k];
+        }
+        if (kPan && do_pan) {
+          s_st[x] = make_float2(m1[k] + log2f(z1[k]), aq[k] / z1[k]);
         }
       }
-      g_logits[row0 + n * plane + x] = g;
-    }
-    if (kImg) {
+    };
+
+    // g_l_n for the columns of chunk c, and their g_img.  S^T reads
+    // g_shift_n = D_n (gD_n - sum_m q_m) at other columns, and each of its
+    // values serves two: so per stage every thread first puts g_shift_n(y)
+    // of its columns of the whole row (and D_n(y) for g_img) in shared
+    // memory, and after a barrier gathers them at x - f and x - f - 1.
+    auto grad = [&](int ch) {
+      float gd[kCpt];
+      float4 gi[kCpt];
 #pragma unroll
-      for (int c = 0; c < kMaxChannels; ++c)
-        if (c < C) g_image[crow + c * plane + x] = gi[c];
+      for (int k = 0; k < kCpt; ++k) {
+        const int x = column(p, ch, k, tid);
+        gd[k] = (kDisp && x < W) ? __ldg(g_disp + pix + x) : 0.f;
+        gi[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      sweeps.next([&](int n0, int g, const float* rows) {
+        const float* lr[kGroup];
+        stage_rows(st, rows, g, lr);
+        PlaneTab tb[kGroup];
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) tb[i] = s_tab[n0 + i];
+        if (kPan) {
+          consumers_sync(p.consumers);  // the last stage's gathers are done
+          for (int c2 = 0; c2 < p.chunks; ++c2) {
+#pragma unroll
+            for (int k = 0; k < kCpt; ++k) {
+              const int y = column(p, c2, k, tid);
+              if (y >= W) continue;
+              const float2 sy = s_st[y];  // (log2-sum, sum_m q_m / sum) at y
+              const float4 gq = s_gp4[y];
+#pragma unroll
+              for (int i = 0; i < kGroup; ++i) {
+                if (i >= g) break;
+                const int j = y + tb[i].f;
+                const float d = ex2(fmaf(lerp_at(lr[i], j, tb[i].t, W), kLog2e, -sy.x));
+                const float4 v = lerp4_at(s_img4, j, tb[i].t, W);
+                const float gdn = fmaf(v.x, gq.x, fmaf(v.y, gq.y, fmaf(v.z, gq.z, v.w * gq.w)));
+                s_gs[i * st.P + y] = d * (gdn - sy.y);
+                if (kImg) s_d[i * st.P + y] = d;
+              }
+            }
+          }
+          consumers_sync(p.consumers);
+        }
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) {
+          if (i >= g) break;
+          const int n = n0 + i;
+          const float t = tb[i].t;
+          float* gout = g_logits + row0 + n * plane;
+#pragma unroll
+          for (int k = 0; k < kCpt; ++k) {
+            const int x = column(p, ch, k, tid);
+            if (x >= W) continue;
+            float gl = 0.f;
+            if (kDisp) gl = ex2(fmaf(lr[i][x], kLog2e, -lse0[k])) * (tb[i].lev - disp[k]) * gd[k];
+            if (kPan) {
+              // S^T: y0 = x - f takes weight 1-t, y0 - 1 weight t; zero outside the row
+              const int y0 = x - tb[i].f;
+              const float a = pad(s_gs + i * st.P, y0, W), c = pad(s_gs + i * st.P, y0 - 1, W);
+              gl += fmaf(t, c - a, a);
+              if (kImg) {
+                const float da = (1.f - t) * pad(s_d + i * st.P, y0, W), dc = t * pad(s_d + i * st.P, y0 - 1, W);
+                const float4 ga = s_gp4[min(max(y0, -1), W)], gc = s_gp4[min(max(y0 - 1, -1), W)];
+                gi[k] = make_float4(fmaf(da, ga.x, fmaf(dc, gc.x, gi[k].x)), fmaf(da, ga.y, fmaf(dc, gc.y, gi[k].y)),
+                                    fmaf(da, ga.z, fmaf(dc, gc.z, gi[k].z)), fmaf(da, ga.w, fmaf(dc, gc.w, gi[k].w)));
+              }
+            }
+            __stcs(gout + x, gl);  // streamed: not read again here
+          }
+        }
+      });
+      if (kImg) {
+#pragma unroll
+        for (int k = 0; k < kCpt; ++k) {
+          const int x = column(p, ch, k, tid);
+          const float v[4] = {gi[k].x, gi[k].y, gi[k].z, gi[k].w};
+#pragma unroll
+          for (int c = 0; c < kMaxChannels; ++c)
+            if (c < C && x < W) g_image[crow + c * plane + x] = v[c];
+        }
+      }
+    };
+
+    // The sweeps of bwd_sweeps(), in that order.
+    if (p.chunks == 1) {
+      stats(0, true, true);
+      if (kPan) consumers_sync(p.consumers);  // the gradient reads statistics of other columns
+      grad(0);
+    } else {
+      if (kPan) {
+        for (int ch = 0; ch < p.chunks; ++ch) stats(ch, false, true);
+        consumers_sync(p.consumers);
+      }
+      for (int ch = 0; ch < p.chunks; ++ch) {
+        if (kDisp) stats(ch, true, false);
+        grad(ch);
+      }
     }
   }
 }
 
+// Sweeps per image row, as the kernel makes them: statistics, then gradient;
+// with several chunks, the shifted statistics of every chunk first, then per
+// chunk the plain statistics (disp) and the gradient.
+int bwd_sweeps(int chunks, bool disp, bool pan) {
+  if (chunks == 1) return 2;
+  return (pan ? chunks : 0) + chunks * (disp ? 2 : 1);
+}
+
+bool bwd_plan(StagePlan& p, int N, int C, int W, bool disp, bool pan, bool img) {
+  plan_columns(p, W);
+  // pan: image and g_pan rows, (lse1, sq), and per stage row a g_shift row (and a D row)
+  const size_t extra = plane_tab_bytes(N) + (pan ? 4 * (2 * (size_t)image_floats(W) + 2 * (size_t)W) : 0);
+  const size_t per_row = pan ? 4 * (size_t)row_pitch(W) * (img ? 2 : 1) : 0;
+  return plan_slots(p, N, W, bwd_sweeps(p.chunks, disp, pan), extra, per_row);
+}
+
 template <bool kDisp, bool kPan, bool kImg>
-cudaError_t launch(const float* logits, const float* image, const float* g_disp,
-                   const float* g_pan, float* g_logits, float* g_image, const float* tables,
-                   int tab_stride, int B, int N, int C, int H, int W, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * (size_t)N + (kDisp ? 3 * (size_t)W : 0) +
-                                       (kPan ? (3 + 2 * (size_t)C) * W : 0));
-  auto kernel = med_bwd_kernel<kDisp, kPan, kImg>;
-  if (smem > 48 * 1024) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  dim3 grid(H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(logits, image, g_disp, g_pan, g_logits, g_image,
-                                           tables, tab_stride, N, C, H, W);
-  return cudaGetLastError();
+cudaError_t launch(const StagePlan& p, const float* logits, const float* image, const float* g_disp,
+                   const float* g_pan, float* g_logits, float* g_image, const float* tables, int tab_stride, int B,
+                   int N, int C, int H, int W, cudaStream_t stream) {
+  const int rows = B * H;
+  const int bulk = W % 4 == 0 && reinterpret_cast<uintptr_t>(logits) % 16 == 0;
+  if (p.cpt == 1)
+    return launch_rows<med_bwd_kernel<kDisp, kPan, kImg, 1>>(p, rows, stream, logits, image, g_disp, g_pan,
+                       g_logits, g_image, tables, tab_stride, N, C, H, W, rows, bulk);
+  return launch_rows<med_bwd_kernel<kDisp, kPan, kImg, 2>>(p, rows, stream, logits, image, g_disp, g_pan, g_logits,
+                     g_image, tables, tab_stride, N, C, H, W, rows, bulk);
 }
 
 }  // namespace
@@ -262,19 +326,22 @@ extern "C" {
 // read only with want_disp, image and g_pan only with want_pan, and g_image
 // is written only with want_gimg (which needs want_pan); unused pointers may
 // be null.  Every element of g_logits is written.  Returns
-// cudaGetLastError() after the launch (0 on success).
-int med_bwd(const float* logits, const float* image, const float* g_disp, const float* g_pan,
-            float* g_logits, float* g_image, const float* tables, int tab_stride, int B, int N,
-            int C, int H, int W, int want_disp, int want_pan, int want_gimg, void* stream) {
-  if (N < 2 || N > kMaxPlanes || C < 1 || C > kMaxChannels || B < 1 || H < 1 || W < 1 ||
-      (tab_stride != 0 && tab_stride != 5 * N) || (want_gimg && !want_pan))
+// cudaErrorInvalidValue, launching nothing, for sizes it does not take (no
+// ring slot fits beside the statistics, N outside 2..128, C outside 1..4,
+// ...); else cudaGetLastError() after the launch (0 on success).
+int med_bwd(const float* logits, const float* image, const float* g_disp, const float* g_pan, float* g_logits,
+            float* g_image, const float* tables, int tab_stride, int B, int N, int C, int H, int W, int want_disp,
+            int want_pan, int want_gimg, void* stream) {
+  StagePlan p;
+  if (!med_sizes_ok(B, N, C, H, W, tab_stride) || (want_gimg && !want_pan) || !(want_disp || want_pan) ||
+      !bwd_plan(p, N, C, W, want_disp, want_pan, want_gimg))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int mode = (want_disp ? 1 : 0) | (want_pan ? 2 : 0) | (want_gimg ? 4 : 0);
-#define MED_CASE(M, D, P, I)                                                                 \
-  case M:                                                                                    \
-    return (int)launch<D, P, I>(logits, image, g_disp, g_pan, g_logits, g_image, tables,     \
-                                tab_stride, B, N, C, H, W, s);
+#define MED_CASE(M, D, P, I)                                                                              \
+  case M:                                                                                                 \
+    return (int)launch<D, P, I>(p, logits, image, g_disp, g_pan, g_logits, g_image, tables, tab_stride, B, \
+                                N, C, H, W, s);
   switch (mode) {
     MED_CASE(1, true, false, false)
     MED_CASE(2, false, true, false)
@@ -285,6 +352,17 @@ int med_bwd(const float* logits, const float* image, const float* g_disp, const 
       return (int)cudaErrorInvalidValue;
   }
 #undef MED_CASE
+}
+
+// The staging plan med_bwd would launch with, as 9 ints into `out`:
+// StagePlan's fields in order.  Returns cudaErrorInvalidValue where med_bwd would refuse.
+int med_bwd_plan(int N, int C, int W, int want_disp, int want_pan, int want_gimg, int* out) {
+  StagePlan p;
+  if (!med_sizes_ok(1, N, C, 1, W, 0) || !(want_disp || want_pan) || (want_gimg && !want_pan) ||
+      !bwd_plan(p, N, C, W, want_disp, want_pan, want_gimg))
+    return (int)cudaErrorInvalidValue;
+  plan_fields(p, out);
+  return 0;
 }
 
 }  // extern "C"

@@ -4,8 +4,7 @@
 // kernel of the MED (Mirrored Exponential Disparity) head.  It computes
 // what that kernel computes, not how: the TPU version stages an
 // (N, 8, W) fp32 volume in VMEM per 8-row tile over a sequential grid;
-// here one block owns one image row and nothing is staged but the image
-// row and per-column softmax statistics.
+// here a block stages one image row's plane rows in shared memory, in turn.
 //
 // For plane n with pixel shift s_n = d_n * (W-1)/W, S_s is the 1-D lerp
 // gather along W that reads 0 out of range:
@@ -17,54 +16,46 @@
 //   maskR  = min(1, sum_n S_{+s_n}(softmax(l)_n))  (normalized at the source)
 //   maskL  = min(1, sum_n S_{-s_n}(Dprob_n))       (zero PROBABILITY padding)
 //
-// What bounds it on the card: memory.  At B=8, N=49, 384x1280 the logits
-// volume is 770 MB; read once from device memory that is 0.23 ms at
-// 3.35 TB/s, while the arithmetic is ~15 flops per logit.  The design
-// keeps every other read in cache:
-//   * grid (H, B), 256 threads striding over the columns of one row; a
-//     block walks all N planes for 256 neighbouring columns at a time;
-//   * the logits are NOT staged in shared memory (one row at N=49,
-//     W=1280 is 245 KB, above the 227 KB a block may use).  The shifted
-//     reads l_n[x+f_n] and l_n[x+f_n+1] are the same uniform offset for
-//     every thread of a warp, so they are coalesced, and they touch lines
-//     that the unshifted read l_n[x] of this block brings in anyway
-//     (L1/L2 hits);
-//   * the image row (C*W*4 bytes, 15 KB at C=3, W=1280) is in shared
-//     memory;
-//   * disp and pan are one pass per column with online softmaxes: one
-//     over l_n[x] for disp, one over the shifted logit carrying the C pan
-//     accumulators, rescaled by exp(m_old - m_new);
+// What bounds it on the card: memory, in principle.  At B=8, N=49,
+// 384x1280 the logits volume is 770 MB; read once from device memory that is
+// 0.23 ms at 3.35 TB/s, while the arithmetic is ~6 operations per logit in
+// disp mode.  The design (staging in med_stage.cuh):
+//   * persistent blocks walk the image rows; a producer warp copies the
+//     row's plane rows, in stages of up to 7 planes, into a ring of
+//     shared-memory slots with 1-D bulk copies (cp.async where W * 4 is not
+//     a multiple of 16), so that many plane rows are in flight while the
+//     consumer warps work on earlier ones.  A plane row is read from device
+//     memory once; the shifted reads l_n[x+f_n], l_n[x+f_n+1] and the image
+//     reads are shared-memory loads, clamped into zero guards instead of
+//     bounds checks; the image row is one float4 per column, so one load
+//     reads every channel;
+//   * disp and pan are one sweep over the planes with online softmaxes in
+//     base 2 (ex2.approx on l log2 e): one over l_n[x] for disp, one over the
+//     shifted logit carrying the C pan accumulators.  Each takes a stage's
+//     maximum first and rescales its sums once a stage, not once a plane,
+//     with no branch;
 //   * the masks read softmax statistics at OTHER columns, so subocc mode
-//     first stores per-column (max, 1/sum) of both softmaxes in shared
-//     memory (16*W bytes), syncs, then sums the shifted probabilities.
+//     stores per-column log2-sums of both softmaxes in shared memory during
+//     that sweep, and after a barrier of the consumers sums the shifted
+//     probabilities in a second sweep: from the same slots where the row
+//     fits in shared memory (whole row), else from a second stream of the
+//     planes (ring).
+// On an H100 the pan modes are bound by the consumers' issue rate and
+// shared-memory loads, not by device memory (PERF.md).
 // Plane tables (level, forward and backward floor/frac; 5*N fp32) are a
 // small device buffer with one table per sample, or one for the whole
-// batch (stride 0).  Each block copies its sample's floors and fractions
-// to shared memory; the level is read in place (a warp-uniform load that
-// hits L1), which measured faster than a shared-memory level in the
-// disp-only loop (0.31 vs 0.70 ms at B=8, N=49, 384x1280 on an H100).
+// batch (stride 0); a block copies its sample's into shared memory, with
+// floors as integers (once, or per image row for per-sample tables).
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "med_stage.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxPlanes = 128;
-constexpr int kMaxChannels = 4;
+// Floats of the plane tables and backward floors, a multiple of 4.
+__host__ __device__ inline int fwd_tab_floats(int N) { return 5 * (N + kGroup - 1) / 4 * 4 + 4; }
 
-// Read v[j] with zero padding outside [0, W).
-__device__ __forceinline__ float read_pad(const float* __restrict__ v, int j, int W) {
-  return (j >= 0 && j < W) ? __ldg(v + j) : 0.f;
-}
-
-__device__ __forceinline__ float shifted_logit(const float* __restrict__ row, int x, int f,
-                                               float t, int W) {
-  return (1.f - t) * read_pad(row, x + f, W) + t * read_pad(row, x + f + 1, W);
-}
-
-template <bool kDisp, bool kPan, bool kSub>
-__global__ void __launch_bounds__(kThreads)
+template <bool kDisp, bool kPan, bool kSub, int kCpt>
+__global__ void __launch_bounds__(kStageThreads, 1)
 med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
                const float* __restrict__ image,   // (B, C, H, W)
                float* __restrict__ disp,          // (B, 1, H, W)
@@ -72,158 +63,187 @@ med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
                float* __restrict__ mask_l,        // (B, 1, H, W)
                float* __restrict__ mask_r,        // (B, 1, H, W)
                const float* __restrict__ tables,  // (B or 1, 5, N)
-               int tab_stride, int N, int C, int H, int W) {
-  constexpr bool kPlain = kDisp || kSub;   // needs softmax(l)
-  constexpr bool kShift = kPan || kSub;    // needs softmax(S l)
-  extern __shared__ float smem[];
-  // layout: [tfw N][tbw N][ffw N (int)][fbw N (int)]
-  //         [img C*W][m0 W][inv_z0 W][m1 W][inv_z1 W]
-  float* s_tfw = smem;
-  float* s_tbw = s_tfw + N;
-  int* s_ffw = reinterpret_cast<int*>(s_tbw + N);
-  int* s_fbw = s_ffw + N;
-  float* s_img = reinterpret_cast<float*>(s_fbw + N);
-  float* s_m0 = s_img + (kPan ? C * W : 0);
-  float* s_iz0 = s_m0 + W;
-  float* s_m1 = s_iz0 + W;
-  float* s_iz1 = s_m1 + W;
-
-  const int y = blockIdx.x;
-  const int b = blockIdx.y;
-  const size_t plane = (size_t)H * W;
-  const float* lrow = logits + ((size_t)b * N * H + y) * W;  // plane 0 of row y
-  const size_t pix = ((size_t)b * H + y) * W;                // (b, 0, y, 0) of 1-ch outputs
-
-  // Table rows: level, fwd floor, fwd frac, bwd floor, bwd frac.  The
-  // floors are whole numbers stored in fp32 (exact: |floor| <= W+1).
-  const float* tab = tables + (size_t)b * tab_stride;
-  const float* lev = tab;
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    s_ffw[n] = (int)__ldg(tab + N + n);
-    s_tfw[n] = __ldg(tab + 2 * N + n);
-    s_fbw[n] = (int)__ldg(tab + 3 * N + n);
-    s_tbw[n] = __ldg(tab + 4 * N + n);
-  }
-  if (kPan) {
-    const float* irow = image + ((size_t)b * C * H + y) * W;
-    for (int i = threadIdx.x; i < C * W; i += kThreads) {
-      const int c = i / W, x = i - c * W;
-      s_img[i] = __ldg(irow + c * plane + x);
-    }
-  }
+               int tab_stride, int N, int C, int H, int W, int rows, int bulk, const StagePlan p) {
+  constexpr bool kPlain = kDisp || kSub;  // needs softmax(l)
+  constexpr bool kShift = kPan || kSub;   // needs softmax(S l)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* extra;
+  const RowStage st = stage_init(smem_raw, p, W, bulk, &extra);
+  // extra: [plane tables][backward floors], [image row] for pan, then
+  // [lse0 W][lse1 W] for subocc
+  PlaneTab* s_tab = reinterpret_cast<PlaneTab*>(extra);
+  int* s_fb = reinterpret_cast<int*>(s_tab + N + kGroup - 1);
+  float4* s_img4 = reinterpret_cast<float4*>(extra + fwd_tab_floats(N)) + 1;  // column 0
+  float* s_lse0 = extra + fwd_tab_floats(N) + (kPan ? image_floats(W) : 0);
+  float* s_lse1 = s_lse0 + W;
+  if (tab_stride == 0) load_plane_tabs(s_tab, s_fb, tables, N, threadIdx.x, blockDim.x);
   __syncthreads();
 
-  for (int x = threadIdx.x; x < W; x += kThreads) {
-    float m0 = -INFINITY, z0 = 0.f, acc = 0.f;
-    float m1 = -INFINITY, z1 = 0.f;
-    float p[kMaxChannels] = {0.f, 0.f, 0.f, 0.f};
-    for (int n = 0; n < N; ++n) {
-      const float* row = lrow + n * plane;
-      if (kPlain) {
-        const float l = __ldg(row + x);
-        if (l > m0) {
-          const float r = expf(m0 - l);
-          z0 = z0 * r + 1.f;
-          acc = acc * r + __ldg(lev + n);
-          m0 = l;
-        } else {
-          const float e = expf(l - m0);
-          z0 += e;
-          acc += __ldg(lev + n) * e;
-        }
-      }
-      if (kShift) {
-        const int f = s_ffw[n];
-        const float t = s_tfw[n];
-        const float sl = shifted_logit(row, x, f, t, W);
-        float r = 1.f, e = 1.f;  // rescale of the old sums, weight of this plane
-        if (sl > m1) {
-          r = expf(m1 - sl);
-          m1 = sl;
-        } else {
-          e = expf(sl - m1);
-        }
-        z1 = z1 * r + e;
-        if (kPan) {
+  const int tid = threadIdx.x;
+  if (tid >= p.consumers) {
+    produce_rows(st, p, logits, N, H, rows, bulk);
+    return;
+  }
+
+  const size_t plane = (size_t)H * W;
+  Ring ring;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const int b = row / H, y = row - b * H;
+    const size_t pix = ((size_t)b * H + y) * W;       // (b, 0, y, 0) of 1-ch outputs
+    const size_t crow = ((size_t)b * C * H + y) * W;  // (b, 0, y, 0) of C-ch tensors
+    if (kPan || kSub || tab_stride) consumers_sync(p.consumers);  // the last row's readers are done
+    if (kPan) load_image_row(s_img4, image + crow, C, W, plane, tid, p.consumers);
+    if (tab_stride) load_plane_tabs(s_tab, s_fb, tables + (size_t)b * tab_stride, N, tid, p.consumers);
+    if (kPan || tab_stride) consumers_sync(p.consumers);
+    RowSweeps sweeps(st, p, ring, N);
+
+    for (int ch = 0; ch < p.chunks; ++ch) {
+      float m0[kCpt], z0[kCpt], acc[kCpt], m1[kCpt], z1[kCpt];
+      float4 pc[kCpt];  // pan accumulators, channels 0..3
 #pragma unroll
-          for (int c = 0; c < kMaxChannels; ++c) {
-            if (c < C) {
-              const float* ic = s_img + c * W;
-              const int j = x + f;
-              const float v0 = (j >= 0 && j < W) ? ic[j] : 0.f;
-              const float v1 = (j + 1 >= 0 && j + 1 < W) ? ic[j + 1] : 0.f;
-              p[c] = p[c] * r + e * ((1.f - t) * v0 + t * v1);
+      for (int k = 0; k < kCpt; ++k) {
+        m0[k] = m1[k] = -INFINITY;
+        z0[k] = acc[k] = z1[k] = 0.f;
+        pc[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      // One stage: planes n0 .. n0 + g - 1 and dummies up to kGroup.  The
+      // online softmaxes take the stage's maximum first, so that each
+      // rescales its sums once a stage and the exponentials are independent
+      // work.
+      sweeps.next([&](int n0, int g, const float* rows) {
+        const float* lr[kGroup];
+        stage_rows(st, rows, g, lr);
+        PlaneTab tb[kGroup];
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) tb[i] = s_tab[n0 + i];
+#pragma unroll
+        for (int k = 0; k < kCpt; ++k) {
+          const int x = column(p, ch, k, tid);
+          if (x >= W) continue;
+          if (kPlain) {
+            float a[kGroup], mx = m0[k];
+#pragma unroll
+            for (int i = 0; i < kGroup; ++i) {
+              a[i] = lr[i][x] * kLog2e;
+              mx = fmaxf(mx, a[i]);
+            }
+            const float r = ex2(m0[k] - mx);  // 0 on the first stage
+            z0[k] *= r;
+            acc[k] *= r;
+            m0[k] = mx;
+#pragma unroll
+            for (int i = 0; i < kGroup; ++i) {
+              const float e = ex2(a[i] - mx);
+              z0[k] += e;
+              if (kDisp) acc[k] = fmaf(e, tb[i].lev, acc[k]);
+            }
+          }
+          if (kShift) {
+            float a[kGroup], mx = m1[k];
+#pragma unroll
+            for (int i = 0; i < kGroup; ++i) {
+              a[i] = lerp_at(lr[i], x + tb[i].f, tb[i].t, W) * kLog2e;
+              mx = fmaxf(mx, a[i]);
+            }
+            const float r = ex2(m1[k] - mx);
+            z1[k] *= r;
+            pc[k] = make_float4(pc[k].x * r, pc[k].y * r, pc[k].z * r, pc[k].w * r);
+            m1[k] = mx;
+#pragma unroll
+            for (int i = 0; i < kGroup; ++i) {
+              const float e = ex2(a[i] - mx);
+              z1[k] += e;
+              if (kPan) {
+                const float4 v = lerp4_at(s_img4, x + tb[i].f, tb[i].t, W);
+                pc[k] = make_float4(fmaf(e, v.x, pc[k].x), fmaf(e, v.y, pc[k].y), fmaf(e, v.z, pc[k].z),
+                                    fmaf(e, v.w, pc[k].w));
+              }
             }
           }
         }
-      }
-    }
-    if (kDisp) disp[pix + x] = acc / z0;
-    if (kPan) {
-      const float inv = 1.f / z1;
-      float* prow = pan + ((size_t)b * C * H + y) * W;
+      });
 #pragma unroll
-      for (int c = 0; c < kMaxChannels; ++c)
-        if (c < C) prow[c * plane + x] = p[c] * inv;
-    }
-    if (kSub) {
-      s_m0[x] = m0;
-      s_iz0[x] = 1.f / z0;
-      s_m1[x] = m1;
-      s_iz1[x] = 1.f / z1;
-    }
-  }
-
-  if (!kSub) return;
-  __syncthreads();
-
-  for (int x = threadIdx.x; x < W; x += kThreads) {
-    float mr = 0.f, ml = 0.f;
-    for (int n = 0; n < N; ++n) {
-      const float* row = lrow + n * plane;
-      const int f = s_ffw[n];
-      const float t = s_tfw[n];
-      // maskR: S_{+s}(softmax(l)_n), the softmax taken at the source column
-      {
-        const int j = x + f;
-        float a = 0.f, c = 0.f;
-        if (j >= 0 && j < W) a = expf(__ldg(row + j) - s_m0[j]) * s_iz0[j];
-        if (j + 1 >= 0 && j + 1 < W) c = expf(__ldg(row + j + 1) - s_m0[j + 1]) * s_iz0[j + 1];
-        mr += (1.f - t) * a + t * c;
-      }
-      // maskL: S_{-s}(Dprob_n), Dprob recomputed at the source column
-      {
-        const int k = x + s_fbw[n];
-        const float tb = s_tbw[n];
-        float a = 0.f, c = 0.f;
-        if (k >= 0 && k < W)
-          a = expf(shifted_logit(row, k, f, t, W) - s_m1[k]) * s_iz1[k];
-        if (k + 1 >= 0 && k + 1 < W)
-          c = expf(shifted_logit(row, k + 1, f, t, W) - s_m1[k + 1]) * s_iz1[k + 1];
-        ml += (1.f - tb) * a + tb * c;
+      for (int k = 0; k < kCpt; ++k) {
+        const int x = column(p, ch, k, tid);
+        if (x >= W) continue;
+        if (kDisp) disp[pix + x] = acc[k] / z0[k];
+        if (kPan) {
+          const float inv = 1.f / z1[k];
+          const float v[4] = {pc[k].x, pc[k].y, pc[k].z, pc[k].w};
+#pragma unroll
+          for (int c = 0; c < kMaxChannels; ++c)
+            if (c < C) pan[crow + c * plane + x] = v[c] * inv;
+        }
+        if (kSub) {
+          s_lse0[x] = m0[k] + log2f(z0[k]);
+          s_lse1[x] = m1[k] + log2f(z1[k]);
+        }
       }
     }
-    mask_r[pix + x] = fminf(mr, 1.f);
-    mask_l[pix + x] = fminf(ml, 1.f);
+
+    if (!kSub) continue;
+    consumers_sync(p.consumers);  // the masks read statistics of other columns
+    for (int ch = 0; ch < p.chunks; ++ch) {
+      float mr[kCpt], ml[kCpt];
+#pragma unroll
+      for (int k = 0; k < kCpt; ++k) mr[k] = ml[k] = 0.f;
+      sweeps.next([&](int n0, int g, const float* rows) {
+        const float* lr[kGroup];
+        stage_rows(st, rows, g, lr);
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) {
+          const PlaneTab tb = s_tab[n0 + i];
+          const int fb = s_fb[n0 + i];
+#pragma unroll
+          for (int k = 0; k < kCpt; ++k) {
+            const int x = column(p, ch, k, tid);
+            if (x >= W) continue;
+            // maskR: S_{+s}(softmax(l)_n), the softmax taken at the source column
+            const int j = x + tb.f;
+            float a = 0.f, c = 0.f;
+            if (j >= 0 && j < W) a = ex2(fmaf(lr[i][j], kLog2e, -s_lse0[j]));
+            if (j + 1 >= 0 && j + 1 < W) c = ex2(fmaf(lr[i][j + 1], kLog2e, -s_lse0[j + 1]));
+            mr[k] += fmaf(tb.t, c - a, a);
+            // maskL: S_{-s}(Dprob_n), Dprob recomputed at the source column
+            const int q = x + fb;
+            a = c = 0.f;
+            if (q >= 0 && q < W) a = ex2(fmaf(lerp_at(lr[i], q + tb.f, tb.t, W), kLog2e, -s_lse1[q]));
+            if (q + 1 >= 0 && q + 1 < W)
+              c = ex2(fmaf(lerp_at(lr[i], q + 1 + tb.f, tb.t, W), kLog2e, -s_lse1[q + 1]));
+            ml[k] += fmaf(tb.tb, c - a, a);
+          }
+        }
+      });
+#pragma unroll
+      for (int k = 0; k < kCpt; ++k) {
+        const int x = column(p, ch, k, tid);
+        if (x >= W) continue;
+        mask_r[pix + x] = fminf(mr[k], 1.f);
+        mask_l[pix + x] = fminf(ml[k], 1.f);
+      }
+    }
   }
 }
 
+// Sweeps per image row: one per chunk for disp and pan, and a second one per
+// chunk for the masks.
+bool fwd_plan(StagePlan& p, int N, int C, int W, bool pan, bool sub) {
+  plan_columns(p, W);
+  const size_t extra = 4 * (fwd_tab_floats(N) + (pan ? (size_t)image_floats(W) : 0) + (sub ? 2 * (size_t)W : 0));
+  return plan_slots(p, N, W, p.chunks * (sub ? 2 : 1), extra);
+}
+
 template <bool kDisp, bool kPan, bool kSub>
-cudaError_t launch(const float* logits, const float* image, float* disp, float* pan,
-                   float* mask_l, float* mask_r, const float* tables, int tab_stride, int B,
-                   int N, int C, int H, int W, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (4 * (size_t)N + (kPan ? (size_t)C * W : 0) + (kSub ? 4 * (size_t)W : 0));
-  auto kernel = med_fwd_kernel<kDisp, kPan, kSub>;
-  if (smem > 48 * 1024) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  dim3 grid(H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(logits, image, disp, pan, mask_l, mask_r, tables,
-                                           tab_stride, N, C, H, W);
-  return cudaGetLastError();
+cudaError_t launch(const StagePlan& p, const float* logits, const float* image, float* disp, float* pan,
+                   float* mask_l, float* mask_r, const float* tables, int tab_stride, int B, int N, int C, int H,
+                   int W, cudaStream_t stream) {
+  const int rows = B * H;
+  const int bulk = W % 4 == 0 && reinterpret_cast<uintptr_t>(logits) % 16 == 0;
+  if (p.cpt == 1)
+    return launch_rows<med_fwd_kernel<kDisp, kPan, kSub, 1>>(p, rows, stream, logits, image, disp, pan, mask_l,
+                       mask_r, tables, tab_stride, N, C, H, W, rows, bulk);
+  return launch_rows<med_fwd_kernel<kDisp, kPan, kSub, 2>>(p, rows, stream, logits, image, disp, pan, mask_l,
+                     mask_r, tables, tab_stride, N, C, H, W, rows, bulk);
 }
 
 }  // namespace
@@ -233,19 +253,22 @@ extern "C" {
 // Launch the MED forward on `stream`.  `tables` is a device buffer of
 // (B, 5, N) fp32 plane tables with `tab_stride` = 5*N, or one (5, N) table
 // for every sample with `tab_stride` = 0.  Unrequested outputs may be null.
-// Returns cudaGetLastError() after the launch (0 on success).
-int med_fwd(const float* logits, const float* image, float* disp, float* pan, float* mask_l,
-            float* mask_r, const float* tables, int tab_stride, int B, int N, int C, int H, int W,
-            int want_disp, int want_pan, int want_subocc, void* stream) {
-  if (N < 2 || N > kMaxPlanes || C < 1 || C > kMaxChannels || B < 1 || H < 1 || W < 1 ||
-      (tab_stride != 0 && tab_stride != 5 * N))
+// Returns cudaErrorInvalidValue, launching nothing, for sizes it does not
+// take (no ring slot fits beside the image row and the statistics, N
+// outside 2..128, C outside 1..4, ...); else cudaGetLastError() after the
+// launch (0 on success).
+int med_fwd(const float* logits, const float* image, float* disp, float* pan, float* mask_l, float* mask_r,
+            const float* tables, int tab_stride, int B, int N, int C, int H, int W, int want_disp, int want_pan,
+            int want_subocc, void* stream) {
+  StagePlan p;
+  if (!med_sizes_ok(B, N, C, H, W, tab_stride) || !fwd_plan(p, N, C, W, want_pan, want_subocc))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int mode = (want_disp ? 1 : 0) | (want_pan ? 2 : 0) | (want_subocc ? 4 : 0);
-#define MED_CASE(M, D, P, S)                                                             \
-  case M:                                                                                \
-    return (int)launch<D, P, S>(logits, image, disp, pan, mask_l, mask_r, tables, tab_stride, \
-                                B, N, C, H, W, s);
+#define MED_CASE(M, D, P, S)                                                                                     \
+  case M:                                                                                                        \
+    return (int)launch<D, P, S>(p, logits, image, disp, pan, mask_l, mask_r, tables, tab_stride, B, N, C, H, W, \
+                                s);
   switch (mode) {
     MED_CASE(1, true, false, false)
     MED_CASE(2, false, true, false)
@@ -258,6 +281,17 @@ int med_fwd(const float* logits, const float* image, float* disp, float* pan, fl
       return (int)cudaErrorInvalidValue;
   }
 #undef MED_CASE
+}
+
+// The staging plan med_fwd would launch with, as 9 ints into `out` (see
+// med_bwd_plan).  Returns cudaErrorInvalidValue where med_fwd would refuse.
+int med_fwd_plan(int N, int C, int W, int want_disp, int want_pan, int want_subocc, int* out) {
+  StagePlan p;
+  if (!med_sizes_ok(1, N, C, 1, W, 0) || !(want_disp || want_pan || want_subocc) ||
+      !fwd_plan(p, N, C, W, want_pan, want_subocc))
+    return (int)cudaErrorInvalidValue;
+  plan_fields(p, out);
+  return 0;
 }
 
 }  // extern "C"

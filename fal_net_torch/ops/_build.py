@@ -27,7 +27,6 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
-MAX_SMEM_BYTES = 232_448  # dynamic shared memory one Hopper block may use
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -115,7 +114,9 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [p] * 7 + [i] * 9 + [p]
     lib.conv3x3_wgmma.argtypes = [p] * 3 + [i] * 5 + [p]
     lib.roll_window.argtypes = [p] * 3 + [i] * 4 + [p]
-    for fn in (lib.med_fwd, lib.med_bwd, lib.conv3x3_wgmma, lib.roll_window):
+    lib.med_fwd_plan.argtypes = [i] * 6 + [p]
+    lib.med_bwd_plan.argtypes = [i] * 6 + [p]
+    for fn in (lib.med_fwd, lib.med_bwd, lib.conv3x3_wgmma, lib.roll_window, lib.med_fwd_plan, lib.med_bwd_plan):
         fn.restype = i
     return lib
 

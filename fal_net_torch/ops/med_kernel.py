@@ -8,22 +8,28 @@ else raises here.  The plain versions are
 :func:`fal_net_torch.ops.med.med_outputs` and
 :func:`fal_net_torch.ops.med_vjp.med_vjp`.
 
+Both kernels stage plane rows in shared memory (csrc/med_stage.cuh); their
+C entries plan the staging, own the size limits that follow from it and
+refuse, launching nothing, what does not fit (the wrapper raises
+ValueError).  :func:`stage_plan` reports a plan.
+
 ``MedForward.launches`` and ``MedForward.bwd_launches`` count the launches of
 K1 and K2, so that a run can show that its main path went through them.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import numbers
 
 import torch
 
-from fal_net_torch.ops._build import MAX_SMEM_BYTES, launch
+from fal_net_torch.ops._build import launch, load_library
 from fal_net_torch.ops.med import MedOutputs, disparity_levels
 
-MAX_PLANES = 128  # kMaxPlanes in med_fwd.cu
-MAX_CHANNELS = 4  # kMaxChannels in med_fwd.cu
+MAX_PLANES = 128  # kMaxPlanes in csrc/med_stage.cuh
+MAX_CHANNELS = 4  # kMaxChannels in csrc/med_stage.cuh
 
 
 def plane_tables(min_disp, max_disp, num_levels: int, width: int, *, device=None) -> torch.Tensor:
@@ -93,14 +99,12 @@ def _check(logits, image, min_disp, max_disp, want_disp, want_pan, want_subocc):
         raise ValueError(f"the MED kernel takes 1..{MAX_CHANNELS} image channels, got {c}")
     if not (want_disp or want_pan or want_subocc):
         raise ValueError("request at least one of disp, pan, subocc")
-    smem = 4 * (4 * n + (c * w if want_pan else 0) + (4 * w if want_subocc else 0))
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"W={w} needs {smem} B of shared memory, above {MAX_SMEM_BYTES}")
 
 
 def _check_bwd(logits, image, g_disp, g_pan):
     """The cotangents K2 reads: contiguous CUDA fp32 of disp's and pan's
-    shapes; its shared memory (2N + 3W for disp, (3 + 2C)W for pan floats)."""
+    shapes.  Sizes beyond the kernel's shared memory are refused by its C
+    entry (see :func:`stage_plan`)."""
     b, n, h, w = logits.shape
     c = image.shape[1]
     for name, g, ch in (("g_disp", g_disp, 1), ("g_pan", g_pan, c)):
@@ -110,9 +114,25 @@ def _check_bwd(logits, image, g_disp, g_pan):
             raise ValueError(f"{name} must be a contiguous {(b, ch, h, w)} tensor, got {tuple(g.shape)}")
         if g.device != logits.device or g.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 on {logits.device}, got {g.dtype} on {g.device}")
-    smem = 4 * (2 * n + (3 * w if g_disp is not None else 0) + ((3 + 2 * c) * w if g_pan is not None else 0))
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"W={w} needs {smem} B of shared memory in K2, above {MAX_SMEM_BYTES}")
+
+
+PLAN_FIELDS = ("consumers", "cpt", "chunks", "group", "slots", "whole", "sweeps", "loads", "smem")
+
+
+def stage_plan(kernel: str, n: int, c: int, w: int, *, disp=True, pan=False, subocc=False, image_grad=False) -> dict:
+    """The staging plan the C entry of ``kernel`` ("med_fwd" or "med_bwd")
+    launches with at N = ``n``, C = ``c``, W = ``w`` and the given outputs
+    (K1: disp, pan, subocc) or cotangents (K2: disp, pan, image_grad), from
+    the built library: consumer threads, columns per thread, column chunks,
+    plane rows per stage, ring slots (stages), whether the whole row is
+    staged (each plane row loaded once per image row), sweeps over the
+    planes, stage loads per image row and dynamic shared-memory bytes (see
+    csrc/med_stage.cuh).  Raises ValueError for sizes the kernel refuses."""
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    flags = (int(disp), int(pan), int(subocc if kernel == "med_fwd" else image_grad))
+    if getattr(load_library(), f"{kernel}_plan")(n, c, w, *flags, out) != 0:
+        raise ValueError(f"{kernel} takes no plan at N={n}, C={c}, W={w} with these outputs or cotangents")
+    return dict(zip(PLAN_FIELDS, out))
 
 
 def _launch(logits, image, tables, tab_stride, want_disp, want_pan, want_subocc):
