@@ -9,29 +9,35 @@ Phases, each reported on its own line; any failure exits nonzero:
      source, all started together;
   3. K1 vs plain: the MED forward kernel against the plain PyTorch head
      on shared seeded inputs, every mode, at the TPU kernel tests' shapes, with
-     per-sample bound tensors, and at the serving shape (8, 49, 384, 1280),
-     with those tests' tolerances.  Both MED kernels stage plane rows in
-     shared memory (csrc/med_stage.cuh) by one of three paths, printed beside
-     each shape: the whole row (N = 49, W = 640), a ring that streams the
-     planes once a sweep (N = 49, W = 1280; two column chunks at W = 1500),
+     per-sample bound tensors, at the training shape (8, 49, 192, 640) and at
+     the serving shape (8, 49, 384, 1280), with those tests' tolerances.
+     Both MED kernels stage plane rows in shared memory
+     (csrc/med_stage.cuh) by one of three paths, printed beside each shape:
+     the whole row (N = 49, W = 640), a ring that streams the planes once a
+     sweep (N = 49, W = 1280; two column chunks at W = 1500),
      and cp.async copies where W * 4 is not a multiple of 16 (W = 187);
   3b. K2 vs plain: the MED backward kernel against the plain VJP at the TPU
      gradient tests' shapes (N = 7, 33, 49 at 8x128), with per-sample bound
      tensors, at W = 187 (cp.async), (2, 49, 16, 1280) and W = 1500 (ring),
-     disp-only and pan-only cotangents, with and without the image
-     gradient, through autograd after a subocc forward (the masks carry no
-     gradient), and at the training shape (8, 49, 192, 640; whole row);
-     rtol 1e-4, atol 1e-5 as the TPU gradient tests;
+     W = 5000 (pan cotangents on the direct path: the image and g_pan rows
+     read from device memory), disp-only and pan-only cotangents, with and
+     without the image gradient, through autograd after a subocc forward (the
+     masks carry no gradient), and at the training shape (8, 49, 192, 640;
+     whole row); rtol 1e-4, atol 1e-5 as the TPU gradient tests; then the
+     widest W each kernel takes at N = 49 in each mode;
   4. the serving slice: FAL_netB N=49 with seeded random weights is saved to
      a .pt, 19 synthetic 384x1280 PNGs go through ``fal_net_torch.cli.infer``
      at batch 8, then the disp+pan forward runs at batch 1 and 8, and at batch
      8 with per-sample bound tensors; each run must launch the kernel, and the
      kernel and the plain head must agree on the model's own logits;
   5. times (CUDA events, median after warm-up): K1 vs plain head at
-     (8, 49, 384, 1280), the whole forward at batch 8 and batch 1, the
-     stage-1 training step at batch 8, 192x640, K1 disp+pan, K2, the plain VJP
-     and autograd of the plain head at (8, 49, 192, 640), peak device memory;
-     each MED kernel's bytes moved (from its staging plan) beside its bound;
+     (8, 49, 384, 1280), the whole forward at batch 8 and batch 1, K1
+     disp+pan and disp+pan+subocc (stage 2's student), K2, the plain VJP and
+     autograd of the plain head at the training shape (8, 49, 192, 640); the
+     stage-1 training step at batch 8, 192x640, the stage-1-slow step and
+     the stage-2 step (teacher forward, student forward and backward, Adam)
+     at batch 4, a double batch of 8; peak device memory of each step; each
+     MED kernel's bytes moved (from its staging plan) beside its bound;
   6. only with ``--profile DIR``: ``torch.profiler`` over the disp-only
      forward at batch 8 and 1 and over the stage-1 training step (device
      window, busy share, kernel time by kind; the per-kernel tables go to
@@ -43,10 +49,25 @@ Phases, each reported on its own line; any failure exits nonzero:
      loss is finite, the checkpoint serves two frames through cli.infer; then
      one step with per-sample bound tensors (fix_order=False), and K2 against
      the plain VJP on the model's own logits;
+  7d. ``cli.train --stage 2`` on the same tree, FAL_netB N=49, 192x640, batch
+     4 (double batch 8), a_p 0, 4 steps, with phase 7a's checkpoint as the
+     frozen teacher (``--fix_model``): the reference's stage-1 -> stage-2
+     chain.  Every loss finite; the setup gate launches K1 twice (the
+     student's subocc mode, the teacher's disp-only mode) and K2 once, each
+     step K1 twice (teacher, student) and K2 once; the teacher's parameters
+     bit-identical afterwards; K2 against the plain VJP on the student's own
+     logits after a subocc forward, with the stage-2 loss's cotangents;
+  7e. ``cli.train --stage 1 --slow``, the same, 4 steps: one K1 and one K2
+     launch a step on the double batch (and one each in the gate);
   8. convergence (scripts/verify_train_tpu.py on the card): the tiny model,
      N=9 over 2..18 px, 64x128, batch 4, Adam 5e-4 (beta1 0.5), 400 stage-1
      steps through K1 and K2 on smooth stereo shifted by 6 px; the median
      disparity must land within half a level spacing of 6.00 px;
+  8b. stage-2 convergence (scripts/verify_train_stage2_tpu.py on the card):
+     phase 8's model is the frozen teacher, a fresh student (seed 7) trains
+     400 stage-2 steps at lr 5e-4, a_sm 2 x 0.2 x 2/512, a_mr 1; the loss
+     must fall, the mirror aux must fall below half its first value and the
+     student's median disparity must land within half a spacing of 6.00 px;
   9. the ported kernel scripts (``fal_net_torch.scripts``): K3
      (``proto_conv_kernel``) and K4 (``proto_conv_kernel_v2``), both through
      the TF32 wgmma conv, against their plain versions on TF32-truncated
@@ -104,6 +125,7 @@ SHAPES = [
     (3, 9, 8, 96, 3, (2.0, -1.0, 1.0), (300.0, -30.0, 30.0)),  # per-sample bounds
     (2, 49, 16, 1280, 3, (2.0, 1.0), 300.0),  # per-sample min, shared 0-d max; ring path
     (1, 49, 4, 1500, 3, 2.0, 300.0),  # two column chunks
+    (8, 49, 192, 640, 3, 2.0, 300.0),  # training shape (stage 2's double batch: subocc)
     (8, 49, 384, 1280, 3, 2.0, 300.0),  # serving shape
 ]
 SERVE_H, SERVE_W, N_IMAGES, BATCH = 384, 1280, 19, 8
@@ -119,6 +141,7 @@ GRAD_SHAPES = [
     (2, 49, 16, 1280, 3, (2.0, 1.0), 300.0),  # per-sample min, shared 0-d max; ring path
     (2, 49, 16, 1280, 3, 2.0, 300.0),  # ring path, number bounds
     (1, 49, 4, 1500, 3, 2.0, 300.0),  # ring path, two column chunks
+    (1, 49, 4, 5000, 3, 2.0, 300.0),  # pan rows too wide to stage: the direct path
     (8, 49, 192, 640, 3, 2.0, 300.0),  # training shape: whole-row path
 ]
 # cotangents given to K2: (g_disp, g_pan, image_grad)
@@ -184,8 +207,26 @@ def plan_label(kernel: str, n: int, c: int, w: int, **flags) -> str:
     p = stage_plan(kernel, n, c, w, **flags)
     path = "whole row" if p["whole"] else f"ring of {p['slots']}"
     copy = "bulk copies" if w % 4 == 0 else "cp.async"
+    direct = ", image and g_pan rows from device memory" if p["direct"] else ""
     return (f"{path} in stages of {p['group']}, {p['chunks']} chunk(s), {p['loads']} stage loads a row, "
-            f"{copy}, {p['smem']} B")
+            f"{copy}, {p['smem']} B{direct}")
+
+
+def widest(kernel: str, n: int = 49, c: int = 3, staged: bool = False, **flags) -> int:
+    """The largest W the MED kernel takes at N = ``n`` with these outputs or
+    cotangents (with ``staged``: on a path that stages the image rows)."""
+    def takes(w):
+        try:
+            plan = stage_plan(kernel, n, c, w, **flags)
+        except ValueError:
+            return False
+        return not (staged and plan["direct"])
+
+    lo, hi = 1, 1 << 17  # takes(lo), not takes(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if takes(mid) else (lo, mid)
+    return lo
 
 
 def moved_bytes(kernel: str, logits, c: int, others, **flags) -> int:
@@ -296,6 +337,12 @@ def phase_bwd_vs_plain(rng, dev) -> float:
         worst = max(worst, compare_grads(got, want, f"{label} autograd after subocc forward"))
     line(f"phase 3b K2 vs plain: {len(GRAD_SHAPES)} shapes x {len(GRAD_MODES) + 1} modes agree, "
          f"worst abs err {worst:.3e}")
+    k2 = {mode: (widest("med_bwd", disp=d, pan=p, image_grad=i), widest("med_bwd", staged=True, disp=d, pan=p,
+                                                                         image_grad=i))
+          for mode, (d, p, i) in GRAD_MODES.items()}
+    k1 = {mode: widest("med_fwd", disp=True, pan="pan" in mode, subocc="subocc" in mode) for mode in MODES}
+    line("phase 3b widths at N = 49, C = 3: K2 " + ", ".join(f"{m} {a} (staged rows to {b})" for m, (a, b) in k2.items())
+         + "; K1 " + ", ".join(f"{m} {a}" for m, a in k1.items()))
     return worst
 
 
@@ -421,7 +468,6 @@ def phase_train(rng, dev, workdir: str):
     """cli.train on a synthetic tree, then one per-sample-bound step."""
     from PIL import Image
 
-    from fal_net_torch.cli import train
     from fal_net_torch.data.loader import to_device
     from fal_net_torch.losses.photometric import rec_loss
     from fal_net_torch.losses.smoothness import smoothness
@@ -432,25 +478,15 @@ def phase_train(rng, dev, workdir: str):
     t0 = time.perf_counter()
     write_kitti_tree(rng, root)
     tree_s = time.perf_counter() - t0
-    MedForward.launches = MedForward.bwd_launches = 0
-    t0 = time.perf_counter()
-    result = train.main([
-        "--stage", "1", "--model", "B", "--no_levels", "49", "--batch_size", "8",
-        "--a_p", "0", "--epochs", "1", "--epoch_size", str(TRAIN_STEPS), "--print_freq", "1",
-        "--data_root", root, "--lists_dir", root, "--save_path", os.path.join(workdir, "runs"),
-    ])
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    k1, k2 = MedForward.launches, MedForward.bwd_launches
+    result, trainer, _, k1, k2, train_s = run_cli_train(["--stage", "1"], root, workdir)
     (epoch,) = result["history"]
-    if not (np.isfinite(epoch["loss"]) and np.isfinite(epoch["rec_loss"])):
-        raise AssertionError(f"non-finite training loss: {epoch}")
     # the setup gate launches each kernel once; each step once more
-    if (k1, k2) != (TRAIN_STEPS + 1, TRAIN_STEPS + 1):
+    if (trainer.cfg.batch_size, k1, k2) != (BATCH, TRAIN_STEPS + 1, TRAIN_STEPS + 1):
         raise AssertionError(f"cli.train launched K1 {k1} and K2 {k2} times, want {TRAIN_STEPS} + 1 each")
     ckpt = os.path.join(result["save_path"], "checkpoint.pt")
     if not os.path.isfile(ckpt):
         raise AssertionError(f"no checkpoint at {ckpt}")
+    del trainer
     line(f"phase 7a cli.train FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B=8: {TRAIN_STEPS} steps in {train_s:.2f} s "
          f"(setup, gate and data included; tree written in {tree_s:.2f} s), epoch loss "
          f"{epoch['loss']:.6f} rec {epoch['rec_loss']:.6f}; K1 {k1}, K2 {k2} launches")
@@ -505,18 +541,118 @@ def phase_train(rng, dev, workdir: str):
     worst = compare_grads((g_k2, None), (g_plain, None), f"model logits B=8 per-sample bounds ({signs} swapped)")
     line(f"phase 7c per-sample-bound step (fix_order=False): loss {metrics['loss']:.6f}, K1 {k1_t}, "
          f"K2 {k2_t} launches; K2 vs plain VJP on the model's logits, worst abs err {worst:.3e}")
-    return {"k1": k1 + infer_k1 + k1_t, "k2": k2 + k2_t, "worst": worst}
+    return {"k1": k1 + infer_k1 + k1_t, "k2": k2 + k2_t, "worst": worst, "root": root, "ckpt": ckpt}
+
+
+def run_cli_train(flags, root: str, workdir: str):
+    """cli.train for TRAIN_STEPS steps of FAL_netB N=49 at 192x640 with the
+    stage's default batch; returns (result, trainer, teacher state after
+    setup, K1 launches, K2 launches, seconds).  The trainer is recorded from
+    its setup, so that the run's own teacher can be checked afterwards."""
+    from fal_net_torch.cli import train
+    from fal_net_torch.train.trainer import Trainer
+
+    made = []
+    setup = Trainer.setup
+
+    def recording_setup(self):
+        setup(self)
+        teacher = None if self.teacher is None else {k: v.clone() for k, v in self.teacher.state_dict().items()}
+        made.append((self, teacher))
+
+    Trainer.setup = recording_setup
+    MedForward.launches = MedForward.bwd_launches = 0
+    t0 = time.perf_counter()
+    try:
+        result = train.main([
+            *flags, "--model", "B", "--no_levels", "49", "--a_p", "0", "--epochs", "1",
+            "--epoch_size", str(TRAIN_STEPS), "--print_freq", "1", "--data_root", root, "--lists_dir", root,
+            "--save_path", os.path.join(workdir, "runs"),
+        ])
+        torch.cuda.synchronize()
+    finally:
+        Trainer.setup = setup
+    secs = time.perf_counter() - t0
+    ((trainer, teacher),) = made
+    (epoch,) = result["history"]
+    if not all(np.isfinite(v) for v in epoch.values()):
+        raise AssertionError(f"non-finite training loss: {epoch}")
+    return result, trainer, teacher, MedForward.launches, MedForward.bwd_launches, secs
+
+
+def phase_later_stages(dev, root: str, ckpt: str, workdir: str):
+    """7d: cli.train --stage 2 with phase 7a's checkpoint as the frozen
+    teacher; 7e: cli.train --stage 1 --slow.  Both on the double batch of 8."""
+    from fal_net_torch.data.loader import to_device
+    from fal_net_torch.ops.shift import hflip
+    from fal_net_torch.train.stages import _stacked, stage2_loss
+
+    result, trainer, teacher0, k1, k2, secs = run_cli_train(["--stage", "2", "--fix_model", ckpt], root, workdir)
+    cfg = trainer.cfg
+    # the gate: K1 in the student's subocc mode and the teacher's disp-only
+    # mode (one plane count), K2 once; each step: teacher and student K1, one K2
+    if (cfg.batch_size, k1, k2) != (4, 2 + 2 * TRAIN_STEPS, 1 + TRAIN_STEPS):
+        raise AssertionError(f"cli.train --stage 2 at batch {cfg.batch_size}: K1 {k1}, K2 {k2} launches, "
+                             f"want 2 + 2 x {TRAIN_STEPS} and 1 + {TRAIN_STEPS}")
+    changed = [k for k, v in trainer.teacher.state_dict().items() if not torch.equal(v, teacher0[k])]
+    if changed or any(p.requires_grad for p in trainer.teacher.parameters()):
+        raise AssertionError(f"the frozen teacher changed: {changed[:3]}")
+    (epoch,) = result["history"]
+    line(f"phase 7d cli.train --stage 2 --fix_model <7a's checkpoint> FAL_netB N=49 {TRAIN_H}x{TRAIN_W} "
+         f"B={cfg.batch_size} (double batch {2 * cfg.batch_size}): {TRAIN_STEPS} steps in {secs:.2f} s, epoch loss "
+         f"{epoch['loss']:.6f} rec {epoch['rec_loss']:.6f}; K1 {k1}, K2 {k2} launches; teacher bit-identical")
+
+    # K2 against the plain VJP on the student's own logits after a subocc
+    # forward, with the stage-2 loss's cotangents (a_mr = 1, teacher included)
+    ds = trainer.train_loader.dataset
+    items = [ds.get(i, np.random.default_rng((11, i))) for i in range(cfg.batch_size)]
+    batch = to_device({k: np.stack([it[k] for it in items]) for k in ("left", "right")}, dev)
+    s_in = torch.cat([batch["left"], hflip(batch["right"])])
+    mn, mx = _stacked((cfg.min_disp, cfg.max_disp))
+    with torch.no_grad():
+        logits = trainer.model.logits(s_in, mx)
+    lg = logits.clone().requires_grad_()
+    heads = []
+
+    def head(x, a, z, **kw):  # the student's MED head on the shared logits
+        heads.append(med_outputs_fused(lg, x.contiguous(), a, z, **kw))
+        return heads[-1]
+
+    loss, _ = stage2_loss(head, batch, trainer.teacher, min_disp=cfg.min_disp, max_disp=cfg.max_disp,
+                          a_p=0.0, a_sm=cfg.a_sm, a_mr=cfg.a_mr)
+    (out,) = heads
+    loss = loss * out.pan.numel()  # sum form: O(1) cotangents, so that atol 1e-5 means something
+    g_disp, g_pan = torch.autograd.grad(loss, (out.disp, out.pan), retain_graph=True)
+    (g_k2,) = torch.autograd.grad(loss, lg)
+    torch.cuda.synchronize()
+    g_plain, _ = med_vjp(logits, s_in, mn, mx, g_disp, g_pan, image_grad=False)
+    worst = compare_grads((g_k2, None), (g_plain, None), "stage-2 student logits, double batch, after subocc")
+    line(f"phase 7d K2 vs plain VJP on the student's logits after a subocc forward: worst abs err {worst:.3e}")
+
+    result, trainer, _, k1_s, k2_s, secs = run_cli_train(["--stage", "1", "--slow"], root, workdir)
+    if (trainer.cfg.batch_size, k1_s, k2_s) != (4, 1 + TRAIN_STEPS, 1 + TRAIN_STEPS):
+        raise AssertionError(f"cli.train --stage 1 --slow at batch {trainer.cfg.batch_size}: K1 {k1_s}, "
+                             f"K2 {k2_s} launches, want 1 + {TRAIN_STEPS} each")
+    (epoch,) = result["history"]
+    line(f"phase 7e cli.train --stage 1 --slow FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B={trainer.cfg.batch_size} "
+         f"(double batch {2 * trainer.cfg.batch_size}): {TRAIN_STEPS} steps in {secs:.2f} s, epoch loss "
+         f"{epoch['loss']:.6f} rec {epoch['rec_loss']:.6f}; K1 {k1_s}, K2 {k2_s} launches")
+    return {"k1": k1 + k1_s, "k2": k2 + k2_s, "worst": worst}
+
+
+CONVERGE = dict(disp_px=6, h=64, w=128, b=4, n=9, mn=2.0, mx=18.0, steps=400)
 
 
 def phase_converge(dev):
     """scripts/verify_train_tpu.py on the card: stage-1 training on smooth
-    synthetic stereo whose true disparity, 6 px, is plane 4 of 2..18, N=9."""
+    synthetic stereo whose true disparity, 6 px, is plane 4 of 2..18, N=9.
+    Returns the trained model (phase 8b's teacher) and the batch."""
     import scipy.ndimage as ndi
 
     from fal_net_torch.ops.med import disparity_levels
     from fal_net_torch.train.stages import stage1_loss
 
-    disp_px, h, w, b, n, mn, mx, steps = 6, 64, 128, 4, 9, 2.0, 18.0, 400
+    disp_px, h, w, b, n, mn, mx, steps = CONVERGE.values()
     rng = np.random.default_rng(0)
     coarse = rng.random((b, h // 8 + 2, (w + disp_px) // 8 + 2, 3)).astype(np.float32)
     wide = np.stack([ndi.zoom(c, (8, 8, 1), order=3)[:h, : w + disp_px] for c in coarse]) - 0.5
@@ -543,11 +679,57 @@ def phase_converge(dev):
     line(f"phase 8 convergence: {steps} steps in {secs:.2f} s, loss {loss.item():.6f}, median disparity "
          f"{med:.4f} px (target {disp_px}.00, half spacing {spacing / 2:.4f}); K1 {launches[0]}, "
          f"K2 {launches[1]} launches")
+    return model, batch
 
 
-def train_setup(dev, seed: int):
-    """FAL_netB N=49, its Adam and a seeded B=8 192x640 batch: the stage-1
-    step that phase 5 times and phase 6 profiles."""
+def phase_converge_stage2(dev, teacher, batch):
+    """scripts/verify_train_stage2_tpu.py:47-153 on the card: phase 8's
+    converged model is the frozen teacher; a fresh student (seed 7) trains
+    400 stage-2 steps (a_sm 2 x 0.2 x 2/512, a_mr 1) through K1's subocc mode
+    and K2.  The loss must fall (step 50 against step 400, as the script's
+    first and last chunk), the mirror aux must halve (step 1 against step
+    400), and the student's median disparity must land on 6.00 px."""
+    from fal_net_torch.ops.med import disparity_levels
+    from fal_net_torch.train.stages import stage2_loss
+
+    disp_px, _, _, _, n, mn, mx, steps = CONVERGE.values()
+    teacher.requires_grad_(False).eval()
+    t0_state = {k: v.clone() for k, v in teacher.state_dict().items()}
+    student = create_model("tiny", n, generator=torch.Generator().manual_seed(7), device=dev)
+    opt = torch.optim.Adam(student.parameters(), lr=5e-4, betas=(0.5, 0.999))
+    MedForward.launches = MedForward.bwd_launches = 0
+    losses, mirrors = [], []
+    t0 = time.perf_counter()
+    for step in range(steps):
+        opt.zero_grad(set_to_none=True)
+        loss, aux = stage2_loss(student, batch, teacher, min_disp=mn, max_disp=mx, a_p=0.0,
+                                a_sm=2 * 0.2 * 2 / 512, a_mr=1.0)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+        mirrors.append(aux["mirror_loss"].detach())
+    with torch.no_grad():
+        med = float(student(batch["left"], mn, mx).disp.median())
+    secs = time.perf_counter() - t0
+    l0, l1, m0, m1 = (float(v) for v in (losses[49], losses[-1], mirrors[0], mirrors[-1]))
+    levels = disparity_levels(mn, mx, n).numpy()
+    spacing = levels[5] - levels[4]
+    launches = (MedForward.launches, MedForward.bwd_launches)
+    frozen = all(torch.equal(v, t0_state[k]) for k, v in teacher.state_dict().items())
+    if not (np.isfinite(l1) and l1 < l0 and np.isfinite(m1) and m1 < m0 / 2 and abs(med - disp_px) < spacing / 2
+            and launches == (2 * steps + 1, steps) and frozen):
+        raise AssertionError(f"stage-2 convergence: loss {l0:.6f} -> {l1:.6f}, mirror {m0:.6f} -> {m1:.6f}, "
+                             f"median disp {med:.4f} (want {disp_px} +- {spacing / 2:.4f}), launches {launches}, "
+                             f"teacher unchanged {frozen}")
+    line(f"phase 8b stage-2 convergence: {steps} steps in {secs:.2f} s, loss {l0:.6f} (step 50) -> {l1:.6f}, "
+         f"mirror {m0:.6f} -> {m1:.6f}, student median disparity {med:.4f} px (target {disp_px}.00, half spacing "
+         f"{spacing / 2:.4f}); K1 {launches[0]}, K2 {launches[1]} launches; teacher unchanged")
+
+
+def train_setup(dev, seed: int, batch_size: int = BATCH):
+    """FAL_netB N=49, its Adam and a seeded 192x640 batch: the training
+    step that phase 5 times (stage 1 at batch 8; stage 1 slow and stage 2 at
+    their batch 4, a double batch of 8) and phase 6 profiles."""
     from fal_net_torch.train.state import create_optimizer
 
     model = create_model("B", 49, generator=torch.Generator().manual_seed(seed), device=dev)
@@ -557,19 +739,23 @@ def train_setup(dev, seed: int):
     rng = np.random.default_rng(seed)
     batch = {
         k: torch.from_numpy(
-            np.stack([normalize(smooth_frame(rng, TRAIN_H, TRAIN_W)) for _ in range(BATCH)]).transpose(0, 3, 1, 2).copy()
+            np.stack([normalize(smooth_frame(rng, TRAIN_H, TRAIN_W)) for _ in range(batch_size)]).transpose(0, 3, 1, 2).copy()
         ).to(dev)
         for k in ("left", "right")
     }
     return model, opt, sched, batch
 
 
-def train_step_fn(model, opt, sched, batch):
+def train_step_fn(model, opt, sched, batch, loss_fn=None, **extra):
+    """One training step: ``loss_fn`` (stage1_loss unless given) with the
+    reference's bounds and weights, a_p = 0, backward, Adam."""
     from fal_net_torch.train.stages import stage1_loss
+
+    loss_fn = loss_fn or stage1_loss
 
     def step():
         opt.zero_grad(set_to_none=True)
-        loss, _ = stage1_loss(model, batch, min_disp=2.0, max_disp=300.0, a_p=0.0, a_sm=0.2 * 2 / 512)
+        loss, _ = loss_fn(model, batch, min_disp=2.0, max_disp=300.0, a_p=0.0, a_sm=0.2 * 2 / 512, **extra)
         loss.backward()
         opt.step()
         sched.step()
@@ -607,6 +793,19 @@ def phase_times(model, lefts, card: str, dev, seed: int):
     draw = lambda c: torch.from_numpy(rng.standard_normal((BATCH, c, TRAIN_H, TRAIN_W), np.float32)).to(dev)
     tl, ti, gd, gp = draw(49), draw(3), draw(1), draw(3)
     k1 = median_ms(lambda: med_outputs_fused(tl, ti, 2.0, 300.0, ret_disp=True, ret_pan=True))
+    # stage 2's student mode at its double batch of 8
+    sub = MODES["disp+pan+subocc"]
+    k1_sub = median_ms(lambda: med_outputs_fused(tl, ti, 2.0, 300.0, **sub), reps=20, warmup=5)
+    k1_sub_plain = median_ms(lambda: med_outputs(tl, ti, 2.0, 300.0, **sub), reps=5)
+    sub_out = [ti, *med_outputs_fused(tl, ti, 2.0, 300.0, **sub)]
+    sub_bytes = nbytes(tl, *sub_out)
+    sub_moved = moved_bytes("med_fwd", tl, 3, sub_out, disp=True, pan=True, subocc=True)
+    times["sub"] = (k1_sub, k1_sub_plain, sub_bytes)
+    line(f"phase 5 MED at the training shape ({BATCH}, 49, {TRAIN_H}, {TRAIN_W}): K1 disp+pan+subocc {k1_sub:.4f} ms, "
+         f"plain {k1_sub_plain:.4f} ms, bound {sub_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms from {sub_bytes / 1e6:.1f} MB; "
+         f"the kernel moves {sub_moved / 1e6:.1f} MB [{plan_label('med_fwd', 49, 3, TRAIN_W, pan=True, subocc=True)}] "
+         f"[{card}]")
+    del sub_out
     k2 = median_ms(lambda: med_vjp_fused(tl, ti, 2.0, 300.0, gd, gp, image_grad=False))
     k2_img = median_ms(lambda: med_vjp_fused(tl, ti, 2.0, 300.0, gd, gp, image_grad=True))
     vjp = median_ms(lambda: med_vjp(tl, ti, 2.0, 300.0, gd, gp, image_grad=False))
@@ -641,6 +840,38 @@ def phase_times(model, lefts, card: str, dev, seed: int):
     line(f"phase 5 stage-1 step FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B={BATCH} (forward, backward, Adam): "
          f"{ms:.3f} ms, {1000 * BATCH / ms:.2f} imgs/s; peak device memory "
          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+    del tmodel, opt, sched, batch
+    times.update(later_stage_times(dev, seed, card))
+    return times
+
+
+def later_stage_times(dev, seed: int, card: str) -> dict:
+    """Stage 1 slow's and stage 2's steps at their batch of 4 (double
+    batch 8), 192x640: CUDA events, median of 20 after 5 warm-up steps, and
+    each step's peak device memory.  The stage-2 step is the teacher's
+    disp-only forward under no_grad, the student's subocc forward, its
+    backward and Adam."""
+    from fal_net_torch.train.stages import stage1_slow_loss, stage2_loss
+
+    times = {}
+    for stage in ("stage1_slow", "stage2"):
+        model, opt, sched, batch = train_setup(dev, seed, batch_size=4)
+        if stage == "stage2":
+            teacher = create_model("B", 49, generator=torch.Generator().manual_seed(seed + 1), device=dev)
+            step = train_step_fn(model, opt, sched, batch, stage2_loss, teacher=teacher.requires_grad_(False).eval(),
+                                 a_mr=1.0)
+            what = "teacher disp forward, student subocc forward, backward, Adam"
+        else:
+            step = train_step_fn(model, opt, sched, batch, stage1_slow_loss)
+            what = "forward, backward, Adam"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = median_ms(step, reps=20, warmup=5)
+        times[stage] = ms
+        line(f"phase 5 {stage} step FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B=4, double batch 8 ({what}): {ms:.3f} ms, "
+             f"{1000 * 4 / ms:.2f} pairs/s; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+             f"[{card}]")
+        del model, opt, sched, batch, step
     return times
 
 
@@ -815,7 +1046,8 @@ def main() -> None:
     del model, lefts
     with tempfile.TemporaryDirectory() as workdir:
         train = phase_train(rng, dev, workdir)
-    phase_converge(dev)
+        later = phase_later_stages(dev, train["root"], train["ckpt"], workdir)
+    phase_converge_stage2(dev, *phase_converge(dev))
     script_kernels = phase_scripts(card)
     k1_bound, k1_by = bound(times["disp"][2], OPS_PER_LOGIT["med_fwd"] * times["disp_logits"])
     k2_bound, k2_by = bound(times["k2_bytes"], OPS_PER_LOGIT["med_bwd"] * times["k2_logits"])
@@ -825,7 +1057,8 @@ def main() -> None:
             "route": "cuda",
             "source": "fal_net_torch/csrc/med_fwd.cu",
             "replaces": "fal_net_tpu/ops/med_pallas.py:116",
-            "launches": serve_launches + train["k1"],  # serving (phase 4) and training (phase 7) paths
+            # serving (phase 4) and training (phase 7a-c, 7d stage 2, 7e stage 1 slow) paths
+            "launches": serve_launches + train["k1"] + later["k1"],
             "max_abs_err": max(worst3, worst4),
             "ms": times["disp"][0],  # disp-only at (8, 49, 384, 1280)
             "plain_ms": times["disp"][1],
@@ -838,8 +1071,8 @@ def main() -> None:
             "route": "cuda",
             "source": "fal_net_torch/csrc/med_bwd.cu",
             "replaces": "fal_net_tpu/ops/med_pallas.py:253",
-            "launches": train["k2"],  # training path (phase 7)
-            "max_abs_err": max(worst3b, train["worst"]),
+            "launches": train["k2"] + later["k2"],  # training paths (phase 7a-c, 7d, 7e)
+            "max_abs_err": max(worst3b, train["worst"], later["worst"]),
             "ms": times["k2"][0],  # disp+pan cotangents, no g_img, at (8, 49, 192, 640)
             "plain_ms": times["k2"][1],
             "bound_ms": k2_bound,

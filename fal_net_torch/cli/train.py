@@ -1,12 +1,14 @@
-"""Training CLI, stage 1 (counterpart of fal_net_tpu/cli/train.py).
+"""Training CLI, the three stages (counterpart of fal_net_tpu/cli/train.py).
 
     python -m fal_net_torch.cli.train --stage 1 --data_root /data/KITTI \\
         --a_p 0 --model B
+    python -m fal_net_torch.cli.train --stage 1 --slow ...     # stage 1 slow
+    python -m fal_net_torch.cli.train --stage 2 --fix_model STAGE1.pt ...
 
 Runs on the GPU unless ``--device cpu`` is given.  The flags of later
-slices (stage 2, stage 1 slow, validation, resume, bf16, the profiler,
-multi-GPU) are parsed so that giving one raises and names the ROADMAP item
-that brings it; none is ignored.
+slices (validation, resume, bf16, the profiler, multi-GPU) are parsed so
+that giving one raises and names the ROADMAP item that brings it; none is
+ignored.
 """
 
 from __future__ import annotations
@@ -14,14 +16,11 @@ from __future__ import annotations
 import argparse
 
 from fal_net_torch.data.datasets import REGISTRY as DATASETS
-from fal_net_torch.train.config import Stage1Config
+from fal_net_torch.train.config import Stage1Config, Stage2Config
 from fal_net_torch.train.trainer import Trainer, not_ported
 
 # flag -> (what it enables, ROADMAP.md queue 1 item)
 LATER = {
-    "slow": ("--slow (stage 1 slow)", "item 8"),
-    "a_mr": ("--a_mr (stage 2)", "item 8"),
-    "fix_model": ("--fix_model (stage 2)", "item 8"),
     "val_root": ("--val_root (validation)", "item 10"),
     "val_batch_size": ("--tbatch_size (validation)", "item 10"),
     "rel_baseline_val": ("--rel_baset (validation)", "item 10"),
@@ -32,9 +31,9 @@ LATER = {
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="fal_net_torch trainer (stage 1)")
+    p = argparse.ArgumentParser(description="fal_net_torch trainer (stages 1, 1 slow, 2)")
     p.add_argument("--stage", type=int, default=1, choices=(1, 2))
-    p.add_argument("--slow", action="store_true", default=None, help="two-sided stage-1 variant")
+    p.add_argument("--slow", action="store_true", help="two-sided stage-1 variant (stage 1 only)")
     p.add_argument("--model", default="B")
     p.add_argument("--no_levels", type=int, default=None)
     p.add_argument("--dataset", default="Kitti", choices=sorted(DATASETS))
@@ -73,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--min_disp", type=float, default=2.0)
     p.add_argument("--a_p", type=float, default=None)
     p.add_argument("--a_sm", type=float, default=None)
-    p.add_argument("--a_mr", type=float, default=None)
+    p.add_argument("--a_mr", type=float, default=None, help="mirror-loss weight (stage 2; default 1)")
     p.add_argument("--crop_height", type=int, default=192)
     p.add_argument("--crop_width", type=int, default=640)
     p.add_argument("--workers", type=int, default=4)
@@ -105,14 +104,21 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Returns the trainer's ``fit`` result (history, best, save_path)."""
     args = build_parser().parse_args(argv)
-    if args.stage == 2:
-        raise not_ported("--stage 2 (MOM distillation)", "item 8")
     if args.dtype != "float32":
         raise not_ported(f"--dtype {args.dtype}", "item 10")
     for name, (what, item) in LATER.items():
         if getattr(args, name) is not None:
             raise not_ported(what, item)
-    cfg = Stage1Config(
+    if args.stage == 2 and args.slow:
+        raise ValueError("--slow is a stage-1 variant; it does not apply to --stage 2")
+    if args.stage == 1 and (args.fix_model is not None or args.a_mr is not None):
+        raise ValueError("--fix_model and --a_mr are stage-2 flags; they do not apply to --stage 1")
+    cls = Stage2Config if args.stage == 2 else Stage1Config
+    # slow reaches the constructor: Stage1Config.__post_init__ applies the
+    # Kslow batch default (4, Train_Stage1_Kslow.py:48); --batch_size wins
+    extra = {"slow": args.slow} if args.stage == 1 else {}
+    cfg = cls(
+        **extra,
         model=args.model,
         dataset=args.dataset,
         data_root=args.data_root,
@@ -134,6 +140,10 @@ def main(argv=None) -> dict:
         weight_decay=args.weight_decay,
         bias_decay=args.bias_decay,
     )
+    if args.stage == 2:
+        cfg.fix_model = args.fix_model
+        if args.a_mr is not None:
+            cfg.a_mr = args.a_mr
     if args.no_levels is not None:
         cfg.num_levels = args.no_levels
     if args.milestones is not None:
@@ -142,7 +152,8 @@ def main(argv=None) -> dict:
         v = getattr(args, name)
         if v is not None:
             setattr(cfg, name, v)
-    result = Trainer(cfg, device=args.device).fit()
+    stage = "stage2" if args.stage == 2 else ("stage1_slow" if args.slow else "stage1")
+    result = Trainer(cfg, stage=stage, device=args.device).fit()
     print(f"best {result['best_metric']}:", result["best_value"])
     return result
 

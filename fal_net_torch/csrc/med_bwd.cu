@@ -39,6 +39,11 @@
 //     rest of the sweep.  Blocks are persistent over rows;
 //   * ring path (W = 1280 at N = 49: a 250,880 B row): the stages stream
 //     through fewer slots in both sweeps;
+//   * direct path, for pan cotangents on rows too wide to stage the image
+//     and g_pan rows (32 B a column) beside the ring and the statistics
+//     (W > 4,449 at N = 49, > 4,131 with g_img): those two rows are read
+//     from device memory, through the caches, at the shifted columns; the
+//     plane rows stream through the ring as above;
 //   * exponentials in base 2 (ex2.approx on l log2 e); the online softmaxes
 //     take a stage's maximum first and rescale their sums once a stage, with
 //     no branch;
@@ -57,7 +62,7 @@ namespace {
 // Floats of the plane tables, a multiple of 4.
 __host__ __device__ inline int bwd_tab_floats(int N) { return 4 * (N + kGroup - 1); }
 
-template <bool kDisp, bool kPan, bool kImg, int kCpt>
+template <bool kDisp, bool kPan, bool kImg, int kCpt, bool kDirect>
 __global__ void __launch_bounds__(kStageThreads, 1)
 med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
                const float* __restrict__ image,   // (B, C, H, W)
@@ -70,13 +75,13 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* extra;
   const RowStage st = stage_init(smem_raw, p, W, bulk, &extra);
-  // extra: [plane tables], then for pan [image row][g_pan row][(lse1, sq) W]
-  // [g_shift: G rows of pitch P][D: G rows, for g_img]; the rows as the
-  // staged ones, column 0 at offset 4 and zero guards
+  // extra: [plane tables], then for pan [image row][g_pan row] (not on the
+  // direct path) [(lse1, sq) W][g_shift: G rows of pitch P][D: G rows, for
+  // g_img]; the rows as the staged ones, column 0 at offset 4 and zero guards
   PlaneTab* s_tab = reinterpret_cast<PlaneTab*>(extra);
   float4* s_img4 = reinterpret_cast<float4*>(extra + bwd_tab_floats(N)) + 1;  // column 0
   float4* s_gp4 = s_img4 + W + 2;
-  float2* s_st = reinterpret_cast<float2*>(s_gp4 + W + 1);
+  float2* s_st = kDirect ? reinterpret_cast<float2*>(extra + bwd_tab_floats(N)) : reinterpret_cast<float2*>(s_gp4 + W + 1);
   float* s_gs = reinterpret_cast<float*>(s_st + W) + 4;
   float* s_d = s_gs + p.group * st.P;
   if (tab_stride == 0) load_plane_tabs(s_tab, nullptr, tables, N, threadIdx.x, blockDim.x);
@@ -95,9 +100,21 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
     const size_t row0 = ((size_t)b * N * H + y) * W;  // plane 0 of row y
     const size_t pix = ((size_t)b * H + y) * W;       // (b, 0, y, 0) of 1-ch tensors
     const size_t crow = ((size_t)b * C * H + y) * W;  // (b, 0, y, 0) of C-ch tensors
+    // image and g_pan at column j (zero outside [0, W)): staged, or on the
+    // direct path from device memory
+    auto img_lerp = [&](int j, float t) {
+      if (kDirect) {
+        const float4 u = ld_row4(image + crow, j, C, W, plane), v = ld_row4(image + crow, j + 1, C, W, plane);
+        return make_float4(fmaf(t, v.x - u.x, u.x), fmaf(t, v.y - u.y, u.y), fmaf(t, v.z - u.z, u.z),
+                           fmaf(t, v.w - u.w, u.w));
+      }
+      return lerp4_at(s_img4, j, t, W);
+    };
+    auto gp_at = [&](int j) { return kDirect ? ld_row4(g_pan + crow, j, C, W, plane) : s_gp4[min(max(j, -1), W)]; };
+    auto gp_in = [&](int x) { return kDirect ? ld_row4(g_pan + crow, x, C, W, plane) : s_gp4[x]; };  // 0 <= x < W
     if (kPan || tab_stride) {
       consumers_sync(p.consumers);  // the last row's readers are done
-      if (kPan) {
+      if (kPan && !kDirect) {
         load_image_row(s_img4, image + crow, C, W, plane, tid, p.consumers);
         load_image_row(s_gp4, g_pan + crow, C, W, plane, tid, p.consumers);
       }
@@ -118,7 +135,7 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
         const int x = column(p, ch, k, tid);
         m0[k] = m1[k] = -INFINITY;
         z0[k] = a0[k] = z1[k] = aq[k] = 0.f;
-        gp[k] = (kPan && x < W) ? s_gp4[x] : make_float4(0.f, 0.f, 0.f, 0.f);
+        gp[k] = (kPan && x < W) ? gp_in(x) : make_float4(0.f, 0.f, 0.f, 0.f);
       }
       // One stage: planes n0 .. n0 + g - 1 and dummies up to kGroup; each
       // online softmax takes the stage's maximum first and rescales its sums
@@ -158,7 +175,7 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
               const int j = x + tb[i].f;
               a[i] = lerp_at(lr[i], j, tb[i].t, W) * kLog2e;
               mx = fmaxf(mx, a[i]);
-              const float4 v = lerp4_at(s_img4, j, tb[i].t, W);
+              const float4 v = img_lerp(j, tb[i].t);
               gd[i] = fmaf(v.x, gp[k].x, fmaf(v.y, gp[k].y, fmaf(v.z, gp[k].z, v.w * gp[k].w)));
             }
             const float r = ex2(m1[k] - mx);
@@ -216,13 +233,13 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
               const int y = column(p, c2, k, tid);
               if (y >= W) continue;
               const float2 sy = s_st[y];  // (log2-sum, sum_m q_m / sum) at y
-              const float4 gq = s_gp4[y];
+              const float4 gq = gp_in(y);
 #pragma unroll
               for (int i = 0; i < kGroup; ++i) {
                 if (i >= g) break;
                 const int j = y + tb[i].f;
                 const float d = ex2(fmaf(lerp_at(lr[i], j, tb[i].t, W), kLog2e, -sy.x));
-                const float4 v = lerp4_at(s_img4, j, tb[i].t, W);
+                const float4 v = img_lerp(j, tb[i].t);
                 const float gdn = fmaf(v.x, gq.x, fmaf(v.y, gq.y, fmaf(v.z, gq.z, v.w * gq.w)));
                 s_gs[i * st.P + y] = d * (gdn - sy.y);
                 if (kImg) s_d[i * st.P + y] = d;
@@ -250,7 +267,7 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
               gl += fmaf(t, c - a, a);
               if (kImg) {
                 const float da = (1.f - t) * pad(s_d + i * st.P, y0, W), dc = t * pad(s_d + i * st.P, y0 - 1, W);
-                const float4 ga = s_gp4[min(max(y0, -1), W)], gc = s_gp4[min(max(y0 - 1, -1), W)];
+                const float4 ga = gp_at(y0), gc = gp_at(y0 - 1);
                 gi[k] = make_float4(fmaf(da, ga.x, fmaf(dc, gc.x, gi[k].x)), fmaf(da, ga.y, fmaf(dc, gc.y, gi[k].y)),
                                     fmaf(da, ga.z, fmaf(dc, gc.z, gi[k].z)), fmaf(da, ga.w, fmaf(dc, gc.w, gi[k].w)));
               }
@@ -299,10 +316,19 @@ int bwd_sweeps(int chunks, bool disp, bool pan) {
 
 bool bwd_plan(StagePlan& p, int N, int C, int W, bool disp, bool pan, bool img) {
   plan_columns(p, W);
-  // pan: image and g_pan rows, (lse1, sq), and per stage row a g_shift row (and a D row)
-  const size_t extra = plane_tab_bytes(N) + (pan ? 4 * (2 * (size_t)image_floats(W) + 2 * (size_t)W) : 0);
+  // pan: image and g_pan rows (not on the direct path), (lse1, sq), and per
+  // stage row a g_shift row (and a D row)
   const size_t per_row = pan ? 4 * (size_t)row_pitch(W) * (img ? 2 : 1) : 0;
-  return plan_slots(p, N, W, bwd_sweeps(p.chunks, disp, pan), extra, per_row);
+  const int sweeps = bwd_sweeps(p.chunks, disp, pan);
+  for (int direct = 0; direct <= (pan && p.cpt == 2); ++direct) {
+    const size_t rows = direct ? 0 : 2 * (size_t)image_floats(W);
+    const size_t extra = plane_tab_bytes(N) + (pan ? 4 * (rows + 2 * (size_t)W) : 0);
+    if (plan_slots(p, N, W, sweeps, extra, per_row)) {
+      p.direct = direct;
+      return true;
+    }
+  }
+  return false;
 }
 
 template <bool kDisp, bool kPan, bool kImg>
@@ -311,11 +337,16 @@ cudaError_t launch(const StagePlan& p, const float* logits, const float* image, 
                    int N, int C, int H, int W, cudaStream_t stream) {
   const int rows = B * H;
   const int bulk = W % 4 == 0 && reinterpret_cast<uintptr_t>(logits) % 16 == 0;
+  if constexpr (kPan) {
+    if (p.direct)  // planned only with 2 columns a thread
+      return launch_rows<med_bwd_kernel<kDisp, kPan, kImg, 2, true>>(p, rows, stream, logits, image, g_disp, g_pan,
+                         g_logits, g_image, tables, tab_stride, N, C, H, W, rows, bulk);
+  }
   if (p.cpt == 1)
-    return launch_rows<med_bwd_kernel<kDisp, kPan, kImg, 1>>(p, rows, stream, logits, image, g_disp, g_pan,
+    return launch_rows<med_bwd_kernel<kDisp, kPan, kImg, 1, false>>(p, rows, stream, logits, image, g_disp, g_pan,
                        g_logits, g_image, tables, tab_stride, N, C, H, W, rows, bulk);
-  return launch_rows<med_bwd_kernel<kDisp, kPan, kImg, 2>>(p, rows, stream, logits, image, g_disp, g_pan, g_logits,
-                     g_image, tables, tab_stride, N, C, H, W, rows, bulk);
+  return launch_rows<med_bwd_kernel<kDisp, kPan, kImg, 2, false>>(p, rows, stream, logits, image, g_disp, g_pan,
+                     g_logits, g_image, tables, tab_stride, N, C, H, W, rows, bulk);
 }
 
 }  // namespace
@@ -354,7 +385,7 @@ int med_bwd(const float* logits, const float* image, const float* g_disp, const 
 #undef MED_CASE
 }
 
-// The staging plan med_bwd would launch with, as 9 ints into `out`:
+// The staging plan med_bwd would launch with, as 10 ints into `out`:
 // StagePlan's fields in order.  Returns cudaErrorInvalidValue where med_bwd would refuse.
 int med_bwd_plan(int N, int C, int W, int want_disp, int want_pan, int want_gimg, int* out) {
   StagePlan p;

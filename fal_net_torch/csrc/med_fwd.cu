@@ -283,7 +283,7 @@ int med_fwd(const float* logits, const float* image, float* disp, float* pan, fl
 #undef MED_CASE
 }
 
-// The staging plan med_fwd would launch with, as 9 ints into `out` (see
+// The staging plan med_fwd would launch with, as 10 ints into `out` (see
 // med_bwd_plan).  Returns cudaErrorInvalidValue where med_fwd would refuse.
 int med_fwd_plan(int N, int C, int W, int want_disp, int want_pan, int want_subocc, int* out) {
   StagePlan p;

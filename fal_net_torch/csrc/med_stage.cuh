@@ -151,6 +151,7 @@ struct StagePlan {
   int sweeps;     // sweeps over the N planes per image row
   int loads;      // stage loads per image row: ceil(N / G) if whole, else sweeps * ceil(N / G)
   int smem;       // dynamic shared memory bytes: [2R mbarriers][R slots of G rows][extra]
+  int direct;     // K2: image and g_pan rows read from device memory, not staged (rows too wide)
 };
 
 // Row pitch in floats of a staged row: W floats from offset 4 (16 bytes, so
@@ -168,6 +169,7 @@ inline bool med_sizes_ok(int B, int N, int C, int H, int W, int tab_stride) {
 
 // Columns to threads: cpt = 2 above 640 columns, at most kMaxConsumers threads.
 inline void plan_columns(StagePlan& p, int W) {
+  p.direct = 0;
   p.cpt = W > kMaxConsumers ? 2 : 1;
   const int per = ((W + p.cpt - 1) / p.cpt + 31) / 32 * 32;
   p.consumers = per < kMaxConsumers ? per : kMaxConsumers;
@@ -201,8 +203,8 @@ inline bool plan_slots(StagePlan& p, int N, int W, int sweeps, size_t extra, siz
 
 // The plan's fields in order, for the C entries that report it.
 inline void plan_fields(const StagePlan& p, int* out) {
-  const int v[9] = {p.consumers, p.cpt, p.chunks, p.group, p.slots, p.whole, p.sweeps, p.loads, p.smem};
-  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  const int v[10] = {p.consumers, p.cpt, p.chunks, p.group, p.slots, p.whole, p.sweeps, p.loads, p.smem, p.direct};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
 }
 
 // Column x of chunk c, sub-column k, for consumer thread i (W or more: none).
@@ -392,6 +394,19 @@ __device__ __forceinline__ float4 lerp4_at(const float4* v, int j, float t, int 
   const float4 a = v[min(max(j, -1), W)], b = v[min(max(j + 1, -1), W)];
   return make_float4(fmaf(t, b.x - a.x, a.x), fmaf(t, b.y - a.y, a.y), fmaf(t, b.z - a.z, a.z),
                      fmaf(t, b.w - a.w, a.w));
+}
+
+// Column j of a (B, C, H, W) tensor's row in device memory (`src` at its
+// channel 0, channels `plane` floats apart) as a float4, zero past C and
+// outside [0, W): the unstaged counterpart of a float4 row's v[j].
+__device__ __forceinline__ float4 ld_row4(const float* __restrict__ src, int j, int C, int W, size_t plane) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (j < 0 || j >= W) return v;
+  v.x = __ldg(src + j);
+  if (C > 1) v.y = __ldg(src + plane + j);
+  if (C > 2) v.z = __ldg(src + 2 * plane + j);
+  if (C > 3) v.w = __ldg(src + 3 * plane + j);
+  return v;
 }
 
 // Stage an image row (b, ., y, .) of a (B, C, H, W) tensor: column x of

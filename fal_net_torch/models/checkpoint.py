@@ -10,7 +10,7 @@ fal_net_tpu/models/torch_import.py detects it) and the plane count from
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -67,3 +67,12 @@ def load_checkpoint(
     model = create_model(spec.name, num_levels or sd["conv0.weight"].shape[0], device=device)
     model.load_state_dict(sd)
     return model
+
+
+def load_model_any(path: str, *, device: Union[str, torch.device] = "cuda") -> Tuple[FalNet, str, int]:
+    """(model, variant, plane count) of a port ``.pt`` or reference
+    ``.pth.tar``, the variant and plane count read from the checkpoint
+    (counterpart of fal_net_tpu's ``load_params_any``).  Stage 2 loads its
+    frozen teacher so, whatever the student's variant and N."""
+    model = load_checkpoint(path, device=device)
+    return model, model.spec.name, model.num_levels

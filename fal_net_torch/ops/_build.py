@@ -3,11 +3,13 @@
 At first use, each ``fal_net_torch/csrc/*.cu`` is compiled for sm_90a by
 its own nvcc, all started together, and the objects are linked into one
 shared library with a plain C interface, under ``fal_net_torch/_build/``
-(git-ignored), named by a hash of the sources, their headers (``*.cuh``)
-and the flags, so that a changed source rebuilds and an unchanged one loads
-at once.  A missing ``nvcc`` or a failed build raises :class:`BuildError`
-with the compiler's output; no caller falls back to a plain version
-instead.  :func:`launch` calls a C entry on the current stream.
+(git-ignored; ``$FAL_NET_TORCH_BUILD_DIR`` overrides it, for an installed
+package whose directory is read-only), named by a hash of the sources,
+their headers (``*.cuh``) and the flags, so that a changed source rebuilds
+and an unchanged one loads at once.  A missing ``nvcc`` or a failed build
+raises :class:`BuildError` with the compiler's output; no caller falls back
+to a plain version instead.  :func:`launch` calls a C entry on the current
+stream.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import torch
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(PKG_DIR, "_build")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")  # unless $FAL_NET_TORCH_BUILD_DIR names another
+BUILD_DIR_ENV = "FAL_NET_TORCH_BUILD_DIR"
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -60,12 +63,16 @@ def _sources() -> list[str]:
     return srcs
 
 
+def build_dir() -> str:
+    return os.environ.get(BUILD_DIR_ENV) or BUILD_DIR
+
+
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu*"))):  # sources and headers
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"fal_net_torch_{h.hexdigest()[:16]}.so")
+    return os.path.join(build_dir(), f"fal_net_torch_{h.hexdigest()[:16]}.so")
 
 
 def _run(cmd: list[str]) -> str:
@@ -85,7 +92,7 @@ def build() -> tuple[str, str]:
     if os.path.isfile(out):
         return out, ""
     nvcc = find_nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir(), exist_ok=True)
     tmp = f"{out}.{os.getpid()}"
     objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src] for src, obj in zip(_sources(), objs)]

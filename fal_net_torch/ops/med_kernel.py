@@ -116,7 +116,7 @@ def _check_bwd(logits, image, g_disp, g_pan):
             raise ValueError(f"{name} must be float32 on {logits.device}, got {g.dtype} on {g.device}")
 
 
-PLAN_FIELDS = ("consumers", "cpt", "chunks", "group", "slots", "whole", "sweeps", "loads", "smem")
+PLAN_FIELDS = ("consumers", "cpt", "chunks", "group", "slots", "whole", "sweeps", "loads", "smem", "direct")
 
 
 def stage_plan(kernel: str, n: int, c: int, w: int, *, disp=True, pan=False, subocc=False, image_grad=False) -> dict:
@@ -126,8 +126,9 @@ def stage_plan(kernel: str, n: int, c: int, w: int, *, disp=True, pan=False, sub
     the built library: consumer threads, columns per thread, column chunks,
     plane rows per stage, ring slots (stages), whether the whole row is
     staged (each plane row loaded once per image row), sweeps over the
-    planes, stage loads per image row and dynamic shared-memory bytes (see
-    csrc/med_stage.cuh).  Raises ValueError for sizes the kernel refuses."""
+    planes, stage loads per image row, dynamic shared-memory bytes, and
+    whether K2 reads the image and g_pan rows from device memory instead of
+    staging them (rows too wide; see csrc/med_bwd.cu).  Raises ValueError for sizes the kernel refuses."""
     out = (ctypes.c_int * len(PLAN_FIELDS))()
     flags = (int(disp), int(pan), int(subocc if kernel == "med_fwd" else image_grad))
     if getattr(load_library(), f"{kernel}_plan")(n, c, w, *flags, out) != 0:

@@ -74,3 +74,16 @@ class Stage1Config(TrainConfig):
     def __post_init__(self):
         if self.slow:
             self.batch_size = 4  # Kslow default (Train_Stage1_Kslow.py:48)
+
+
+@dataclasses.dataclass
+class Stage2Config(TrainConfig):
+    """Stage-2 MOM distillation defaults (Train_Stage2_K.py:44-60)."""
+
+    lr: float = 5e-5
+    epochs: int = 20
+    milestones: Tuple[int, ...] = (5, 10)
+    batch_size: int = 4
+    a_sm: float = 0.4 * 2 / 512
+    a_mr: float = 1.0  # mirror-loss weight
+    fix_model: Optional[str] = None  # frozen stage-1 teacher checkpoint

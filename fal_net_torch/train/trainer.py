@@ -1,12 +1,17 @@
-"""The stage-1 training loop (counterpart of fal_net_tpu/train/trainer.py,
-reference Train_Stage1_K.py).
+"""The training loop of the three stages (counterpart of
+fal_net_tpu/train/trainer.py, reference Train_Stage1_K.py,
+Train_Stage1_Kslow.py and Train_Stage2_K.py).
 
-One step is the stage-1 loss (train/stages.py), its backward and an Adam
+One step is the stage's loss (train/stages.py), its backward and an Adam
 update.  On the GPU the model's MED head runs K1 in its forward and K2 in
-its backward, once each per step (per microbatch with ``grad_accum``).
-Setup runs the MED kernel gate (ops/med_selfcheck.py), which raises on a
-disagreement.  Validation, full-state resume, the perceptual term and the
-other stages wait for later slices and raise here.
+its backward, once each per step (per microbatch with ``grad_accum``):
+stage 1 on the batch, stage 1 slow and stage 2 on the double batch
+[view | flipped other view], stage 2 with K1's sub-occlusion masks.  Stage
+2's frozen teacher (``fix_model``) adds one disp-only K1 launch per step,
+outside autograd.  Setup runs the MED kernel gate (ops/med_selfcheck.py) in
+every mode the run launches, which raises on a disagreement.  Validation,
+full-state resume and the perceptual term wait for later slices and raise
+here.
 """
 
 from __future__ import annotations
@@ -24,10 +29,10 @@ from fal_net_torch.data.datasets import REGISTRY as DATASETS
 from fal_net_torch.data.loader import DataLoader, prefetch_to_device
 from fal_net_torch.data.transforms import default_train_transform
 from fal_net_torch.models import create_model
-from fal_net_torch.models.checkpoint import read_state_dict
+from fal_net_torch.models.checkpoint import load_model_any, read_state_dict
 from fal_net_torch.train.checkpoint import save_checkpoint
-from fal_net_torch.train.config import TrainConfig
-from fal_net_torch.train.stages import stage1_loss
+from fal_net_torch.train.config import Stage2Config, TrainConfig
+from fal_net_torch.train.stages import stage1_loss, stage1_slow_loss, stage2_loss
 from fal_net_torch.train.state import create_optimizer
 from fal_net_torch.utils.device import resolve_device
 from fal_net_torch.utils.meters import AverageMeter
@@ -39,10 +44,15 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
-class Trainer:
-    stage = "stage1"
+STAGES = ("stage1", "stage1_slow", "stage2")
+# K1's mode in each stage's student forward (ops/med_selfcheck.py MODES)
+STUDENT_MODE = {"stage1": "disp+pan", "stage1_slow": "disp+pan", "stage2": "disp+pan+subocc"}
 
-    def __init__(self, cfg: TrainConfig, device="cuda"):
+
+class Trainer:
+    def __init__(self, cfg: TrainConfig, stage: str = "stage1", device="cuda"):
+        if stage not in STAGES:
+            raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
         if cfg.compute_dtype != "float32":
             raise not_ported(f"compute_dtype={cfg.compute_dtype!r}", "item 10")
         if cfg.resume:
@@ -52,6 +62,7 @@ class Trainer:
         if cfg.batch_size % cfg.grad_accum:
             raise ValueError(f"batch_size {cfg.batch_size} is not divisible by grad_accum {cfg.grad_accum}")
         self.cfg = cfg
+        self.stage = stage
         self.device = resolve_device(device)
         self.model = create_model(
             cfg.model, cfg.num_levels, device=self.device,
@@ -76,8 +87,20 @@ class Trainer:
                 )
             raise not_ported("the perceptual term (losses/vgg.py)", "item 9")
 
-        # The MED kernel gate, at this run's exact shape and bounds: number
-        # bounds with fix_order, else per-sample tensors of both signs.
+        # Stage 2's frozen teacher: any variant and N, never optimized.
+        self.teacher = None
+        if self.stage == "stage2":
+            if not (isinstance(cfg, Stage2Config) and cfg.fix_model):
+                raise ValueError("stage 2 needs a Stage2Config with fix_model: the frozen stage-1 teacher "
+                                 "checkpoint (--fix_model)")
+            self.teacher, variant, levels = load_model_any(cfg.fix_model, device=self.device)
+            self.teacher.requires_grad_(False).eval()
+            print(f"=> frozen teacher: variant {variant}, N={levels}, from {cfg.fix_model}")
+
+        # The MED kernel gate, at this run's exact shape and bounds (number
+        # bounds with fix_order, else per-sample tensors of both signs,
+        # repeated for the double batch) in every mode the run launches, at
+        # the student's and the teacher's plane counts.
         self.med_selfcheck_err = None
         if cfg.med_selfcheck and self.device.type == "cuda" and self.model.med_impl != "reference":
             from fal_net_torch.ops.med_selfcheck import med_selfcheck
@@ -85,12 +108,21 @@ class Trainer:
             mn, mx = [cfg.min_disp], [cfg.max_disp]
             if not cfg.fix_order:
                 mn, mx = mn + [-cfg.min_disp], mx + [-cfg.max_disp]
-            self.med_selfcheck_err = med_selfcheck(
-                cfg.crop_size[0], cfg.crop_size[1], self.model.num_levels, mn, mx, self.device,
-                seed=cfg.seed,
-            )
-            print(f"=> MED kernels agree with their plain versions at {cfg.crop_size}, "
-                  f"N={self.model.num_levels}: max abs err {self.med_selfcheck_err:.3e}")
+                if self.stage != "stage1":
+                    mn, mx = mn + mn, mx + mx
+            # plane count -> (K1 modes, whether K2 runs)
+            checks = {self.model.num_levels: ([STUDENT_MODE[self.stage]], True)}
+            if self.teacher is not None and cfg.a_mr > 0:
+                checks.setdefault(self.teacher.num_levels, ([], False))[0].append("disp")
+            self.med_selfcheck_err = 0.0
+            for n, (modes, backward) in sorted(checks.items()):
+                err = med_selfcheck(
+                    cfg.crop_size[0], cfg.crop_size[1], n, mn, mx, self.device,
+                    seed=cfg.seed, modes=modes, backward=backward,
+                )
+                self.med_selfcheck_err = max(self.med_selfcheck_err, err)
+                print(f"=> MED kernels ({', '.join(modes)}{', K2' if backward else ''}) agree with their "
+                      f"plain versions at {cfg.crop_size}, N={n}: max abs err {err:.3e}")
 
         train_ds, _ = DATASETS[cfg.dataset](
             cfg.data_root,
@@ -130,12 +162,11 @@ class Trainer:
         applied: the full batch's update at 1/grad_accum the activations."""
         cfg = self.cfg
         accum = cfg.grad_accum
-        kw = dict(min_disp=cfg.min_disp, max_disp=cfg.max_disp, a_p=cfg.a_p, a_sm=cfg.a_sm)
         self.optimizer.zero_grad(set_to_none=True)
         aux_sum: Dict[str, torch.Tensor] = {}
         for micro in range(accum):
             part = {k: v.chunk(accum)[micro] for k, v in batch.items()}
-            loss, aux = stage1_loss(self.model, part, **kw)
+            loss, aux = self._loss(part)
             (loss / accum).backward()
             for k, v in aux.items():
                 aux_sum[k] = aux_sum.get(k, 0.0) + v.detach()
@@ -143,6 +174,17 @@ class Trainer:
         self.scheduler.step()
         self.step += 1
         return {k: float(v) / accum for k, v in aux_sum.items()}
+
+    def _loss(self, batch: Dict[str, torch.Tensor]):
+        """The stage's loss and aux on one (micro)batch (counterpart of
+        fal_net_tpu's ``Trainer._loss_fn``)."""
+        cfg = self.cfg
+        kw = dict(min_disp=cfg.min_disp, max_disp=cfg.max_disp, a_p=cfg.a_p, a_sm=cfg.a_sm)
+        if self.stage == "stage1":
+            return stage1_loss(self.model, batch, **kw)
+        if self.stage == "stage1_slow":
+            return stage1_slow_loss(self.model, batch, **kw)
+        return stage2_loss(self.model, batch, self.teacher, a_mr=cfg.a_mr, **kw)
 
     def _meta(self, epoch: int) -> Dict[str, Any]:
         return {

@@ -190,6 +190,7 @@ def test_stage_plans_on_gpu(cuda_device):
     every mode."""
     train = stage_plan("med_bwd", 49, 3, 640, disp=True, pan=True)
     assert train["whole"] and train["group"] == 7 and train["slots"] == 7 and train["consumers"] == 640
+    assert not train["direct"]
     assert stage_plan("med_fwd", 49, 3, 640, disp=True, pan=True)["whole"]
     for kernel in ("med_fwd", "med_bwd"):
         ring = stage_plan(kernel, 49, 3, 1280, disp=True, pan=True)
@@ -218,3 +219,25 @@ def test_kernels_refuse_what_they_cannot_stage_on_gpu(cuda_device):
     with pytest.raises(ValueError, match="limits"):
         med_vjp_fused(logits, image, 2.0, 300.0, torch.zeros_like(logits[:, :1]), torch.zeros_like(image))
     assert (MedForward.launches, MedForward.bwd_launches) == (k1, k2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(BWD_MODES))
+def test_k2_direct_path_at_w5000_on_gpu(cuda_device, mode):
+    """Rows too wide to stage the image and g_pan rows beside the ring (pan
+    cotangents at N = 49 past W = 4,449, 4,131 with g_img): K2 reads them
+    from device memory and still matches the plain VJP."""
+    rng = np.random.default_rng(0)
+    draw = lambda ch: torch.from_numpy(rng.standard_normal((1, ch, 4, 5000), np.float32)).to(cuda_device)
+    logits, image, g_disp, g_pan = draw(49), draw(3), draw(1), draw(3)
+    want_d, want_p, image_grad = BWD_MODES[mode]
+    plan = stage_plan("med_bwd", 49, 3, 5000, disp=want_d, pan=want_p, image_grad=image_grad)
+    assert not plan["whole"] and plan["direct"] == want_p
+    gd, gp = (g_disp if want_d else None), (g_pan if want_p else None)
+    got = med_vjp_fused(logits, image, 2.0, 300.0, gd, gp, image_grad=image_grad)
+    torch.cuda.synchronize()
+    want = med_vjp(logits, image, 2.0, 300.0, gd, gp, image_grad=image_grad)
+    torch.testing.assert_close(got[0], want[0], rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    assert (got[1] is None) == (want[1] is None)
+    if want[1] is not None:
+        torch.testing.assert_close(got[1], want[1], rtol=GRAD_RTOL, atol=GRAD_ATOL)

@@ -277,12 +277,9 @@ def test_grad_accum_gives_the_full_batch_gradient(tmp_path):
 @pytest.mark.parametrize(
     "flags,item",
     [
-        (["--stage", "2"], "item 8"),
-        (["--slow"], "item 8"),
         (["--val_root", "/x"], "item 10"),
         (["--resume", "/x"], "item 10"),
         (["--dtype", "bfloat16"], "item 10"),
-        (["--fix_model", "/x"], "item 8"),
     ],
 )
 def test_later_slice_flags_raise(flags, item):
