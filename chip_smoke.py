@@ -10,7 +10,9 @@ Phases, each reported on its own line; any failure exits nonzero:
   3. K1 vs plain: the MED forward kernel against the plain PyTorch head
      on shared seeded inputs, every mode, at the TPU kernel tests' shapes, with
      per-sample bound tensors, at the training shape (8, 49, 192, 640) and at
-     the serving shape (8, 49, 384, 1280), with those tests' tolerances.
+     the serving shape (8, 49, 384, 1280), and at W = 11,572 (K2's widest
+     with pan cotangents: the pan modes read the image row from device
+     memory, K1's direct path), with those tests' tolerances.
      Both MED kernels stage plane rows in shared memory
      (csrc/med_stage.cuh) by one of three paths, printed beside each shape:
      the whole row (N = 49, W = 640), a ring that streams the planes once a
@@ -24,10 +26,12 @@ Phases, each reported on its own line; any failure exits nonzero:
      without the image gradient, through autograd after a subocc forward (the
      masks carry no gradient), and at the training shape (8, 49, 192, 640;
      whole row); rtol 1e-4, atol 1e-5 as the TPU gradient tests; then the
-     widest W each kernel takes at N = 49 in each mode;
+     widest W each kernel takes at N = 49 in each mode, and with the image
+     rows staged;
   4. the serving slice: FAL_netB N=49 with seeded random weights is saved to
      a .pt, 19 synthetic 384x1280 PNGs go through ``fal_net_torch.cli.infer``
-     at batch 8, then the disp+pan forward runs at batch 1 and 8, and at batch
+     at batch 8, and again with ``--ms_post_process`` (two K1 launches a
+     batch), then the disp+pan forward runs at batch 1 and 8, and at batch
      8 with per-sample bound tensors; each run must launch the kernel, and the
      kernel and the plain head must agree on the model's own logits;
   5. times (CUDA events, median after warm-up): K1 vs plain head at
@@ -68,6 +72,21 @@ Phases, each reported on its own line; any failure exits nonzero:
      400 stage-2 steps at lr 5e-4, a_sm 2 x 0.2 x 2/512, a_mr 1; the loss
      must fall, the mirror aux must fall below half its first value and the
      student's median disparity must land within half a spacing of 6.00 px;
+  10. evaluation: a synthetic KITTI-raw tree for Kitti_eigen_test_improved
+     at KITTI's native sizes (8 frames at 375x1242 and 8 at 370x1224, sparse
+     uint16 groundtruth and velodyne depth PNGs) and a seeded FAL_netB N=49
+     checkpoint go through ``fal_net_torch.cli.test`` at batch 8 with the
+     multi-scale post-process (K1 disp at the bucket shape and at its 2/3
+     shape), with ``--f_post_process`` (K1 disp twice a batch), and with
+     ``--save --save_pan --save_pc`` on 8 frames (K1 disp+pan+subocc and
+     the 2/3 disp pass); K1's launches are counted by mode, the gate's
+     included (one per mode and shape); errors.txt and metrics.json hold
+     finite numbers; the kernel path's disparities and metrics equal an
+     in-process Evaluator's on the plain head (``med_impl="reference"``,
+     the same convolutions) within 5e-3 px + 1e-4 relative and 1e-3 on
+     each metric; the multi-scale run once more with TF32 convolutions off
+     (printed, not a gate); images/s of ``cli.test`` over 48 images (the
+     16 frames listed three times), host decode and metrics included;
   9. the ported kernel scripts (``fal_net_torch.scripts``): K3
      (``proto_conv_kernel``) and K4 (``proto_conv_kernel_v2``), both through
      the TF32 wgmma conv, against their plain versions on TF32-truncated
@@ -99,7 +118,7 @@ from fal_net_torch.models import create_model
 from fal_net_torch.models.checkpoint import save_checkpoint
 from fal_net_torch.ops import _build
 from fal_net_torch.ops.med import med_outputs
-from fal_net_torch.ops.med_kernel import MedForward, med_outputs_fused, med_vjp_fused, stage_plan
+from fal_net_torch.ops.med_kernel import MedForward, describe_plan, med_outputs_fused, med_vjp_fused, stage_plan
 from fal_net_torch.ops.med_vjp import med_vjp
 from fal_net_torch.utils.timing import median_ms, tf32
 
@@ -127,6 +146,7 @@ SHAPES = [
     (1, 49, 4, 1500, 3, 2.0, 300.0),  # two column chunks
     (8, 49, 192, 640, 3, 2.0, 300.0),  # training shape (stage 2's double batch: subocc)
     (8, 49, 384, 1280, 3, 2.0, 300.0),  # serving shape
+    (1, 49, 4, 11572, 3, 2.0, 300.0),  # K2's widest pan width: K1's pan modes on the direct path
 ]
 SERVE_H, SERVE_W, N_IMAGES, BATCH = 384, 1280, 19, 8
 GRAD_TOL = (1e-4, 1e-5)  # (rtol, atol) of tests/test_med_pallas.py's gradient tests
@@ -200,16 +220,6 @@ def bound(nbytes: int, ops: float, rate: float = FP32_FLOPS):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
-def plan_label(kernel: str, n: int, c: int, w: int, **flags) -> str:
-    """The staging path the MED kernel takes at this size (csrc/med_stage.cuh)."""
-    p = stage_plan(kernel, n, c, w, **flags)
-    path = "whole row" if p["whole"] else f"ring of {p['slots']}"
-    copy = "bulk copies" if w % 4 == 0 else "cp.async"
-    direct = ", image and g_pan rows from device memory" if p["direct"] else ""
-    return (f"{path} in stages of {p['group']}, {p['chunks']} chunk(s), {p['loads']} stage loads a row, "
-            f"{copy}, {p['smem']} B{direct}")
 
 
 def widest(kernel: str, n: int = 49, c: int = 3, staged: bool = False, **flags) -> int:
@@ -301,7 +311,7 @@ def phase_kernel_vs_plain(rng, dev) -> float:
                 want = med_outputs(logits, image, mn.expand(b), mx.expand(b), **kw)
             else:
                 want = med_outputs(logits, image, mn, mx, **kw)
-            path = plan_label("med_fwd", n, c, w, disp=kw["ret_disp"], pan=kw.get("ret_pan", False),
+            path = describe_plan("med_fwd", n, c, w, disp=kw["ret_disp"], pan=kw.get("ret_pan", False),
                               subocc=kw.get("ret_subocc", False))
             worst = max(worst, compare(got, want, f"{label} {mode} [{path}]"))
     line(f"phase 3 kernel vs plain: {len(SHAPES)} shapes x {len(MODES)} modes agree, "
@@ -322,7 +332,7 @@ def phase_bwd_vs_plain(rng, dev) -> float:
             got = med_vjp_fused(logits, image, mn, mx, gd, gp, image_grad=img)
             torch.cuda.synchronize()
             want = med_vjp(logits, image, mn, mx, gd, gp, image_grad=img)
-            path = plan_label("med_bwd", n, c, w, disp=want_d, pan=want_p, image_grad=img)
+            path = describe_plan("med_bwd", n, c, w, disp=want_d, pan=want_p, image_grad=img)
             worst = max(worst, compare_grads(got, want, f"{label} {mode} [{path}]"))
         # through autograd after a subocc forward: the masks carry no gradient
         lg = logits.clone().requires_grad_()
@@ -340,9 +350,12 @@ def phase_bwd_vs_plain(rng, dev) -> float:
     k2 = {mode: (widest("med_bwd", disp=d, pan=p, image_grad=i), widest("med_bwd", staged=True, disp=d, pan=p,
                                                                          image_grad=i))
           for mode, (d, p, i) in GRAD_MODES.items()}
-    k1 = {mode: widest("med_fwd", disp=True, pan="pan" in mode, subocc="subocc" in mode) for mode in MODES}
+    k1 = {mode: tuple(widest("med_fwd", staged=st, disp=True, pan="pan" in mode, subocc="subocc" in mode)
+                      for st in (False, True)) for mode in MODES}
     line("phase 3b widths at N = 49, C = 3: K2 " + ", ".join(f"{m} {a} (staged rows to {b})" for m, (a, b) in k2.items())
-         + "; K1 " + ", ".join(f"{m} {a}" for m, a in k1.items()))
+         + "; K1 " + ", ".join(f"{m} {a} (staged image row to {b})" for m, (a, b) in k1.items()))
+    if min(a for a, _ in k1.values()) < k2["disp+pan"][0]:
+        raise AssertionError(f"K1 refuses a width K2 takes: K1 {k1}, K2 {k2}")
     return worst
 
 
@@ -383,6 +396,13 @@ def phase_slice(rng, dev, seed: int, workdir: str):
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     cli_launches = MedForward.launches
+    ms_dir = os.path.join(workdir, "out_ms")
+    written_ms = infer.main([
+        "--pretrained", ckpt, "--images", img_dir, "--out_dir", ms_dir, "--batch_size", str(BATCH),
+        "--ms_post_process",
+    ])
+    torch.cuda.synchronize()
+    ms_launches = MedForward.launches - cli_launches
     outs = {}
     # per-sample bounds, as a training batch carries them: the same pair here
     bounds_t = [torch.full((BATCH,), v, device=dev) for v in (2.0, 300.0)]
@@ -393,7 +413,7 @@ def phase_slice(rng, dev, seed: int, workdir: str):
     torch.cuda.synchronize()
     launches = MedForward.launches
     batches = -(-N_IMAGES // BATCH)
-    expect = batches + len(lefts) + 1  # cli.infer, B=1 and B=8, per-sample bounds
+    expect = 3 * batches + len(lefts) + 1  # cli.infer, with ms-pp (2 a batch), B=1 and B=8, per-sample bounds
 
     pngs = sorted(f for f in os.listdir(out_dir) if f.endswith("_disp.png"))
     if written != N_IMAGES or len(pngs) != N_IMAGES:
@@ -404,14 +424,19 @@ def phase_slice(rng, dev, seed: int, workdir: str):
         raise AssertionError(f"disparity PNGs have shape {disp_png.shape}")
     if not (disp_png.min() >= 2.0 - 1 / 256 and disp_png.max() <= 300.0):
         raise AssertionError(f"PNG disparities span [{disp_png.min()}, {disp_png.max()}]")
-    if cli_launches != batches or launches != expect or MedForward.bwd_launches:
+    if cli_launches != batches or ms_launches != 2 * batches or launches != expect or MedForward.bwd_launches:
         raise AssertionError(
-            f"kernel launches: {cli_launches} in cli.infer (want {batches}), "
-            f"{launches} in all (want {expect})"
+            f"kernel launches: {cli_launches} in cli.infer (want {batches}), {ms_launches} with ms-pp (want "
+            f"{2 * batches}), {launches} in all (want {expect})"
         )
+    ms_png = np.stack([np.asarray(Image.open(os.path.join(ms_dir, f))) for f in pngs]).astype(np.float64) / 256.0
+    # the blend reaches 1.5x the 2/3 pass's disparity; the PNG caps at 65535/256
+    if written_ms != N_IMAGES or ms_png.shape != disp_png.shape or not (ms_png.min() >= 2.0 - 1 / 256):
+        raise AssertionError(f"cli.infer --ms_post_process: {written_ms} PNGs {ms_png.shape}, min {ms_png.min()}")
     line(f"phase 4a cli.infer: {written} disparity PNGs at {SERVE_H}x{SERVE_W} in {cli_s:.2f} s "
          f"through {cli_launches} kernel launches; PNG disparity in "
-         f"[{disp_png.min():.4f}, {disp_png.max():.4f}] px")
+         f"[{disp_png.min():.4f}, {disp_png.max():.4f}] px; with --ms_post_process {written_ms} PNGs through "
+         f"{ms_launches} launches, in [{ms_png.min():.4f}, {ms_png.max():.4f}] px")
 
     # same logits and tables, so the same numbers as the number-bound run
     worst = compare(out_t, outs[BATCH], f"B={BATCH} per-sample bound tensors vs numbers")
@@ -803,7 +828,7 @@ def phase_times(model, lefts, card: str, dev, seed: int):
     times["sub"] = (k1_sub, k1_sub_plain, sub_bytes)
     line(f"phase 5 MED at the training shape ({BATCH}, 49, {TRAIN_H}, {TRAIN_W}): K1 disp+pan+subocc {k1_sub:.4f} ms, "
          f"plain {k1_sub_plain:.4f} ms, bound {sub_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms from {sub_bytes / 1e6:.1f} MB; "
-         f"the kernel moves {sub_moved / 1e6:.1f} MB [{plan_label('med_fwd', 49, 3, TRAIN_W, pan=True, subocc=True)}] "
+         f"the kernel moves {sub_moved / 1e6:.1f} MB [{describe_plan('med_fwd', 49, 3, TRAIN_W, pan=True, subocc=True)}] "
          f"[{card}]")
     del sub_out
     k2 = median_ms(lambda: med_vjp_fused(tl, ti, 2.0, 300.0, gd, gp, image_grad=False))
@@ -969,6 +994,198 @@ def phase_profile(model, lefts, card: str, out_dir: str, dev, seed: int, reps: i
     line(f"phase 6 peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
 
 
+# phase 10: KITTI raw's native sizes, 8 frames each, in two drives
+EVAL_SHAPES = {"2011_09_26/2011_09_26_drive_0002_sync": (375, 1242),
+               "2011_09_28/2011_09_28_drive_0001_sync": (370, 1224)}
+EVAL_FRAMES, EVAL_REPEAT = 8, 3
+# the kernel path vs the plain head, same convolutions: disparities within
+# 5e-3 px + 1e-4 relative (K1 = plain head within 1e-4 in each of the two
+# passes, blended by a percentile of the first), metrics within 1e-3
+EVAL_DISP_TOL, EVAL_METRIC_TOL = (1e-4, 5e-3), 1e-3
+
+
+def write_eigen_tree(rng, root: str) -> dict:
+    """The Kitti_eigen_test_improved layout: per frame the stereo pair and
+    sparse uint16 groundtruth and velodyne depth PNGs (depth * 256, about 5%
+    of the pixels set, as projected lidar); list directories "all" (the 16
+    frames), "save" (the first 8) and "timed" (the 16 listed EVAL_REPEAT
+    times)."""
+    from PIL import Image
+
+    lines = []
+    for drive, (h, w) in EVAL_SHAPES.items():
+        for i in range(EVAL_FRAMES):
+            frame = f"{i:010d}.png"
+            for cam in ("image_02", "image_03"):
+                d = os.path.join(root, drive, cam, "data")
+                os.makedirs(d, exist_ok=True)
+                Image.fromarray(smooth_frame(rng, h, w)).save(os.path.join(d, frame))
+            for kind in ("groundtruth", "velodyne_raw"):
+                d = os.path.join(root, drive, "proj_depth", kind, "image_02")
+                os.makedirs(d, exist_ok=True)
+                depth = (rng.uniform(2, 80, (h, w)) * 256).astype(np.uint16)
+                depth[rng.random((h, w)) > 0.05] = 0
+                Image.fromarray(depth).save(os.path.join(d, frame))
+            lines.append(f"{drive}/image_02/data/{frame} {drive}/image_03/data/{frame}")
+    lists = {}
+    for name, lst in (("all", lines), ("save", lines[:EVAL_FRAMES]), ("timed", lines * EVAL_REPEAT)):
+        lists[name] = os.path.join(root, "lists", name)
+        os.makedirs(lists[name])
+        with open(os.path.join(lists[name], "kitti_eigen_test_improved.txt"), "w") as f:
+            f.write("\n".join(lst) + "\n")
+    return lists
+
+
+def recorded_eval(run):
+    """Call ``run()`` with every Evaluator it makes recorded and the
+    disparities of each image captured; K1's launches counted by mode from
+    0.  Returns (result, evaluators, {image index: disparity}, K1 launches
+    by mode, seconds)."""
+    from fal_net_torch.eval.evaluate import Evaluator
+
+    made, disps = [], {}
+    init, process = Evaluator.__init__, Evaluator._process_image
+
+    def recording_init(self, *a, **k):
+        init(self, *a, **k)
+        made.append(self)
+
+    def capturing(self, i, sample, left_np, disp_np, *rest):
+        disps[i] = np.array(disp_np)
+        process(self, i, sample, left_np, disp_np, *rest)
+
+    Evaluator.__init__, Evaluator._process_image = recording_init, capturing
+    MedForward.launches, MedForward.mode_launches = 0, {}
+    t0 = time.perf_counter()
+    try:
+        result = run()
+        torch.cuda.synchronize()
+    finally:
+        Evaluator.__init__, Evaluator._process_image = init, process
+    return result, made, disps, dict(MedForward.mode_launches), time.perf_counter() - t0
+
+
+def check_eval_outputs(out_dir: str, metrics: dict, label: str) -> None:
+    """errors.txt and metrics.json written, every number finite."""
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        saved = json.load(f)
+    with open(os.path.join(out_dir, "errors.txt")) as f:
+        txt = f.read()
+    nums = [float(v) for v in saved.values()]
+    if not (all(np.isfinite(nums)) and "abs_rel" in txt and saved["abs_rel"] == metrics["abs_rel"]):
+        raise AssertionError(f"{label}: metrics.json {saved}, errors.txt {txt!r}")
+
+
+def phase_eval(rng, dev, seed: int, card: str, workdir: str) -> dict:
+    """Phase 10: cli.test on the card, see the module docstring."""
+    from fal_net_torch.cli import test as cli_test
+    from fal_net_torch.eval.evaluate import EvalConfig, Evaluator
+    from fal_net_torch.data.datasets import kitti_eigen_test_improved
+    from fal_net_torch.models.checkpoint import load_checkpoint
+    from fal_net_torch.utils.timing import tf32
+
+    torch.backends.cudnn.allow_tf32 = True  # torch's default, which cli.test runs with
+    root = os.path.join(workdir, "kitti_raw")
+    t0 = time.perf_counter()
+    lists = write_eigen_tree(rng, root)
+    tree_s = time.perf_counter() - t0
+    model = create_model("B", 49, generator=torch.Generator().manual_seed(seed + 10), device=dev)
+    ckpt = os.path.join(workdir, "falnetB_n49_eval.pt")
+    save_checkpoint(ckpt, model)
+    del model
+    n_all = EVAL_FRAMES * len(EVAL_SHAPES)
+    shapes = list(EVAL_SHAPES.values())
+    small = [(int(h * 2 / 3), int(w * 2 / 3)) for h, w in shapes]
+
+    def cli(flags, lst, out):
+        return lambda: cli_test.main(["--data_root", root, "--lists_dir", lists[lst], "--pretrained", ckpt,
+                                      "--batch_size", str(BATCH), "--save_path", os.path.join(workdir, out),
+                                      *flags])
+
+    runs, k1_total, worst = {}, 0, 0.0
+    # (flags, list, K1 launches by mode over the run's batches, the gate's
+    # checks: one launch each)
+    plan = {
+        "ms-pp": ([], "all", {"disp": 2 * len(shapes)}, {("disp", h, w) for h, w in shapes + small}),
+        "flip": (["--f_post_process"], "all", {"disp": 2 * len(shapes)}, {("disp", h, w) for h, w in shapes}),
+        "save": (["--save", "--save_pan", "--save_pc"], "save", {"disp+pan+subocc": 1, "disp": 1},
+                 {("disp+pan+subocc", *shapes[0]), ("disp", *small[0])}),
+    }
+    for name, (flags, lst, per_batch, gate_keys) in plan.items():
+        metrics, (ev,), disps, by_mode, secs = recorded_eval(cli(flags, lst, f"eval_{name}"))
+        check_eval_outputs(os.path.join(workdir, f"eval_{name}"), metrics, name)
+        n = n_all if lst == "all" else EVAL_FRAMES
+        want = dict(per_batch)
+        for mode, _, _ in gate_keys:
+            want[mode] += 1
+        if by_mode != want or len(disps) != n or set(ev.med_checked) != gate_keys:
+            raise AssertionError(f"cli.test {name}: K1 launches {by_mode} (want {want}), {len(disps)} images, "
+                                 f"gate {sorted(ev.med_checked)} (want {sorted(gate_keys)})")
+        worst = max([worst, *ev.med_checked.values()])
+        k1_total += sum(by_mode.values())
+        runs[name] = (metrics, disps)
+        gate = ", ".join(f"{m} {h}x{w} {e:.3e}" for (m, h, w), e in sorted(ev.med_checked.items()))
+        line(f"phase 10 cli.test {name} FAL_netB N=49 B={BATCH}, {n} images at {shapes if lst == 'all' else shapes[0]}: "
+             f"{secs:.2f} s; K1 launches {by_mode}; gate {gate}; abs_rel {metrics['abs_rel']:.6f} a1 "
+             f"{metrics['a1']:.6f} [{card}]")
+    if not all(os.path.isfile(os.path.join(workdir, "eval_save", sub, f"{i:010d}.{ext}"))
+               for i in range(EVAL_FRAMES) for sub, ext in (("disp", "png"), ("pan", "png"), ("pc", "ply"))):
+        raise AssertionError("cli.test --save --save_pan --save_pc: missing exports")
+
+    def in_process(med_impl, out):
+        model = load_checkpoint(ckpt, device=dev, med_impl=med_impl)
+        _, ds = kitti_eigen_test_improved(root, split=0, lists_dir=lists["all"])
+        ds.raw_uint8 = True
+        cfg = EvalConfig(batch_size=BATCH, save_path=os.path.join(workdir, out), print_freq=1000)
+        return lambda: Evaluator(model, cfg).run(ds)
+
+    # the plain head on the same weights and convolutions
+    ms_metrics, ms_disps = runs["ms-pp"]
+    ref_metrics, _, ref_disps, ref_k1, _ = recorded_eval(in_process("reference", "eval_ref"))
+    if ref_k1:
+        raise AssertionError(f"the plain-head Evaluator launched K1: {ref_k1}")
+    rtol, atol = EVAL_DISP_TOL
+    disp_err = max(float(np.abs(ms_disps[i] - ref_disps[i]).max()) for i in ms_disps)
+    bad = [i for i in ms_disps if not np.allclose(ms_disps[i], ref_disps[i], rtol=rtol, atol=atol)]
+    metric_err = {k: abs(ms_metrics[k] - ref_metrics[k]) for k in ("abs_rel", "sq_rel", "rms", "log_rms", "a1",
+                                                                    "a2", "a3")}
+    if bad or max(metric_err.values()) > EVAL_METRIC_TOL:
+        raise AssertionError(f"kernel path vs plain head: images {bad} differ (max |d disp| {disp_err:.3e}), "
+                             f"metrics {metric_err}")
+    line(f"phase 10 kernel path vs plain head (ms-pp, {n_all} images): max |d disp| {disp_err:.3e} px "
+         f"(tolerance {atol} px + {rtol} relative), max |d metric| {max(metric_err.values()):.3e} "
+         f"(tolerance {EVAL_METRIC_TOL}) [{card}]")
+
+    # TF32 drift: the same ms-pp evaluation with TF32 convolutions off (not a gate)
+    with tf32(False):
+        off_metrics, (ev,), off_disps, off_k1, _ = recorded_eval(in_process("auto", "eval_tf32_off"))
+    k1_total += sum(off_k1.values())
+    worst = max([worst, *ev.med_checked.values()])
+    drift = max(float(np.abs(ms_disps[i] - off_disps[i]).max()) for i in ms_disps)
+    mean_drift = float(np.mean([np.abs(ms_disps[i] - off_disps[i]).mean() for i in ms_disps]))
+    line(f"phase 10 TF32 drift (ms-pp, {n_all} images, TF32 convolutions on vs off): max |d disp| {drift:.4f} px, "
+         f"mean |d disp| {mean_drift:.5f} px; abs_rel {ms_metrics['abs_rel']:.6f} vs {off_metrics['abs_rel']:.6f} "
+         f"(d {ms_metrics['abs_rel'] - off_metrics['abs_rel']:+.3e}), a1 {ms_metrics['a1']:.6f} vs "
+         f"{off_metrics['a1']:.6f} (d {ms_metrics['a1'] - off_metrics['a1']:+.3e}) [{card}]")
+
+    # throughput of cli.test with ms-pp: 48 images, decode and metrics included
+    n_timed = n_all * EVAL_REPEAT
+    timed, (ev,), disps, by_mode, secs = recorded_eval(cli([], "timed", "eval_timed"))
+    batches = n_timed // BATCH
+    if by_mode != {"disp": 2 * batches + len(shapes) + len(small)} or len(disps) != n_timed:
+        raise AssertionError(f"timed cli.test: K1 launches {by_mode}, {len(disps)} images")
+    check_eval_outputs(os.path.join(workdir, "eval_timed"), timed, "timed")
+    k1_total += sum(by_mode.values())
+    worst = max([worst, *ev.med_checked.values()])
+    line(f"phase 10 cli.test ms-pp FAL_netB N=49 B={BATCH}, {n_timed} images at {shapes}: {secs:.3f} s in the call "
+         f"(checkpoint load, gate, decode on 4 threads, metrics included), {n_timed / secs:.3f} images/s, "
+         f"{secs / n_timed:.4f} s/image; the Evaluator's sec_per_image (dispatch to metrics, per image) "
+         f"{timed['sec_per_image']:.4f} [{card}]")
+    line(f"phase 10 evaluation: {k1_total} K1 launches; tree of {n_all} frames written in {tree_s:.2f} s; worst "
+         f"gate abs err {worst:.3e}")
+    return {"k1": k1_total, "worst": worst, "images_per_s": n_timed / secs}
+
+
 def phase_scripts(card: str) -> list[dict]:
     """Phase 9: the ported kernel scripts' main() on the card; returns the
     kernels line's entries of K3, K4 and K5."""
@@ -1048,6 +1265,8 @@ def main() -> None:
         train = phase_train(rng, dev, workdir)
         later = phase_later_stages(dev, train["root"], train["ckpt"], workdir)
     phase_converge_stage2(dev, *phase_converge(dev))
+    with tempfile.TemporaryDirectory() as workdir:
+        evaluation = phase_eval(rng, dev, args.seed, card, workdir)
     script_kernels = phase_scripts(card)
     k1_bound, k1_by = bound(times["disp"][2], OPS_PER_LOGIT["med_fwd"] * times["disp_logits"])
     k2_bound, k2_by = bound(times["k2_bytes"], OPS_PER_LOGIT["med_bwd"] * times["k2_logits"])
@@ -1057,9 +1276,9 @@ def main() -> None:
             "route": "cuda",
             "source": "fal_net_torch/csrc/med_fwd.cu",
             "replaces": "fal_net_tpu/ops/med_pallas.py:116",
-            # serving (phase 4) and training (phase 7a-c, 7d stage 2, 7e stage 1 slow) paths
-            "launches": serve_launches + train["k1"] + later["k1"],
-            "max_abs_err": max(worst3, worst4),
+            # serving (phase 4), training (phase 7a-c, 7d stage 2, 7e stage 1 slow) and evaluation (phase 10)
+            "launches": serve_launches + train["k1"] + later["k1"] + evaluation["k1"],
+            "max_abs_err": max(worst3, worst4, evaluation["worst"]),
             "ms": times["disp"][0],  # disp-only at (8, 49, 384, 1280)
             "plain_ms": times["disp"][1],
             "bound_ms": k1_bound,

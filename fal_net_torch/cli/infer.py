@@ -78,6 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--max_disp", type=float, default=300.0)
     p.add_argument("--min_disp", type=float, default=2.0)
+    p.add_argument("--ms_post_process", action="store_true",
+                   help="the reference's multi-scale post-process: a second forward at 2/3 scale on the "
+                   "flipped image, blended in by each image's 95th percentile")
     p.add_argument(
         "--quantize_transfer",
         action="store_true",
@@ -109,6 +112,7 @@ def main(argv=None) -> int:
         batch_size=args.batch_size,
         min_disp=args.min_disp,
         max_disp=args.max_disp,
+        ms_post_process=args.ms_post_process,
         quantize_uint16=args.quantize_transfer,
         device_normalize=True,
     )

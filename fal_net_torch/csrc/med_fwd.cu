@@ -39,7 +39,13 @@
 //     that sweep, and after a barrier of the consumers sums the shifted
 //     probabilities in a second sweep: from the same slots where the row
 //     fits in shared memory (whole row), else from a second stream of the
-//     planes (ring).
+//     planes (ring);
+//   * direct path, for pan on rows too wide to stage the image row (16 B a
+//     column) beside the ring and the statistics (W > 9,634 at N = 49 with
+//     disp, > 7,225 with subocc): the image row is read from device memory,
+//     through the caches, at the shifted columns; the plane rows stream
+//     through the ring as above.  The subocc statistics (8 B a column) stay
+//     in shared memory: with the image row out they fit to W = 14,452.
 // On an H100 the pan modes are bound by the consumers' issue rate and
 // shared-memory loads, not by device memory (PERF.md).
 // Plane tables (level, forward and backward floor/frac; 5*N fp32) are a
@@ -54,7 +60,7 @@ namespace {
 // Floats of the plane tables and backward floors, a multiple of 4.
 __host__ __device__ inline int fwd_tab_floats(int N) { return 5 * (N + kGroup - 1) / 4 * 4 + 4; }
 
-template <bool kDisp, bool kPan, bool kSub, int kCpt>
+template <bool kDisp, bool kPan, bool kSub, int kCpt, bool kDirect>
 __global__ void __launch_bounds__(kStageThreads, 1)
 med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
                const float* __restrict__ image,   // (B, C, H, W)
@@ -69,12 +75,13 @@ med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* extra;
   const RowStage st = stage_init(smem_raw, p, W, bulk, &extra);
-  // extra: [plane tables][backward floors], [image row] for pan, then
-  // [lse0 W][lse1 W] for subocc
+  // extra: [plane tables][backward floors], [image row] for pan (not on
+  // the direct path), then [lse0 W][lse1 W] for subocc
+  constexpr bool kStageImg = kPan && !kDirect;
   PlaneTab* s_tab = reinterpret_cast<PlaneTab*>(extra);
   int* s_fb = reinterpret_cast<int*>(s_tab + N + kGroup - 1);
   float4* s_img4 = reinterpret_cast<float4*>(extra + fwd_tab_floats(N)) + 1;  // column 0
-  float* s_lse0 = extra + fwd_tab_floats(N) + (kPan ? image_floats(W) : 0);
+  float* s_lse0 = extra + fwd_tab_floats(N) + (kStageImg ? image_floats(W) : 0);
   float* s_lse1 = s_lse0 + W;
   if (tab_stride == 0) load_plane_tabs(s_tab, s_fb, tables, N, threadIdx.x, blockDim.x);
   __syncthreads();
@@ -91,10 +98,11 @@ med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
     const int b = row / H, y = row - b * H;
     const size_t pix = ((size_t)b * H + y) * W;       // (b, 0, y, 0) of 1-ch outputs
     const size_t crow = ((size_t)b * C * H + y) * W;  // (b, 0, y, 0) of C-ch tensors
-    if (kPan || kSub || tab_stride) consumers_sync(p.consumers);  // the last row's readers are done
-    if (kPan) load_image_row(s_img4, image + crow, C, W, plane, tid, p.consumers);
+    const float* img_row = image + crow;
+    if (kStageImg || kSub || tab_stride) consumers_sync(p.consumers);  // the last row's readers are done
+    if (kStageImg) load_image_row(s_img4, img_row, C, W, plane, tid, p.consumers);
     if (tab_stride) load_plane_tabs(s_tab, s_fb, tables + (size_t)b * tab_stride, N, tid, p.consumers);
-    if (kPan || tab_stride) consumers_sync(p.consumers);
+    if (kStageImg || tab_stride) consumers_sync(p.consumers);
     RowSweeps sweeps(st, p, ring, N);
 
     for (int ch = 0; ch < p.chunks; ++ch) {
@@ -154,7 +162,8 @@ med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
               const float e = ex2(a[i] - mx);
               z1[k] += e;
               if (kPan) {
-                const float4 v = lerp4_at(s_img4, x + tb[i].f, tb[i].t, W);
+                const float4 v = kDirect ? lerp4_ld(img_row, x + tb[i].f, tb[i].t, C, W, plane)
+                                         : lerp4_at(s_img4, x + tb[i].f, tb[i].t, W);
                 pc[k] = make_float4(fmaf(e, v.x, pc[k].x), fmaf(e, v.y, pc[k].y), fmaf(e, v.z, pc[k].z),
                                     fmaf(e, v.w, pc[k].w));
               }
@@ -226,11 +235,20 @@ med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
 }
 
 // Sweeps per image row: one per chunk for disp and pan, and a second one per
-// chunk for the masks.
+// chunk for the masks.  The staged plan first; for pan where it does not
+// fit, the direct path (two columns a thread: W > 640).
 bool fwd_plan(StagePlan& p, int N, int C, int W, bool pan, bool sub) {
   plan_columns(p, W);
-  const size_t extra = 4 * (fwd_tab_floats(N) + (pan ? (size_t)image_floats(W) : 0) + (sub ? 2 * (size_t)W : 0));
-  return plan_slots(p, N, W, p.chunks * (sub ? 2 : 1), extra);
+  const int sweeps = p.chunks * (sub ? 2 : 1);
+  for (int direct = 0; direct <= (pan && p.cpt == 2); ++direct) {
+    const size_t img = pan && !direct ? (size_t)image_floats(W) : 0;
+    const size_t extra = 4 * (fwd_tab_floats(N) + img + (sub ? 2 * (size_t)W : 0));
+    if (plan_slots(p, N, W, sweeps, extra)) {
+      p.direct = direct;
+      return true;
+    }
+  }
+  return false;
 }
 
 template <bool kDisp, bool kPan, bool kSub>
@@ -239,11 +257,16 @@ cudaError_t launch(const StagePlan& p, const float* logits, const float* image, 
                    int W, cudaStream_t stream) {
   const int rows = B * H;
   const int bulk = W % 4 == 0 && reinterpret_cast<uintptr_t>(logits) % 16 == 0;
+  if constexpr (kPan) {
+    if (p.direct)  // planned only with 2 columns a thread
+      return launch_rows<med_fwd_kernel<kDisp, kPan, kSub, 2, true>>(p, rows, stream, logits, image, disp, pan,
+                         mask_l, mask_r, tables, tab_stride, N, C, H, W, rows, bulk);
+  }
   if (p.cpt == 1)
-    return launch_rows<med_fwd_kernel<kDisp, kPan, kSub, 1>>(p, rows, stream, logits, image, disp, pan, mask_l,
-                       mask_r, tables, tab_stride, N, C, H, W, rows, bulk);
-  return launch_rows<med_fwd_kernel<kDisp, kPan, kSub, 2>>(p, rows, stream, logits, image, disp, pan, mask_l,
-                     mask_r, tables, tab_stride, N, C, H, W, rows, bulk);
+    return launch_rows<med_fwd_kernel<kDisp, kPan, kSub, 1, false>>(p, rows, stream, logits, image, disp, pan,
+                       mask_l, mask_r, tables, tab_stride, N, C, H, W, rows, bulk);
+  return launch_rows<med_fwd_kernel<kDisp, kPan, kSub, 2, false>>(p, rows, stream, logits, image, disp, pan,
+                     mask_l, mask_r, tables, tab_stride, N, C, H, W, rows, bulk);
 }
 
 }  // namespace
@@ -254,7 +277,7 @@ extern "C" {
 // (B, 5, N) fp32 plane tables with `tab_stride` = 5*N, or one (5, N) table
 // for every sample with `tab_stride` = 0.  Unrequested outputs may be null.
 // Returns cudaErrorInvalidValue, launching nothing, for sizes it does not
-// take (no ring slot fits beside the image row and the statistics, N
+// take (no ring slot fits beside the statistics, N
 // outside 2..128, C outside 1..4, ...); else cudaGetLastError() after the
 // launch (0 on success).
 int med_fwd(const float* logits, const float* image, float* disp, float* pan, float* mask_l, float* mask_r,

@@ -151,7 +151,7 @@ struct StagePlan {
   int sweeps;     // sweeps over the N planes per image row
   int loads;      // stage loads per image row: ceil(N / G) if whole, else sweeps * ceil(N / G)
   int smem;       // dynamic shared memory bytes: [2R mbarriers][R slots of G rows][extra]
-  int direct;     // K2: image and g_pan rows read from device memory, not staged (rows too wide)
+  int direct;     // the image row (K1, K2) and g_pan row (K2) read from device memory, not staged (rows too wide)
 };
 
 // Row pitch in floats of a staged row: W floats from offset 4 (16 bytes, so
@@ -407,6 +407,14 @@ __device__ __forceinline__ float4 ld_row4(const float* __restrict__ src, int j, 
   if (C > 2) v.z = __ldg(src + 2 * plane + j);
   if (C > 3) v.w = __ldg(src + 3 * plane + j);
   return v;
+}
+
+// The lerp gather of every channel of such a row in device memory.
+__device__ __forceinline__ float4 lerp4_ld(const float* __restrict__ src, int j, float t, int C, int W,
+                                           size_t plane) {
+  const float4 a = ld_row4(src, j, C, W, plane), b = ld_row4(src, j + 1, C, W, plane);
+  return make_float4(fmaf(t, b.x - a.x, a.x), fmaf(t, b.y - a.y, a.y), fmaf(t, b.z - a.z, a.z),
+                     fmaf(t, b.w - a.w, a.w));
 }
 
 // Stage an image row (b, ., y, .) of a (B, C, H, W) tensor: column x of

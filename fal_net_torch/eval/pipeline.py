@@ -16,8 +16,20 @@ import numpy as np
 import torch
 
 from fal_net_torch.data.transforms import normalize_device
+from fal_net_torch.eval.postprocess import ms_post_process
 
 UINT16_MAX_DISP = 65535 / 256.0
+
+
+def to_fixed_point(disp: torch.Tensor) -> torch.Tensor:
+    """Disparities as KITTI's 16-bit fixed point, round(d * 256) capped at
+    65535, stored as int16 offset by -32768 (16-bit unsigned tensors have
+    little support on the device); :func:`from_fixed_point` undoes it."""
+    return (torch.round(disp * 256.0).clamp(0, 65535) - 32768).to(torch.int16)
+
+
+def from_fixed_point(q: np.ndarray) -> np.ndarray:
+    return (q.astype(np.float32) + 32768.0) / 256.0
 
 
 class DisparityPipeline:
@@ -50,13 +62,9 @@ class DisparityPipeline:
         ``device_normalize``: items are raw uint8 HWC RGB; the /255 - mean
         normalization runs on the device, and the upload is 4x smaller.
 
-        ``ms_post_process`` needs eval/postprocess.py, not ported yet, and
-        raises."""
-        if ms_post_process:
-            raise NotImplementedError(
-                "ms_post_process needs eval/postprocess.py, which fal_net_torch "
-                "has not ported yet"
-            )
+        ``ms_post_process``: the reference's multi-scale post-process
+        (eval/postprocess.py), a second forward at 2/3 scale on the flipped
+        batch, in the same device call."""
         if quantize_uint16 and max_disp > UINT16_MAX_DISP:
             import warnings
 
@@ -72,23 +80,24 @@ class DisparityPipeline:
         self.batch_size = batch_size
         self.min_disp = min_disp
         self.max_disp = max_disp
+        self.ms_post_process = ms_post_process
         self.quantize_uint16 = quantize_uint16
         self.device_normalize = device_normalize
+
+    def _disp(self, x: torch.Tensor) -> torch.Tensor:
+        return self.model(x.contiguous(), self.min_disp, self.max_disp, ret_disp=True).disp
 
     @torch.inference_mode()
     def _forward(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, C) batch on the device -> (B, H, W) disparities, fp32 or
-        quantized int16 (``round(d*256) - 32768``, since 16-bit unsigned
-        tensors have little support on the device)."""
+        in :func:`to_fixed_point`'s int16."""
         x = images.permute(0, 3, 1, 2)
         x = normalize_device(x) if self.device_normalize else x.to(torch.float32)
-        disp = self.model(
-            x.contiguous(), self.min_disp, self.max_disp, ret_disp=True
-        ).disp[:, 0]
-        if self.quantize_uint16:
-            q = torch.round(disp * 256.0).clamp(0, 65535) - 32768
-            return q.to(torch.int16)
-        return disp
+        disp = self._disp(x)
+        if self.ms_post_process:
+            disp = ms_post_process(x, self._disp, disp)
+        disp = disp[:, 0]
+        return to_fixed_point(disp) if self.quantize_uint16 else disp
 
     def _batches(self, items: Iterable[Tuple[str, np.ndarray]]):
         dtype = np.uint8 if self.device_normalize else np.float32
@@ -127,7 +136,7 @@ class DisparityPipeline:
             done.synchronize()
         disp = out.numpy()
         if self.quantize_uint16:
-            disp = (disp.astype(np.float32) + 32768.0) / 256.0
+            disp = from_fixed_point(disp)
         for i, name in enumerate(names):
             yield name, disp[i]
 

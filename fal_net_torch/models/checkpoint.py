@@ -58,13 +58,15 @@ def load_checkpoint(
     variant: Optional[str] = None,
     num_levels: Optional[int] = None,
     device: Union[str, torch.device] = "cuda",
+    **model_kw,
 ) -> FalNet:
     """Build the model a checkpoint holds on ``device`` (the GPU unless the
     caller asks for the CPU) and load its weights; ``variant`` /
-    ``num_levels`` override what the checkpoint says."""
+    ``num_levels`` override what the checkpoint says; ``model_kw`` go to
+    :func:`create_model` (``med_impl``, ``a_maskr_quirk``)."""
     sd = read_state_dict(path)
     spec = resolve_variant(variant) if variant else detect_variant(sd)
-    model = create_model(spec.name, num_levels or sd["conv0.weight"].shape[0], device=device)
+    model = create_model(spec.name, num_levels or sd["conv0.weight"].shape[0], device=device, **model_kw)
     model.load_state_dict(sd)
     return model
 

@@ -17,6 +17,15 @@ fal_net_tpu/models/falnet.py).
     (disp-only included: NCHW logits are already the kernel's layout, so
     there is no relayout to avoid); the plain head for CPU tensors, where
     the kernel cannot run.
+
+``a_maskr_quirk`` (opt-in, off by default): reproduce the reference
+FAL_netA's maskR resample, whose warp omits ``align_corners``
+(models/FAL_netA.py:264), for parity with published A checkpoints
+(:func:`fal_net_torch.ops.shift.hshift_planes_quirk`).  The CUDA kernel has
+no such resample, as the JAX package's Pallas kernel has none, so with the
+quirk a forward that requests the masks runs the plain head; disp and pan do
+not read maskR and keep ``med_impl``'s choice.  It is chosen by the caller,
+never taken in reaction to a failure.
 """
 
 from __future__ import annotations
@@ -37,13 +46,14 @@ MED_IMPLS = ("auto", "fused", "reference")
 
 
 class FalNet(nn.Module):
-    def __init__(self, spec: VariantSpec, num_levels: int, med_impl: str = "auto"):
+    def __init__(self, spec: VariantSpec, num_levels: int, med_impl: str = "auto", a_maskr_quirk: bool = False):
         super().__init__()
         if med_impl not in MED_IMPLS:
             raise ValueError(f"med_impl must be one of {MED_IMPLS}, got {med_impl!r}")
         self.spec = spec
         self.num_levels = num_levels
         self.med_impl = med_impl
+        self.a_maskr_quirk = a_maskr_quirk
         # Attribute names give the reference's state_dict keys: the backbone
         # under BackBone / backbone / synth, the logits 1x1 conv as conv0.
         self.add_module(spec.torch_backbone_key, FalNetBackbone(spec, num_levels))
@@ -77,9 +87,10 @@ class FalNet(nn.Module):
         logits = self.logits(left, max_disp).contiguous()
         image = left.float().contiguous()
         kw = dict(ret_disp=ret_disp, ret_pan=ret_pan, ret_subocc=ret_subocc)
-        if self.med_impl == "fused" or (self.med_impl == "auto" and logits.is_cuda):
+        quirk = self.a_maskr_quirk and ret_subocc
+        if not quirk and (self.med_impl == "fused" or (self.med_impl == "auto" and logits.is_cuda)):
             return med_outputs_fused(logits, image, min_disp, max_disp, **kw)
-        return med_outputs(logits, image, min_disp, max_disp, **kw)
+        return med_outputs(logits, image, min_disp, max_disp, maskr_quirk=quirk, **kw)
 
 
 def resolve_variant(variant: str) -> VariantSpec:
@@ -100,12 +111,14 @@ def create_model(
     med_impl: str = "auto",
     device: Union[str, torch.device] = "cuda",
     generator: Optional[torch.Generator] = None,
+    a_maskr_quirk: bool = False,
 ) -> FalNet:
     """Build a FAL-net variant with weights drawn from ``generator`` (a CPU
     ``torch.Generator``; the global one if None) on ``device``: the GPU
-    unless the caller asks for the CPU.  Without a card, "cuda" raises."""
+    unless the caller asks for the CPU.  Without a card, "cuda" raises.
+    ``a_maskr_quirk``: see the module docstring."""
     device = resolve_device(device)
     spec = resolve_variant(variant)
-    model = FalNet(spec, num_levels or spec.default_levels, med_impl=med_impl)
+    model = FalNet(spec, num_levels or spec.default_levels, med_impl=med_impl, a_maskr_quirk=a_maskr_quirk)
     model.reset_parameters(generator)
     return model.to(device)

@@ -18,7 +18,9 @@ Semantics kept exactly (reference models/FAL_netB.py:200-297):
     exp(0) in the softmax;
   * pan = sum_n shift(image, +s_n) * Dprob_n, s_n = d_n * (W-1)/W;
   * maskR / maskL from stop-gradient volumes, clamped to <= 1; maskR
-    normalizes its softmax before it shifts.
+    normalizes its softmax before it shifts;
+  * ``maskr_quirk`` (opt-in): FAL_netA's maskR resample, for parity with
+    published A checkpoints (:func:`fal_net_torch.ops.shift.hshift_planes_quirk`).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from fal_net_torch.ops.shift import hshift_planes
+from fal_net_torch.ops.shift import hshift_planes, hshift_planes_quirk
 
 
 class MedOutputs(NamedTuple):
@@ -77,6 +79,7 @@ def med_outputs(
     ret_disp: bool = True,
     ret_pan: bool = False,
     ret_subocc: bool = False,
+    maskr_quirk: bool = False,
 ) -> MedOutputs:
     """The requested MED head outputs from plane logits.
 
@@ -85,6 +88,8 @@ def med_outputs(
       image: (B, C, H, W) network input view (for pan synthesis).
       min_disp / max_disp: Python floats, 0-d tensors, or (B,) tensors of
         per-sample disparity ranges in pixels.
+      maskr_quirk: resample maskR as the reference FAL_netA does (its warp
+        omits align_corners, models/FAL_netA.py:264).
     """
     min_t = torch.as_tensor(min_disp)
     if min_t.ndim > 0:
@@ -94,6 +99,7 @@ def med_outputs(
             med_outputs(
                 logits[i : i + 1], image[i : i + 1], min_t[i], max_t[i],
                 ret_disp=ret_disp, ret_pan=ret_pan, ret_subocc=ret_subocc,
+                maskr_quirk=maskr_quirk,
             )
             for i in range(logits.shape[0])
         ]
@@ -124,7 +130,8 @@ def med_outputs(
 
         if ret_subocc:
             sm0 = torch.softmax(logits, dim=1).detach()
-            mask_r = hshift_planes(sm0, shifts).sum(dim=1, keepdim=True)
+            shifted_sm0 = hshift_planes_quirk(sm0, levels) if maskr_quirk else hshift_planes(sm0, shifts)
+            mask_r = shifted_sm0.sum(dim=1, keepdim=True)
             mask_l = hshift_planes(dprob.detach(), -shifts).sum(dim=1, keepdim=True)
             mask_r = torch.clamp(mask_r, max=1.0)
             mask_l = torch.clamp(mask_l, max=1.0)

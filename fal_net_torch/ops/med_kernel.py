@@ -14,7 +14,8 @@ refuse, launching nothing, what does not fit (the wrapper raises
 ValueError).  :func:`stage_plan` reports a plan.
 
 ``MedForward.launches`` and ``MedForward.bwd_launches`` count the launches of
-K1 and K2, so that a run can show that its main path went through them.
+K1 and K2, so that a run can show that its main path went through them;
+``MedForward.mode_launches`` counts K1's by mode.
 """
 
 from __future__ import annotations
@@ -127,13 +128,25 @@ def stage_plan(kernel: str, n: int, c: int, w: int, *, disp=True, pan=False, sub
     plane rows per stage, ring slots (stages), whether the whole row is
     staged (each plane row loaded once per image row), sweeps over the
     planes, stage loads per image row, dynamic shared-memory bytes, and
-    whether K2 reads the image and g_pan rows from device memory instead of
-    staging them (rows too wide; see csrc/med_bwd.cu).  Raises ValueError for sizes the kernel refuses."""
+    whether the kernel reads the image row (and K2 the g_pan row) from
+    device memory instead of staging it (rows too wide; see csrc/med_fwd.cu
+    and csrc/med_bwd.cu).  Raises ValueError for sizes the kernel refuses."""
     out = (ctypes.c_int * len(PLAN_FIELDS))()
     flags = (int(disp), int(pan), int(subocc if kernel == "med_fwd" else image_grad))
     if getattr(load_library(), f"{kernel}_plan")(n, c, w, *flags, out) != 0:
         raise ValueError(f"{kernel} takes no plan at N={n}, C={c}, W={w} with these outputs or cotangents")
     return dict(zip(PLAN_FIELDS, out))
+
+
+def describe_plan(kernel: str, n: int, c: int, w: int, **flags) -> str:
+    """The staging path of :func:`stage_plan`'s plan, in words."""
+    p = stage_plan(kernel, n, c, w, **flags)
+    path = "whole row" if p["whole"] else f"ring of {p['slots']}"
+    copy = "bulk copies" if w % 4 == 0 else "cp.async"
+    rows = "image and g_pan rows" if kernel == "med_bwd" else "image row"
+    direct = f", {rows} from device memory" if p["direct"] else ""
+    return (f"{path} in stages of {p['group']}, {p['chunks']} chunk(s), {p['loads']} stage loads a row, "
+            f"{copy}, {p['smem']} B{direct}")
 
 
 def _launch(logits, image, tables, tab_stride, want_disp, want_pan, want_subocc):
@@ -153,6 +166,8 @@ def _launch(logits, image, tables, tab_stride, want_disp, want_pan, want_subocc)
         b, n, c, h, w, int(want_disp), int(want_pan), int(want_subocc),
     )
     MedForward.launches += 1
+    mode = "+".join(name for name, want in (("disp", want_disp), ("pan", want_pan), ("subocc", want_subocc)) if want)
+    MedForward.mode_launches[mode] = MedForward.mode_launches.get(mode, 0) + 1
     return disp, pan, mask_l, mask_r
 
 
@@ -178,6 +193,7 @@ class MedForward(torch.autograd.Function):
     got none (unrequested or unused) adds no term."""
 
     launches = 0  # K1
+    mode_launches: dict = {}  # K1 by mode, e.g. "disp", "disp+pan+subocc"
     bwd_launches = 0  # K2
 
     @staticmethod

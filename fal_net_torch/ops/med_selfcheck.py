@@ -6,7 +6,10 @@ the run launches (disp + pan for stage 1 and stage 1 slow, disp + pan +
 subocc for the stage-2 student, disp only for its frozen teacher) and K2 at
 the run's exact (crop, plane count, bounds) on seeded random logits, image
 and cotangents, and holds them against the plain head and the plain VJP on
-the same tensors.  Sharing the logits keeps the comparison free of TF32
+the same tensors.  The Evaluator (eval/evaluate.py) runs it with
+``backward=False`` once per (mode, height, width) it launches K1 at: disp
+at every bucket shape and at its post-process shape, disp + pan + subocc at
+the bucket shape when it exports pan and masks.  Sharing the logits keeps the comparison free of TF32
 convolution noise.  The JAX package falls back to its plain head when its
 gate fails; here a disagreement RAISES :class:`MedSelfcheckError`, since a
 fallback would hide the kernel.  The tolerances are those of the kernels'

@@ -76,6 +76,42 @@ def hshift_planes(x: torch.Tensor, shifts, *, plane_dim: int = 1) -> torch.Tenso
     return _lerp_gather(x, base.reshape(view), frac.to(x.dtype).reshape(view))
 
 
+def _lerp_at(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Sample ``x`` along its last axis at the positions ``pos`` (one per
+    output index, broadcasting against ``x``): 1-D lerp, out-of-range reads 0."""
+    base = torch.floor(pos)
+    cols = torch.arange(x.shape[-1], device=x.device)
+    return _lerp_gather(x, base.long() - cols, (pos - base).to(x.dtype))
+
+
+def hshift_planes_quirk(x: torch.Tensor, levels) -> torch.Tensor:
+    """The FAL_netA maskR sampler: an align_corners=False ``grid_sample`` of
+    an align_corners=True grid offset by ``2 d_n / W`` (counterpart of
+    fal_net_tpu/ops/shift.py::hshift_planes_quirk).
+
+    The reference's variant-A maskR warp omits ``align_corners``
+    (models/FAL_netA.py:264, so False) on a grid built with
+    align_corners=True (FAL_netA.py:234).  Unnormalized with
+    align_corners=False, the grid reads plane n of ``x`` (B, N, H, W) at
+
+        p_x(x, n) = x * W/(W-1) + d_n - 0.5
+        p_y(y)    = y * H/(H-1)       - 0.5
+
+    a stretch and a half-pixel offset on both axes, instead of the uniform
+    ``x + d (W-1)/W`` of every other warp.  The grid is axis-aligned, so the
+    2-D bilinear read is two 1-D lerps (rows, then each plane's columns),
+    each zero-padded.  Positions are fp32, as the JAX package's and
+    grid_sample's; ``levels`` are the (N,) plane disparities d_n.
+    """
+    _, n, h, w = x.shape
+    levels = torch.as_tensor(levels, device=x.device).to(torch.float32)
+    rows = torch.arange(h, dtype=torch.float32, device=x.device) * (h / (h - 1)) - 0.5
+    x = _lerp_at(x.transpose(-1, -2), rows).transpose(-1, -2)
+    cols = torch.arange(w, dtype=torch.float32, device=x.device)
+    pos = cols[None, :] * (w / (w - 1)) + levels[:, None] - 0.5  # (N, W)
+    return _lerp_at(x, pos.view(1, n, 1, w))
+
+
 def hflip(x: torch.Tensor) -> torch.Tensor:
     """Horizontal mirror flip along W.
 

@@ -3,7 +3,9 @@
     python -m fal_net_torch.scripts.med_times
 
 K1 (disp, disp+pan and disp+pan+subocc at (8, 49, 384, 1280); disp+pan at
-(8, 49, 192, 640)), K2 (disp+pan cotangents, without and with the image
+(8, 49, 192, 640); disp at the evaluation's KITTI shapes (8, 49, 375, 1242)
+and its 2/3 shape (8, 49, 250, 828); where the package has K1's direct path,
+disp+pan at (8, 49, 16, 11572) beside the ring at (8, 49, 16, 1500)), K2 (disp+pan cotangents, without and with the image
 gradient, at (8, 49, 192, 640); and, where the package has K2's direct
 path, at (8, 49, 16, 5000) beside the ring at (8, 49, 16, 1500), the same
 per logit), the FAL_netB N=49 disp forward at batch 8
@@ -56,6 +58,19 @@ def main(argv=None) -> dict:
         )
     del tl, ti, gd, gp
     wide = np.random.default_rng(SEED + 1)  # apart, so that the draws below stay as they were
+    kitti = np.random.default_rng(SEED + 2)
+    for hw in ((375, 1242), (250, 828)):  # the evaluation's bucket shape and its ms-pp shape
+        kl, ki = (torch.from_numpy(kitti.standard_normal((B, c, *hw), np.float32)).to(dev) for c in (N, 3))
+        out[f"k1 disp {hw}"] = median_ms(lambda: med_outputs_fused(kl, ki, 2.0, 300.0, ret_disp=True), REPS)
+        del kl, ki
+    for w in (1500, 11572):  # K1's ring, and its direct path (image row unstaged)
+        kl, ki = (torch.from_numpy(kitti.standard_normal((B, c, 16, w), np.float32)).to(dev) for c in (N, 3))
+        try:
+            out[f"k1 disp+pan (16, {w})"] = median_ms(lambda: med_outputs_fused(kl, ki, 2.0, 300.0, ret_disp=True,
+                                                                              ret_pan=True), REPS)
+        except ValueError:  # a version without K1's direct path refuses W = 11572
+            pass
+        del kl, ki
     for w in (1500, 5000):  # K2's ring, and its direct path (image rows unstaged)
         wl, wi, wd, wp = (torch.from_numpy(wide.standard_normal((B, c, 16, w), np.float32)).to(dev) for c in (N, 3, 1, 3))
         try:

@@ -19,13 +19,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import inspect
 import os
 import time
 from typing import Any, Dict, Optional
 
 import torch
 
-from fal_net_torch.data.datasets import REGISTRY as DATASETS
+from fal_net_torch.data.datasets import REGISTRY as DATASETS, TRAIN_FACTORIES
 from fal_net_torch.data.loader import DataLoader, prefetch_to_device
 from fal_net_torch.data.transforms import default_train_transform
 from fal_net_torch.models import create_model
@@ -124,14 +125,14 @@ class Trainer:
                 print(f"=> MED kernels ({', '.join(modes)}{', K2' if backward else ''}) agree with their "
                       f"plain versions at {cfg.crop_size}, N={n}: max abs err {err:.3e}")
 
-        train_ds, _ = DATASETS[cfg.dataset](
-            cfg.data_root,
-            split=1,
-            co_transform=default_train_transform(cfg.crop_size),
-            max_pix=cfg.max_disp,
-            fix=cfg.fix_order,
-            lists_dir=cfg.lists_dir,
-        )
+        factory = DATASETS[cfg.dataset]
+        if factory not in TRAIN_FACTORIES:
+            train_names = sorted(k for k, f in DATASETS.items() if f in TRAIN_FACTORIES)
+            raise ValueError(f"dataset {cfg.dataset!r} is an evaluation set; training takes one of {train_names}")
+        kw = dict(co_transform=default_train_transform(cfg.crop_size), max_pix=cfg.max_disp, fix=cfg.fix_order)
+        if "lists_dir" in inspect.signature(factory).parameters:  # Cityscapes has no split lists
+            kw["lists_dir"] = cfg.lists_dir
+        train_ds, _ = factory(cfg.data_root, split=1, **kw)
         self.train_loader = DataLoader(
             train_ds, batch_size=cfg.batch_size, shuffle=True,
             num_workers=cfg.workers, seed=cfg.seed,

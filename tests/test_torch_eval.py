@@ -1,0 +1,405 @@
+"""The port's evaluation slice vs the JAX package: the evaluation datasets'
+loaders and factories on synthetic trees, the Evaluator's metrics.json
+against the JAX Evaluator's on the same weights and data (Eigen improved
+with ms-pp, Eigen original with flip-pp, KITTI 2015 with ms-pp, Make3D),
+batch 1 against batch 8, ``cli.test --device cpu`` end to end, the flags
+that raise, ``cli.infer --ms_post_process``, and the training factories'
+wiring into the trainer.
+
+Tolerances: the decoded samples are the same arrays (PIL decodes in both);
+metrics.json agrees at rtol 5e-4, atol 5e-4.  The two packages' disparities
+differ by fp32 conv summation order (XLA vs oneDNN), which moves the depth
+errors by a relative 1e-6 to 1e-5 here and a1-a3 by the rare pixel on a
+threshold (3e-5 at most, measured); the bound leaves room for another CPU.
+Batch 1 and batch 8 agree at rtol 1e-5 / atol 1e-6 (tests/test_evaluate.py's
+batched identity).
+"""
+
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from fal_net_tpu.data import datasets as jds
+from fal_net_tpu.eval.evaluate import EvalConfig as JaxEvalConfig
+from fal_net_tpu.eval.evaluate import Evaluator as JaxEvaluator
+from fal_net_tpu.models import create_model as jax_create_model
+from fal_net_torch.cli import infer
+from fal_net_torch.cli import test as cli_test
+from fal_net_torch.data import datasets
+from fal_net_torch.eval.evaluate import EvalConfig, Evaluator
+from fal_net_torch.eval.pipeline import DisparityPipeline
+from fal_net_torch.models import create_model
+from fal_net_torch.models.checkpoint import save_checkpoint
+from fal_net_torch.models.jax_import import state_dict_from_jax
+
+N = 5
+KITTI_H, KITTI_W = 64, 1242  # a width of the KITTI intrinsics table
+METRIC_TOL = dict(rtol=5e-4, atol=5e-4)
+DRIVE = "2011_09_26/2011_09_26_drive_0002_sync"
+
+
+@pytest.fixture(scope="module")
+def models():
+    jax_model = jax_create_model("tiny", N)
+    variables = jax_model.init(jax.random.PRNGKey(0), jnp.zeros((1, KITTI_H, KITTI_W, 3)), 2.0, 300.0,
+                               ret_disp=True)
+    port = create_model("tiny", N, device="cpu")
+    port.load_state_dict(
+        {k: torch.from_numpy(v) for k, v in state_dict_from_jax(variables["params"], "tiny").items()}
+    )
+    return jax_model, variables, port
+
+
+@pytest.fixture(scope="module")
+def raw_tree(tmp_path_factory):
+    """A KITTI-raw tree for both Eigen test splits (the layout of
+    tests/test_cli.py::test_north_star_runbook_smoke and
+    tests/test_eigen_factories.py): 3 frames, sparse uint16 groundtruth and
+    velodyne depth PNGs, .npy depths beside the images, both lists."""
+    root = tmp_path_factory.mktemp("kitti_raw")
+    rng = np.random.default_rng(0)
+    lines = []
+    for i in (3, 7, 42):
+        frame = f"{i:010d}.png"
+        for cam in ("image_02", "image_03"):
+            d = root / DRIVE / cam / "data"
+            d.mkdir(parents=True, exist_ok=True)
+            Image.fromarray(rng.integers(0, 255, (KITTI_H, KITTI_W, 3), dtype=np.uint8)).save(d / frame)
+        for kind in ("groundtruth", "velodyne_raw"):
+            d = root / DRIVE / "proj_depth" / kind / "image_02"
+            d.mkdir(parents=True, exist_ok=True)
+            depth = (rng.random((KITTI_H, KITTI_W)) * 80 * 256).astype(np.uint16)
+            depth[rng.random((KITTI_H, KITTI_W)) < 0.7] = 0  # sparse GT
+            Image.fromarray(depth).save(d / frame)
+        np.save(root / DRIVE / "image_02" / "data" / f"{i:010d}.npy",
+                (rng.random((KITTI_H, KITTI_W)) * 80).astype(np.float32))
+        lines.append(f"{DRIVE}/image_02/data/{frame} {DRIVE}/image_03/data/{frame}")
+    (root / "lists").mkdir()
+    for name in ("kitti_eigen_test_improved.txt", "kitti_eigen_test_original.txt"):
+        (root / "lists" / name).write_text("\n".join(lines))
+    return root
+
+
+def _assert_samples_equal(got, want):
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        if k == "targets":
+            assert len(got[k]) == len(v)
+            for a, b in zip(got[k], v):
+                np.testing.assert_array_equal(a, b)
+        elif isinstance(v, np.ndarray):
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+            assert got[k].dtype == v.dtype, k
+        else:
+            assert got[k] == v, k
+
+
+@pytest.mark.parametrize("name", ["Kitti_eigen_test_improved", "Kitti_eigen_test_original"])
+@pytest.mark.parametrize("raw_uint8", [False, True])
+def test_eigen_factories_match_jax(raw_tree, name, raw_uint8):
+    lists = str(raw_tree / "lists")
+    (_, got), (_, want) = (reg[name](str(raw_tree), split=0, lists_dir=lists)
+                           for reg in (datasets.REGISTRY, jds.REGISTRY))
+    assert got.items == want.items and len(got) == 3
+    got.raw_uint8 = want.raw_uint8 = raw_uint8
+    for i in range(len(got)):
+        _assert_samples_equal(got.get(i), want.get(i))
+    s = got.get(0)
+    assert len(s["targets"]) == (2 if name.endswith("improved") else 1)
+    assert s["targets"][0].shape == (KITTI_H, KITTI_W, 1) and s["targets"][0].dtype == np.float32
+
+
+@pytest.fixture(scope="module")
+def kitti2015_tree(tmp_path_factory):
+    """KITTI 2015 scene-flow layout: 3 items with _10 and _11 stereo pairs
+    and uint16 disparity PNGs, one item missing its _11 pair."""
+    root = tmp_path_factory.mktemp("kitti2015")
+    rng = np.random.default_rng(1)
+    for sub in ("image_2", "image_3", "disp_occ_0"):
+        (root / "training" / sub).mkdir(parents=True)
+    (root / "testing" / "image_2").mkdir(parents=True)
+    (root / "testing" / "image_3").mkdir(parents=True)
+    for i in range(4):
+        for fr in ("10", "11") if i < 3 else ("10",):
+            for cam in ("image_2", "image_3"):
+                img = rng.integers(0, 255, (24, 1242, 3), dtype=np.uint8)
+                Image.fromarray(img).save(root / "training" / cam / f"{i:06d}_{fr}.png")
+        disp = (rng.random((24, 1242)) * 60 * 256).astype(np.uint16)
+        Image.fromarray(disp).save(root / "training" / "disp_occ_0" / f"{i:06d}_10.png")
+    for cam in ("image_2", "image_3"):
+        Image.fromarray(rng.integers(0, 255, (24, 1242, 3), dtype=np.uint8)).save(
+            root / "testing" / cam / "000000_10.png")
+    return root
+
+
+def test_kitti2015_factory_matches_jax(kitti2015_tree):
+    root = str(kitti2015_tree)
+    for kw in (dict(split=0), dict(split=0, load_t1=False), dict(split=0.5), dict(disp=False, of=False)):
+        got = datasets.kitti2015(root, **kw)
+        want = jds.kitti2015(root, **kw)
+        for g, w in zip(got, want):
+            assert g.items == w.items and g.load_t1 == w.load_t1
+            for i in range(len(g)):
+                _assert_samples_equal(g.get(i), w.get(i))
+    _, test = datasets.kitti2015(root, split=0)
+    assert len(test) == 3 and "left_t1" in test.get(0)
+    # flow targets are 16-bit RGB, which PIL cannot read: the loader raises
+    _, test = datasets.kitti2015(root, split=0, disp=False, of=True)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        test.get(0)
+
+
+def test_make3d_and_cityscapes_factories_match_jax(tmp_path):
+    import scipy.io as sio
+
+    rng = np.random.default_rng(0)
+    m3d = tmp_path / "make3d"
+    m3d.mkdir()
+    for i in range(2):  # img-*.jpg and depth_sph_corr-*.mat with Position3DGrid
+        Image.fromarray(rng.integers(0, 255, (120, 90, 3), dtype=np.uint8)).save(m3d / f"img-{i}.jpg")
+        sio.savemat(m3d / f"depth_sph_corr-{i}.mat", {"Position3DGrid": rng.random((55, 305, 4)) * 60})
+    np.testing.assert_array_equal(datasets.load_make3d_depth(str(m3d / "depth_sph_corr-0.mat")),
+                                  jds.load_make3d_depth(str(m3d / "depth_sph_corr-0.mat")))
+    (g, _), (w, _) = datasets.make3d(str(m3d), split=1), jds.make3d(str(m3d), split=1)
+    assert g.items == w.items and len(g) == 2
+    _assert_samples_equal(g.get(1), w.get(1))
+    assert g.get(0)["targets"][0].shape == (2272, 1704, 1)
+
+    cs = tmp_path / "cityscapes"
+    for ttv, city in [("train", "aachen"), ("val", "lindau")]:
+        for i in range(2):
+            base = f"{city}_{i:06d}_000019_"
+            for side in ("leftImg8bit", "rightImg8bit"):
+                d = cs / side / ttv / city
+                d.mkdir(parents=True, exist_ok=True)
+                Image.fromarray(rng.integers(0, 255, (32, 64, 3), dtype=np.uint8)).save(d / f"{base}{side}.jpg")
+    got, want = datasets.cityscapes_jpg(str(cs)), jds.cityscapes_jpg(str(cs))
+    for g, w in zip(got, want):
+        assert g.pairs == w.pairs and len(g) == 2
+        _assert_samples_equal(g.get(0, np.random.default_rng(0)), w.get(0, np.random.default_rng(0)))
+
+
+def test_registry_and_mixed_training_match_jax(tmp_path, raw_tree):
+    assert sorted(datasets.REGISTRY) == sorted(jds.REGISTRY)
+    # KITTI + Cityscapes: a KITTI train list over the raw tree, Cityscapes beside it
+    (tmp_path / "kitti_eigen_train.txt").write_text(
+        f"{DRIVE}/image_02/data/0000000003.png {DRIVE}/image_03/data/0000000003.png\n")
+    cs = tmp_path / "cs"
+    for side in ("leftImg8bit", "rightImg8bit"):
+        d = cs / side / "train" / "bonn"
+        d.mkdir(parents=True)
+        Image.fromarray(np.full((32, 64, 3), 7, np.uint8)).save(d / f"bonn_000000_000019_{side}.jpg")
+    root = f"{raw_tree},{cs}"
+    got, _ = datasets.REGISTRY["Kitti_CS"](root, split=1, lists_dir=str(tmp_path))
+    want, _ = jds.REGISTRY["Kitti_CS"](root, split=1, lists_dir=str(tmp_path))
+    assert isinstance(got, datasets.ConcatDataset) and len(got) == len(want) == 2
+    for i in range(2):
+        _assert_samples_equal(got.get(i, np.random.default_rng(i)), want.get(i, np.random.default_rng(i)))
+    with pytest.raises(IndexError):
+        got.get(2, np.random.default_rng(0))
+
+
+def test_trainer_takes_the_training_factories(tmp_path):
+    """Trainer.setup calls Cityscapes_jpg (no split lists) and refuses an
+    evaluation set."""
+    from fal_net_torch.train.config import Stage1Config
+    from fal_net_torch.train.trainer import Trainer
+
+    cs = tmp_path / "cs"
+    for i in range(2):
+        for side in ("leftImg8bit", "rightImg8bit"):
+            d = cs / side / "train" / "bonn"
+            d.mkdir(parents=True, exist_ok=True)
+            Image.fromarray(np.full((40, 80, 3), 9 * i, np.uint8)).save(d / f"bonn_00000{i}_000019_{side}.jpg")
+    cfg = Stage1Config(model="tiny", num_levels=N, dataset="Cityscapes_jpg", data_root=str(cs), batch_size=2,
+                       crop_size=(32, 64), a_p=0.0, workers=1)
+    trainer = Trainer(cfg, device="cpu")
+    trainer.setup()
+    assert len(trainer.train_loader.dataset) == 2 and trainer.steps_per_epoch == 1
+    cfg = Stage1Config(model="tiny", num_levels=N, dataset="Kitti2015", data_root=str(tmp_path), a_p=0.0)
+    with pytest.raises(ValueError, match="evaluation set"):
+        Trainer(cfg, device="cpu").setup()
+
+
+# ---- the Evaluator against JAX's ----
+
+class SyntheticKitti2015:
+    """KITTI 2015 protocol samples in memory (tests/test_evaluate.py)."""
+
+    def __init__(self, n=2, h=KITTI_H, w=KITTI_W):
+        self.n, self.h, self.w = n, h, w
+
+    def __len__(self):
+        return self.n
+
+    def get(self, index, rng=None):
+        r = np.random.default_rng(index)
+        left = r.random((self.h, self.w, 3)).astype(np.float32) - 0.5
+        disp = (r.random((self.h, self.w, 1)) * 80).astype(np.float32)
+        disp[disp < 20] = 0  # sparse
+        return {"left": left, "targets": [disp], "name": f"s{index}"}
+
+
+class SyntheticMake3D:
+    """Make3D protocol samples in memory: dense depth (tests/test_evaluate.py)."""
+
+    def __len__(self):
+        return 2
+
+    def get(self, index, rng=None):
+        r = np.random.default_rng(index)
+        left = r.random((64, 256, 3)).astype(np.float32) - 0.5
+        depth = (r.random((64, 256, 1)) * 60 + 2).astype(np.float32)
+        return {"left": left, "targets": [depth], "name": f"m{index}"}
+
+
+def _tree_set(raw_tree, name):
+    def make(reg):
+        _, ds = reg[name](str(raw_tree), split=0, lists_dir=str(raw_tree / "lists"))
+        ds.raw_uint8 = True  # as cli.test uploads
+        return ds
+
+    return make
+
+
+CASES = {
+    "Kitti_eigen_test_improved": (lambda t: _tree_set(t, "Kitti_eigen_test_improved"), dict(ms_post_process=True)),
+    "Kitti_eigen_test_original": (lambda t: _tree_set(t, "Kitti_eigen_test_original"),
+                                  dict(f_post_process=True, ms_post_process=False, use_median=True)),
+    "Kitti2015": (lambda t: lambda reg: SyntheticKitti2015(), dict(ms_post_process=True)),
+    "Make3D": (lambda t: lambda reg: SyntheticMake3D(), dict(ms_post_process=False)),
+}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_evaluator_metrics_match_jax(models, raw_tree, tmp_path, name):
+    jax_model, variables, port = models
+    make, kw = CASES[name]
+    make = make(raw_tree)
+    common = dict(dataset=name, batch_size=2, print_freq=1, **kw)
+    got = Evaluator(port, EvalConfig(save_path=str(tmp_path / "port"), **common)).run(make(datasets.REGISTRY))
+    want = JaxEvaluator(jax_model, variables, JaxEvalConfig(save_path=str(tmp_path / "jax"), **common)).run(
+        make(jds.REGISTRY))
+    files = [json.loads((tmp_path / d / "metrics.json").read_text()) for d in ("port", "jax")]
+    assert files[0].keys() == files[1].keys()
+    assert files[0]["n_params"] == files[1]["n_params"] and files[0]["n_images"] == files[1]["n_images"]
+    keys = [k for k in files[1] if k not in ("n_params", "n_images", "sec_per_image")]
+    assert {"abs_rel", "a1", "epe"} <= set(keys)
+    for k in keys:
+        np.testing.assert_allclose(files[0][k], files[1][k], err_msg=k, **METRIC_TOL)
+        assert got[k] == files[0][k]
+    assert np.isfinite(got["abs_rel"]) and np.isfinite(want["abs_rel"])
+    port_txt = (tmp_path / "port" / "errors.txt").read_text().splitlines()
+    jax_txt = (tmp_path / "jax" / "errors.txt").read_text().splitlines()
+    assert [ln.split()[0] for ln in port_txt] == [ln.split()[0] for ln in jax_txt]
+
+
+class MixedShapes:
+    """5 samples over 2 KITTI widths, interleaved (tests/test_evaluate.py)."""
+
+    SHAPES = [(40, 1242), (40, 1226), (40, 1242), (40, 1226), (40, 1242)]
+
+    def __len__(self):
+        return len(self.SHAPES)
+
+    def get(self, index, rng=None):
+        h, w = self.SHAPES[index]
+        r = np.random.default_rng(index)
+        disp = (r.random((h, w, 1)) * 80).astype(np.float32)
+        disp[disp < 20] = 0
+        return {"left": r.random((h, w, 3)).astype(np.float32) - 0.5, "targets": [disp], "name": f"mix{index}"}
+
+
+def test_batch_1_and_batch_8_give_the_same_metrics(models, tmp_path):
+    """Buckets with zero-padded ragged tails and per-image percentiles: the
+    metrics of batch 8 (one padded batch per shape) equal batch 1's, with
+    decode prefetch on and off."""
+    port = models[2]
+    runs = {}
+    for bs, workers in ((1, 0), (8, 4)):
+        cfg = EvalConfig(dataset="Kitti2015", batch_size=bs, decode_workers=workers, ms_post_process=True,
+                         save_path=str(tmp_path / f"b{bs}"), print_freq=2)
+        runs[bs] = Evaluator(port, cfg).run(MixedShapes())
+    for k in ("abs_rel", "sq_rel", "rms", "log_rms", "a1", "a2", "a3", "epe"):
+        np.testing.assert_allclose(runs[8][k], runs[1][k], rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+def test_cli_test_on_cpu_end_to_end(models, raw_tree, tmp_path):
+    """cli.test --device cpu with the defaults (ms-pp, raw uint8 upload) on
+    the Eigen tree, then with every export."""
+    ckpt = str(tmp_path / "tiny.pt")
+    save_checkpoint(ckpt, models[2])
+    base = ["--tdataName", "Kitti_eigen_test_improved", "--data_root", str(raw_tree), "--lists_dir",
+            str(raw_tree / "lists"), "--pretrained", ckpt, "--device", "cpu", "--batch_size", "2"]
+    metrics = cli_test.main(base + ["--save_path", str(tmp_path / "a")])
+    saved = json.loads((tmp_path / "a" / "metrics.json").read_text())
+    assert saved["n_images"] == 3 and np.isfinite(saved["abs_rel"]) and saved["abs_rel"] == metrics["abs_rel"]
+    assert "abs_rel" in (tmp_path / "a" / "errors.txt").read_text()
+    cli_test.main(base + ["--save_path", str(tmp_path / "b"), "--f_post_process", "--save", "--save_pan",
+                          "--save_input", "--save_pc"])
+    out = tmp_path / "b"
+    for sub, n in (("disp", 3), ("pan", 3), ("input", 3), ("pc", 3)):
+        assert len(os.listdir(out / sub)) == n, sub
+    assert len(os.listdir(out / "feats")) == 3 * (3 + 1 + 1)  # normalized input (3 channels), maskL, maskR
+    disp_png = np.asarray(Image.open(out / "disp" / "0000000000.png"))
+    assert disp_png.shape == (KITTI_H, KITTI_W, 4)
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--artifact", "x.bundle"], "item 11"),
+    (["--pretrained", "x.pt", "--num_devices", "2"], "item 12"),
+    (["--pretrained", "x.pt", "--dtype", "bfloat16"], "item 10"),
+])
+def test_cli_test_later_slice_flags_raise(flags, item):
+    with pytest.raises(NotImplementedError, match=item):
+        cli_test.main(["--data_root", "/nonexistent", "--device", "cpu", *flags])
+
+
+def test_evaluator_mesh_and_artifact_raise(models):
+    with pytest.raises(NotImplementedError, match="item 12"):
+        Evaluator(models[2], EvalConfig(), mesh=object())
+    with pytest.raises(NotImplementedError, match="item 11"):
+        Evaluator.from_artifact(None, EvalConfig())
+    assert "relay_retries" not in {f.name for f in EvalConfig.__dataclass_fields__.values()}
+
+
+@pytest.mark.parametrize("device_normalize", [False, True])
+def test_pipeline_ms_post_process_matches_jax(models, device_normalize):
+    """DisparityPipeline(ms_post_process=True) vs JAX's, ragged tail (3
+    images, batch 2) at an odd size; rtol 1e-3 / atol 5e-3 as the forward."""
+    from fal_net_tpu.eval.pipeline import DisparityPipeline as JaxDisparityPipeline
+    from fal_net_torch.data.transforms import normalize
+
+    jax_model, variables, port = models
+    rng = np.random.default_rng(2)
+    raw = [(f"img{i}", (rng.random((45, 150, 3)) * 255).astype(np.uint8)) for i in range(3)]
+    items = raw if device_normalize else [(k, normalize(v)) for k, v in raw]
+    kw = dict(batch_size=2, max_disp=30.0, device_normalize=device_normalize, ms_post_process=True)
+    want = dict(JaxDisparityPipeline(jax_model, variables, **kw).run(iter(items)))
+    got = list(DisparityPipeline(port, **kw).run(iter(items)))
+    assert [name for name, _ in got] == [name for name, _ in raw]
+    for name, disp in got:
+        np.testing.assert_allclose(disp, want[name], rtol=1e-3, atol=5e-3, err_msg=name)
+
+
+def test_infer_cli_ms_post_process(models, tmp_path):
+    """cli.infer --ms_post_process writes what the ms-pp pipeline computes."""
+    port = models[2]
+    ckpt = str(tmp_path / "tiny.pt")
+    save_checkpoint(ckpt, port)
+    img = (np.random.default_rng(3).random((48, 160, 3)) * 255).astype(np.uint8)
+    (tmp_path / "in").mkdir()
+    Image.fromarray(img).save(tmp_path / "in" / "f.png")
+    n = infer.main(["--images", str(tmp_path / "in"), "--out_dir", str(tmp_path / "out"), "--pretrained", ckpt,
+                    "--height", "48", "--width", "160", "--max_disp", "30", "--ms_post_process", "--device", "cpu"])
+    assert n == 1
+    got = np.asarray(Image.open(tmp_path / "out" / "f_disp.png")).astype(np.float64) / 256
+    pipe = DisparityPipeline(port, batch_size=8, max_disp=30.0, device_normalize=True, ms_post_process=True)
+    ((_, want),) = list(pipe.run(iter([("f", img)])))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1 / 256)  # the PNG's 1/256 px steps

@@ -206,6 +206,19 @@ def test_stage_plans_on_gpu(cuda_device):
                 assert p["smem"] <= 232_448 and p["slots"] >= 1
     with pytest.raises(ValueError, match="no plan"):
         stage_plan("med_bwd", 49, 3, 100_000, disp=True, pan=True)
+    # K1's staged plans at the training and serving widths (bytes and labels
+    # unchanged by the direct path)
+    keys = ("group", "slots", "whole", "loads", "smem", "direct")
+    for w, flags, want in (
+        (640, dict(disp=True), (7, 7, 1, 7, 130_816, 0)),
+        (640, dict(disp=True, pan=True), (7, 7, 1, 7, 141_088, 0)),
+        (640, dict(disp=True, pan=True, subocc=True), (7, 7, 1, 7, 146_208, 0)),
+        (1280, dict(disp=True), (7, 6, 0, 7, 222_736, 0)),
+        (1280, dict(disp=True, pan=True), (7, 5, 0, 7, 207_168, 0)),
+        (1280, dict(disp=True, pan=True, subocc=True), (7, 5, 0, 14, 217_408, 0)),
+    ):
+        p = stage_plan("med_fwd", 49, 3, w, **flags)
+        assert tuple(p[k] for k in keys) == want, (w, flags, p)
 
 
 @pytest.mark.cuda
@@ -241,3 +254,27 @@ def test_k2_direct_path_at_w5000_on_gpu(cuda_device, mode):
     assert (got[1] is None) == (want[1] is None)
     if want[1] is not None:
         torch.testing.assert_close(got[1], want[1], rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(FWD_MODES))
+def test_k1_at_k2_pan_width_on_gpu(cuda_device, mode):
+    """K1 takes every width K2 trains at: at N = 49, W = 11,572 (K2's widest
+    with pan cotangents), pan modes read the image row from device memory
+    (the direct path) and every mode matches the plain head."""
+    w = 11_572
+    rng = np.random.default_rng(0)
+    draw = lambda ch: torch.from_numpy(rng.standard_normal((1, ch, 2, w), np.float32)).to(cuda_device)
+    logits, image = draw(49), draw(3)
+    kw = FWD_MODES[mode]
+    plan = stage_plan("med_fwd", 49, 3, w, disp=kw.get("ret_disp", False), pan=kw.get("ret_pan", False),
+                      subocc=kw.get("ret_subocc", False))
+    assert plan["direct"] == kw.get("ret_pan", False)
+    got = med_outputs_fused(logits, image, 2.0, 300.0, **kw)
+    torch.cuda.synchronize()
+    want = med_outputs(logits, image, 2.0, 300.0, **kw)
+    for name, (rtol, atol) in TOL.items():
+        g, ww = getattr(got, name), getattr(want, name)
+        assert (g is None) == (ww is None), name
+        if g is not None:
+            torch.testing.assert_close(g, ww, rtol=rtol, atol=atol)

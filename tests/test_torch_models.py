@@ -82,7 +82,7 @@ def test_weights_round_trip(variant):
 
 @pytest.mark.parametrize(
     "variant,h,w",
-    [("tiny", 32, 64), ("tiny", 60, 96), ("B", 64, 128)],  # 60: a non-2x upsample
+    [("tiny", 32, 64), ("tiny", 60, 96), ("B", 64, 128), ("A", 64, 128), ("C", 64, 128)],  # 60: a non-2x upsample
 )
 def test_forward_matches_jax(rng, variant, h, w):
     num_levels = 9

@@ -72,11 +72,6 @@ def test_pipeline_rejects_floats_with_device_normalize(models):
         list(pipe.run(iter([("x", np.zeros((H, W, 3), np.float32))])))
 
 
-def test_pipeline_ms_post_process_not_ported(models):
-    with pytest.raises(NotImplementedError, match="postprocess"):
-        DisparityPipeline(models[2], ms_post_process=True)
-
-
 def test_normalize_device_matches_host():
     img = _raw_images(1)[0][1]
     dev = normalize_device(torch.from_numpy(img).permute(2, 0, 1)[None])[0].permute(1, 2, 0)
