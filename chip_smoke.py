@@ -86,7 +86,8 @@ Phases, each reported on its own line; any failure exits nonzero:
      the same convolutions) within 5e-3 px + 1e-4 relative and 1e-3 on
      each metric; the multi-scale run once more with TF32 convolutions off
      (printed, not a gate); images/s of ``cli.test`` over 48 images (the
-     16 frames listed three times), host decode and metrics included;
+     16 frames listed three times), host decode and metrics included, over
+     the whole call and over the window after each shape's first batch;
   9. the ported kernel scripts (``fal_net_torch.scripts``): K3
      (``proto_conv_kernel``) and K4 (``proto_conv_kernel_v2``), both through
      the TF32 wgmma conv, against their plain versions on TF32-truncated
@@ -1039,30 +1040,49 @@ def write_eigen_tree(rng, root: str) -> dict:
 def recorded_eval(run):
     """Call ``run()`` with every Evaluator it makes recorded and the
     disparities of each image captured; K1's launches counted by mode from
-    0.  Returns (result, evaluators, {image index: disparity}, K1 launches
-    by mode, seconds)."""
+    0.  Each Evaluator's ``collect_ends`` lists (time, images, shape) as
+    each batch's outputs are read and processed.  Returns (result,
+    evaluators, {image index: disparity}, K1 launches by mode, seconds)."""
     from fal_net_torch.eval.evaluate import Evaluator
 
     made, disps = [], {}
-    init, process = Evaluator.__init__, Evaluator._process_image
+    init, collect, process = Evaluator.__init__, Evaluator._collect, Evaluator._process_image
 
     def recording_init(self, *a, **k):
         init(self, *a, **k)
+        self.collect_ends = []
         made.append(self)
+
+    def timed_collect(self, pending, *rest):
+        collect(self, pending, *rest)
+        items = pending[0]
+        self.collect_ends.append((time.perf_counter(), len(items), items[0][2].shape))
 
     def capturing(self, i, sample, left_np, disp_np, *rest):
         disps[i] = np.array(disp_np)
         process(self, i, sample, left_np, disp_np, *rest)
 
-    Evaluator.__init__, Evaluator._process_image = recording_init, capturing
+    Evaluator.__init__, Evaluator._collect, Evaluator._process_image = recording_init, timed_collect, capturing
     MedForward.launches, MedForward.mode_launches = 0, {}
     t0 = time.perf_counter()
     try:
         result = run()
         torch.cuda.synchronize()
     finally:
-        Evaluator.__init__, Evaluator._process_image = init, process
+        Evaluator.__init__, Evaluator._collect, Evaluator._process_image = init, collect, process
     return result, made, disps, dict(MedForward.mode_launches), time.perf_counter() - t0
+
+
+def steady_window(ends) -> tuple[int, float]:
+    """(images, seconds) of the window after every shape's first batch
+    (which holds the gate and the convolutions' first call at its shapes):
+    from the collect of the last shape's first batch to the last collect."""
+    seen, start = set(), 0
+    for k, (_, _, shape) in enumerate(ends):
+        if shape not in seen:
+            seen.add(shape)
+            start = k
+    return sum(n for _, n, _ in ends[start + 1:]), ends[-1][0] - ends[start][0]
 
 
 def check_eval_outputs(out_dir: str, metrics: dict, label: str) -> None:
@@ -1177,13 +1197,15 @@ def phase_eval(rng, dev, seed: int, card: str, workdir: str) -> dict:
     check_eval_outputs(os.path.join(workdir, "eval_timed"), timed, "timed")
     k1_total += sum(by_mode.values())
     worst = max([worst, *ev.med_checked.values()])
+    n_steady, steady_s = steady_window(ev.collect_ends)
     line(f"phase 10 cli.test ms-pp FAL_netB N=49 B={BATCH}, {n_timed} images at {shapes}: {secs:.3f} s in the call "
-         f"(checkpoint load, gate, decode on 4 threads, metrics included), {n_timed / secs:.3f} images/s, "
-         f"{secs / n_timed:.4f} s/image; the Evaluator's sec_per_image (dispatch to metrics, per image) "
-         f"{timed['sec_per_image']:.4f} [{card}]")
+         f"(checkpoint load, gate, decode on 4 threads, metrics included), {n_timed / secs:.3f} images/s; "
+         f"steady window after each shape's first batch: {n_steady} images in {steady_s:.3f} s, "
+         f"{n_steady / steady_s:.3f} images/s; latency, the Evaluator's sec_per_image (a batch's dispatch to "
+         f"its metrics, per image) {timed['sec_per_image']:.4f} s [{card}]")
     line(f"phase 10 evaluation: {k1_total} K1 launches; tree of {n_all} frames written in {tree_s:.2f} s; worst "
          f"gate abs err {worst:.3e}")
-    return {"k1": k1_total, "worst": worst, "images_per_s": n_timed / secs}
+    return {"k1": k1_total, "worst": worst, "images_per_s": n_timed / secs, "steady_images_per_s": n_steady / steady_s}
 
 
 def phase_scripts(card: str) -> list[dict]:

@@ -28,8 +28,8 @@ from fal_net_torch.train.trainer import not_ported
 EVAL_DATASETS = {
     "Kitti_eigen_test_improved": kitti_eigen_test_improved,
     "Kitti_eigen_test_original": kitti_eigen_test_original,
-    "Kitti2015": lambda root, split=0, lists_dir=None: kitti2015(root, split),
-    "Make3D": lambda root, split=0, lists_dir=None: make3d(root, split),
+    "Kitti2015": kitti2015,
+    "Make3D": make3d,
 }
 
 

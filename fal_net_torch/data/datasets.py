@@ -199,7 +199,8 @@ def kitti_train(
     return mk(train), StereoTrainDataset(root, test, None, max_pix, fix)
 
 
-def kitti2015(root: str, split=0.0, disp: bool = True, of: bool = False, load_t1: bool = True):
+def kitti2015(root: str, split=0.0, disp: bool = True, of: bool = False, load_t1: bool = True,
+              lists_dir: Optional[str] = None):
     """KITTI 2015 scene flow (Kitti2015.py:26-96).
 
     ``disp`` or ``of``: 200 ``training`` items of four images, the stereo
@@ -278,7 +279,7 @@ def kitti_eigen_test_original(root: str, split=1, lists_dir: Optional[str] = Non
 
 
 def cityscapes_jpg(root: str, split=1, co_transform: Optional[Compose] = None, max_pix: float = 300.0,
-                   fix: bool = True):
+                   fix: bool = True, lists_dir: Optional[str] = None):
     """Cityscapes leftImg8bit / rightImg8bit JPG trees; the 'val' subtree is
     the validation split (Cityscapes_jpg.py:25-53)."""
     train_pairs, val_pairs = [], []
@@ -302,7 +303,7 @@ def cityscapes_jpg(root: str, split=1, co_transform: Optional[Compose] = None, m
     return mk(train_pairs, co_transform), mk(val_pairs, None)
 
 
-def make3d(root: str, split=1):
+def make3d(root: str, split=1, lists_dir: Optional[str] = None):
     """Make3D zero-shot evaluation: *.jpg and depth_sph_corr*.mat
     (Make3D.py:26-44)."""
     items = []
@@ -348,7 +349,9 @@ def kitti_cs_train(root: str, split=1, co_transform: Optional[Compose] = None, m
     return mixed_train([k_train, c_train]), k_val
 
 
-# Reference-compatible name lookup (Datasets.__dict__[name] pattern).
+# Reference-compatible name lookup (Datasets.__dict__[name] pattern).  Every
+# factory takes ``lists_dir``; those that scan their tree instead of reading
+# a split list ignore it.
 REGISTRY: Dict[str, Callable] = {
     "Kitti": kitti_train,
     "kitti": kitti_train,

@@ -128,17 +128,15 @@ class Evaluator:
 
     def _med_guard(self, height: int, width: int) -> None:
         """Gate K1 at every (mode, H, W) a batch of this shape launches:
-        the main forward (disp; disp + pan + subocc with ``save_pan``,
-        unless the FAL_netA maskR quirk sends it to the plain head) and the
+        the main forward (disp; disp + pan + subocc with ``save_pan``, the
+        FAL_netA maskR quirk included: only its maskR is plain) and the
         post-process's pass (disp at the 2/3 shape; the flip pass has the
         bucket's shape)."""
         cfg, model = self.cfg, self.model
         if not cfg.med_selfcheck or self.device.type != "cuda" or model.med_impl == "reference":
             return
         artifacts = cfg.save and cfg.save_pan
-        checks = []
-        if not (artifacts and model.a_maskr_quirk):
-            checks.append(("disp+pan+subocc" if artifacts else "disp", height, width))
+        checks = [("disp+pan+subocc" if artifacts else "disp", height, width)]
         if cfg.f_post_process:
             checks.append(("disp", height, width))
         elif cfg.ms_post_process:

@@ -22,10 +22,12 @@ fal_net_tpu/models/falnet.py).
 FAL_netA's maskR resample, whose warp omits ``align_corners``
 (models/FAL_netA.py:264), for parity with published A checkpoints
 (:func:`fal_net_torch.ops.shift.hshift_planes_quirk`).  The CUDA kernel has
-no such resample, as the JAX package's Pallas kernel has none, so with the
-quirk a forward that requests the masks runs the plain head; disp and pan do
-not read maskR and keep ``med_impl``'s choice.  It is chosen by the caller,
-never taken in reaction to a failure.
+no such resample, as the JAX package's Pallas kernel has none: with the
+quirk, a forward that requests the masks still runs the kernel (or the plain
+head) as ``med_impl`` selects for disp, pan and maskL, and maskR alone goes
+through the plain quirk sampler (:func:`fal_net_torch.ops.med.quirk_mask_r`),
+replacing the kernel's.  It is chosen by the caller, never taken in reaction
+to a failure.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from torch import nn
 
 from fal_net_torch.models.backbone import VARIANTS, FalNetBackbone, VariantSpec
 from fal_net_torch.models.layers import conv, init_conv
-from fal_net_torch.ops.med import MedOutputs, med_outputs
+from fal_net_torch.ops.med import MedOutputs, med_outputs, quirk_mask_r
 from fal_net_torch.ops.med_kernel import med_outputs_fused
 from fal_net_torch.utils.device import resolve_device
 
@@ -88,8 +90,9 @@ class FalNet(nn.Module):
         image = left.float().contiguous()
         kw = dict(ret_disp=ret_disp, ret_pan=ret_pan, ret_subocc=ret_subocc)
         quirk = self.a_maskr_quirk and ret_subocc
-        if not quirk and (self.med_impl == "fused" or (self.med_impl == "auto" and logits.is_cuda)):
-            return med_outputs_fused(logits, image, min_disp, max_disp, **kw)
+        if self.med_impl == "fused" or (self.med_impl == "auto" and logits.is_cuda):
+            out = med_outputs_fused(logits, image, min_disp, max_disp, **kw)
+            return out._replace(maskR=quirk_mask_r(logits, min_disp, max_disp)) if quirk else out
         return med_outputs(logits, image, min_disp, max_disp, maskr_quirk=quirk, **kw)
 
 

@@ -129,11 +129,25 @@ def med_outputs(
             pan = torch.einsum("bcnhw,bnhw->bchw", shifted_img, dprob)
 
         if ret_subocc:
-            sm0 = torch.softmax(logits, dim=1).detach()
-            shifted_sm0 = hshift_planes_quirk(sm0, levels) if maskr_quirk else hshift_planes(sm0, shifts)
-            mask_r = shifted_sm0.sum(dim=1, keepdim=True)
+            if maskr_quirk:
+                mask_r = quirk_mask_r(logits, min_disp, max_disp)
+            else:
+                sm0 = torch.softmax(logits, dim=1).detach()
+                mask_r = torch.clamp(hshift_planes(sm0, shifts).sum(dim=1, keepdim=True), max=1.0)
             mask_l = hshift_planes(dprob.detach(), -shifts).sum(dim=1, keepdim=True)
-            mask_r = torch.clamp(mask_r, max=1.0)
             mask_l = torch.clamp(mask_l, max=1.0)
 
     return MedOutputs(pan=pan, disp=disp, maskL=mask_l, maskR=mask_r)
+
+
+def quirk_mask_r(logits: torch.Tensor, min_disp, max_disp) -> torch.Tensor:
+    """maskR (B, 1, H, W) as the reference FAL_netA resamples it
+    (:func:`fal_net_torch.ops.shift.hshift_planes_quirk`), clamped to <= 1,
+    from a stop-gradient softmax.  Bounds as :func:`med_outputs` takes them."""
+    min_t = torch.as_tensor(min_disp)
+    if min_t.ndim > 0:
+        max_t = torch.as_tensor(max_disp)
+        return torch.cat([quirk_mask_r(logits[i : i + 1], min_t[i], max_t[i]) for i in range(logits.shape[0])])
+    levels = disparity_levels(min_disp, max_disp, logits.shape[1], device=logits.device)
+    sm0 = torch.softmax(logits, dim=1).detach()
+    return torch.clamp(hshift_planes_quirk(sm0, levels).sum(dim=1, keepdim=True), max=1.0)

@@ -19,7 +19,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
-import inspect
 import os
 import time
 from typing import Any, Dict, Optional
@@ -129,10 +128,8 @@ class Trainer:
         if factory not in TRAIN_FACTORIES:
             train_names = sorted(k for k, f in DATASETS.items() if f in TRAIN_FACTORIES)
             raise ValueError(f"dataset {cfg.dataset!r} is an evaluation set; training takes one of {train_names}")
-        kw = dict(co_transform=default_train_transform(cfg.crop_size), max_pix=cfg.max_disp, fix=cfg.fix_order)
-        if "lists_dir" in inspect.signature(factory).parameters:  # Cityscapes has no split lists
-            kw["lists_dir"] = cfg.lists_dir
-        train_ds, _ = factory(cfg.data_root, split=1, **kw)
+        train_ds, _ = factory(cfg.data_root, split=1, co_transform=default_train_transform(cfg.crop_size),
+                              max_pix=cfg.max_disp, fix=cfg.fix_order, lists_dir=cfg.lists_dir)
         self.train_loader = DataLoader(
             train_ds, batch_size=cfg.batch_size, shuffle=True,
             num_workers=cfg.workers, seed=cfg.seed,

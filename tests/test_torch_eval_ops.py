@@ -169,6 +169,39 @@ def test_maskr_quirk_model_matches_jax(tiny_pair):
                                    err_msg=name)
 
 
+def test_maskr_quirk_keeps_the_kernel_but_for_maskr(tiny_pair, monkeypatch):
+    """FalNet(a_maskr_quirk=True, med_impl="fused"): one kernel call with
+    the masks requested gives disp, pan and maskL, and maskR alone comes from
+    the plain quirk sampler, replacing the kernel's.  The CUDA kernel cannot
+    run on the CPU, so the plain head (without the quirk) stands in for it
+    here; the result equals the JAX model's a_maskr_quirk at the tolerance
+    of the test above."""
+    from fal_net_torch.models import falnet
+
+    jax_model, variables, port = tiny_pair
+    calls = []
+
+    def kernel_stand_in(*args, **kw):
+        calls.append(kw)
+        out = med_outputs(*args, **kw)
+        calls.append(out.maskR)
+        return out
+
+    monkeypatch.setattr(falnet, "med_outputs_fused", kernel_stand_in)
+    quirk = create_model("tiny", 5, device="cpu", med_impl="fused", a_maskr_quirk=True)
+    quirk.load_state_dict(port.state_dict())
+    x = (np.random.default_rng(7).standard_normal((2, 32, 64, 3)) * 0.3).astype(np.float32)
+    jq = jax_create_model("tiny", 5, med_impl="reference", a_maskr_quirk=True)
+    want = jq.apply(variables, jnp.asarray(x), 2.0, 30.0, ret_disp=True, ret_pan=True, ret_subocc=True)
+    with torch.no_grad():
+        got = quirk(nchw(x), 2.0, 30.0, ret_disp=True, ret_pan=True, ret_subocc=True)
+    assert calls[0] == dict(ret_disp=True, ret_pan=True, ret_subocc=True)
+    assert not torch.allclose(calls[1], got.maskR, atol=1e-3)  # the kernel's maskR was replaced
+    for name in ("disp", "pan", "maskL", "maskR"):
+        np.testing.assert_allclose(nhwc(getattr(got, name)), np.asarray(getattr(want, name)), rtol=1e-3, atol=5e-3,
+                                   err_msg=name)
+
+
 # ---- metrics ----
 
 def _depths(rng, h=240, w=1242):

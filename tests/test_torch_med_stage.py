@@ -278,3 +278,25 @@ def test_k1_at_k2_pan_width_on_gpu(cuda_device, mode):
         assert (g is None) == (ww is None), name
         if g is not None:
             torch.testing.assert_close(g, ww, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_maskr_quirk_runs_k1_on_gpu(cuda_device):
+    """FalNet(a_maskr_quirk=True) on the card: K1 gives disp, pan and maskL
+    (one disp+pan+subocc launch) and the plain quirk sampler gives maskR;
+    all four equal the plain head with the quirk on the same logits."""
+    from fal_net_torch.models import create_model
+
+    model = create_model("tiny", 9, device=cuda_device, generator=torch.Generator().manual_seed(0),
+                         a_maskr_quirk=True).eval()
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 3, 32, 64), np.float32)).to(cuda_device)
+    with torch.no_grad():
+        logits = model.logits(x, 30.0).contiguous()
+        model.logits = lambda left, max_disp: logits  # one set of logits for both heads
+        before = MedForward.mode_launches.get("disp+pan+subocc", 0)
+        got = model(x, 2.0, 30.0, **ALL)
+        torch.cuda.synchronize()
+        want = med_outputs(logits, x, 2.0, 30.0, maskr_quirk=True, **ALL)
+    assert MedForward.mode_launches.get("disp+pan+subocc", 0) == before + 1
+    for name, (rtol, atol) in TOL.items():
+        torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=rtol, atol=atol)
