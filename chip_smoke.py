@@ -10,9 +10,10 @@ Phases, each reported on its own line; any failure exits nonzero:
   3. K1 vs plain: the MED forward kernel against the plain PyTorch head
      on shared seeded inputs, every mode, at the TPU kernel tests' shapes, with
      per-sample bound tensors, at the training shape (8, 49, 192, 640) and at
-     the serving shape (8, 49, 384, 1280), and at W = 11,572 (K2's widest
-     with pan cotangents: the pan modes read the image row from device
-     memory, K1's direct path), with those tests' tolerances.
+     the serving shape (8, 49, 384, 1280), and at W = 11,572, 32,768 and
+     65,536 (the direct path: slot rows hold a 1,280-column chunk's window
+     and the shift margin, the image row is read from device memory), with
+     those tests' tolerances.
      Both MED kernels stage plane rows in shared memory
      (csrc/med_stage.cuh) by one of three paths, printed beside each shape:
      the whole row (N = 49, W = 640), a ring that streams the planes once a
@@ -21,13 +22,15 @@ Phases, each reported on its own line; any failure exits nonzero:
   3b. K2 vs plain: the MED backward kernel against the plain VJP at the TPU
      gradient tests' shapes (N = 7, 33, 49 at 8x128), with per-sample bound
      tensors, at W = 187 (cp.async), (2, 49, 16, 1280) and W = 1500 (ring),
-     W = 5000 (pan cotangents on the direct path: the image and g_pan rows
-     read from device memory), disp-only and pan-only cotangents, with and
-     without the image gradient, through autograd after a subocc forward (the
-     masks carry no gradient), and at the training shape (8, 49, 192, 640;
-     whole row); rtol 1e-4, atol 1e-5 as the TPU gradient tests; then the
-     widest W each kernel takes at N = 49 in each mode, and with the image
-     rows staged;
+     W = 5000, 32,768 and 65,536 (the direct path: chunk windows, the image
+     and g_pan rows read from device memory), disp-only and pan-only
+     cotangents, with and without the image gradient, through autograd after
+     a subocc forward (the masks carry no gradient), and at the training
+     shape (8, 49, 192, 640; whole row); rtol 1e-4, atol 1e-5 as the TPU
+     gradient tests; then the widest W each kernel takes at N = 49 in each
+     mode ("not bounded by W" since the direct path; it fails otherwise) and
+     on a staged path, and the largest disparity whose shift margin the
+     direct path takes;
   4. the serving slice: FAL_netB N=49 with seeded random weights is saved to
      a .pt, 19 synthetic 384x1280 PNGs go through ``fal_net_torch.cli.infer``
      at batch 8, and again with ``--ms_post_process`` (two K1 launches a
@@ -40,8 +43,11 @@ Phases, each reported on its own line; any failure exits nonzero:
      autograd of the plain head at the training shape (8, 49, 192, 640); the
      stage-1 training step at batch 8, 192x640, the stage-1-slow step and
      the stage-2 step (teacher forward, student forward and backward, Adam)
-     at batch 4, a double batch of 8; peak device memory of each step; each
-     MED kernel's bytes moved (from its staging plan) beside its bound;
+     at batch 4, a double batch of 8, each with a_p 0 and with the
+     perceptual term (a_p 0.01, seeded random VGG19); peak device memory of
+     each step; validation's forward at batch 4, 375x1242, and K1
+     disp+pan+subocc alone there; each MED kernel's bytes moved (from its
+     staging plan) beside its bound;
   6. only with ``--profile DIR``: ``torch.profiler`` over the disp-only
      forward at batch 8 and 1 and over the stage-1 training step (device
      window, busy share, kernel time by kind; the per-kernel tables go to
@@ -52,7 +58,9 @@ Phases, each reported on its own line; any failure exits nonzero:
      K1 and K2 launch once per step (and once each in the setup gate), every
      loss is finite, the checkpoint serves two frames through cli.infer; then
      one step with per-sample bound tensors (fix_order=False), and K2 against
-     the plain VJP on the model's own logits;
+     the plain VJP on the model's own logits; one batch's 16 PNGs decoded by
+     the native decoder (where it built) and by PIL, beside the run's Data
+     meter;
   7d. ``cli.train --stage 2`` on the same tree, FAL_netB N=49, 192x640, batch
      4 (double batch 8), a_p 0, 4 steps, with phase 7a's checkpoint as the
      frozen teacher (``--fix_model``): the reference's stage-1 -> stage-2
@@ -63,6 +71,19 @@ Phases, each reported on its own line; any failure exits nonzero:
      logits after a subocc forward, with the stage-2 loss's cotangents;
   7e. ``cli.train --stage 1 --slow``, the same, 4 steps: one K1 and one K2
      launch a step on the double batch (and one each in the gate);
+  7f. the reference's default run: a synthetic KITTI 2015 tree (8 frames at
+     375x1242, 2 at 370x1224, sparse uint16 disparity and 16-bit RGB flow
+     PNGs) read back by ``kitti2015(of=True)`` exactly; ``cli.train --stage
+     1 --a_p 0.01 --vgg_weights`` (seeded random VGG19 saved with
+     torchvision's keys) ``--val_root --tbatch_size 4 --profile_steps 2``
+     for 2 epochs of 2 steps, ``--resume`` for a third epoch (step, Adam's
+     moments and the learning rate as saved, start_epoch 2, the metrics log
+     growing), and ``--stage 2 --fix_model <model_best> --a_p 0.01``; K1's
+     launches counted by (mode, shape): the validation gate once per frame
+     shape and trainer, then one launch per validation batch; model_best is
+     the epoch of lowest RMSE; validation on K1 equals validation on the
+     plain head (phase 10's tolerances); K2 against the plain VJP with the
+     perceptual term's cotangents; the decoder that served is printed;
   8. convergence (scripts/verify_train_tpu.py on the card): the tiny model,
      N=9 over 2..18 px, 64x128, batch 4, Adam 5e-4 (beta1 0.5), 400 stage-1
      steps through K1 and K2 on smooth stereo shifted by 6 px; the median
@@ -94,8 +115,9 @@ Phases, each reported on its own line; any failure exits nonzero:
      operands at rtol 1e-5, atol 1e-4 and against the fp32 plain versions
      within 2^-9 (|x| conv |w|) + 1e-4, in each of the JAX scripts' cases,
      timed beside cuDNN with TF32 off and on; K5 (``probe_roll_bug``) exact
-     over the probe's sweep and wrapping shifts; each launch count must
-     equal the calls the scripts made.
+     over the probe's sweep and wrapping shifts, timed beside ``torch.roll``
+     of the zero-padded row; each launch count must equal the calls the
+     scripts made.
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -147,7 +169,9 @@ SHAPES = [
     (1, 49, 4, 1500, 3, 2.0, 300.0),  # two column chunks
     (8, 49, 192, 640, 3, 2.0, 300.0),  # training shape (stage 2's double batch: subocc)
     (8, 49, 384, 1280, 3, 2.0, 300.0),  # serving shape
-    (1, 49, 4, 11572, 3, 2.0, 300.0),  # K2's widest pan width: K1's pan modes on the direct path
+    (1, 49, 4, 11572, 3, 2.0, 300.0),  # past K1's staged plans with pan: the direct path
+    (1, 49, 2, 32768, 3, 2.0, 300.0),  # past every staged plan: the direct path's chunk windows
+    (1, 49, 2, 65536, 3, 2.0, 300.0),
 ]
 SERVE_H, SERVE_W, N_IMAGES, BATCH = 384, 1280, 19, 8
 GRAD_TOL = (1e-4, 1e-5)  # (rtol, atol) of tests/test_med_pallas.py's gradient tests
@@ -163,6 +187,8 @@ GRAD_SHAPES = [
     (2, 49, 16, 1280, 3, 2.0, 300.0),  # ring path, number bounds
     (1, 49, 4, 1500, 3, 2.0, 300.0),  # ring path, two column chunks
     (1, 49, 4, 5000, 3, 2.0, 300.0),  # pan rows too wide to stage: the direct path
+    (1, 49, 2, 32768, 3, 2.0, 300.0),  # past every staged plan: the direct path's chunk windows
+    (1, 49, 2, 65536, 3, 2.0, 300.0),
     (8, 49, 192, 640, 3, 2.0, 300.0),  # training shape: whole-row path
 ]
 # cotangents given to K2: (g_disp, g_pan, image_grad)
@@ -173,6 +199,10 @@ GRAD_MODES = {
     "pan+g_img": (False, True, True),
 }
 TRAIN_H, TRAIN_W, TRAIN_STEPS, KITTI_H, KITTI_W, KITTI_PAIRS, KITTI_DISP = 192, 640, 4, 375, 1242, 32, 20
+A_P = 0.01  # the reference's perceptual weight (Train_Stage1_K.py:43)
+# phase 7f's KITTI 2015 validation tree: frames per shape
+VAL_SHAPES = {(375, 1242): 8, (370, 1224): 2}
+VAL_BATCH = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores, NVIDIA data sheet
 TF32_FLOPS = 494.7e12  # H100 SXM TF32 tensor cores, dense, NVIDIA data sheet
@@ -223,9 +253,13 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def widest(kernel: str, n: int = 49, c: int = 3, staged: bool = False, **flags) -> int:
+WIDEST_TRIED = 1 << 20  # a plan at this width means "not bounded by W"
+
+
+def widest(kernel: str, n: int = 49, c: int = 3, staged: bool = False, **flags):
     """The largest W the MED kernel takes at N = ``n`` with these outputs or
-    cotangents (with ``staged``: on a path that stages the image rows)."""
+    cotangents (with ``staged``: on a staged path, not the direct one), or
+    None if it takes WIDEST_TRIED."""
     def takes(w):
         try:
             plan = stage_plan(kernel, n, c, w, **flags)
@@ -233,10 +267,26 @@ def widest(kernel: str, n: int = 49, c: int = 3, staged: bool = False, **flags) 
             return False
         return not (staged and plan["direct"])
 
-    lo, hi = 1, 1 << 17  # takes(lo), not takes(hi)
+    if takes(WIDEST_TRIED):
+        return None
+    lo, hi = 1, WIDEST_TRIED  # takes(lo), not takes(hi)
     while hi - lo > 1:
         mid = (lo + hi) // 2
         lo, hi = (mid, hi) if takes(mid) else (lo, mid)
+    return lo
+
+
+def widest_disp(kernel: str, w: int = 65536, **flags) -> int:
+    """The largest whole disparity magnitude whose shift margin the
+    kernel's direct path takes at width ``w``."""
+    lo, hi = 0, 100_000  # takes lo, not hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        try:
+            stage_plan(kernel, 49, 3, w, max_disp=float(mid), **flags)
+            lo = mid
+        except ValueError:
+            hi = mid
     return lo
 
 
@@ -353,10 +403,16 @@ def phase_bwd_vs_plain(rng, dev) -> float:
           for mode, (d, p, i) in GRAD_MODES.items()}
     k1 = {mode: tuple(widest("med_fwd", staged=st, disp=True, pan="pan" in mode, subocc="subocc" in mode)
                       for st in (False, True)) for mode in MODES}
-    line("phase 3b widths at N = 49, C = 3: K2 " + ", ".join(f"{m} {a} (staged rows to {b})" for m, (a, b) in k2.items())
-         + "; K1 " + ", ".join(f"{m} {a} (staged image row to {b})" for m, (a, b) in k1.items()))
-    if min(a for a, _ in k1.values()) < k2["disp+pan"][0]:
-        raise AssertionError(f"K1 refuses a width K2 takes: K1 {k1}, K2 {k2}")
+    say = lambda a: "not bounded by W" if a is None else f"to {a}"
+    line("phase 3b widths at N = 49, C = 3, |disparity| <= 300: K2 "
+         + ", ".join(f"{m} {say(a)} (staged to {b})" for m, (a, b) in k2.items())
+         + "; K1 " + ", ".join(f"{m} {say(a)} (staged to {b})" for m, (a, b) in k1.items()))
+    bounded = {m: a for m, (a, _) in {**k1, **k2}.items() if a is not None}
+    if bounded:
+        raise AssertionError(f"a MED kernel refuses widths (only a margin may be refused): {bounded}")
+    line(f"phase 3b direct path's margin limit at W = 65536: K1 disp+pan+subocc takes |disparity| to "
+         f"{widest_disp('med_fwd', pan=True, subocc=True)} px, K2 disp+pan+g_img to "
+         f"{widest_disp('med_bwd', pan=True, image_grad=True)} px")
     return worst
 
 
@@ -512,10 +568,12 @@ def phase_train(rng, dev, workdir: str):
     ckpt = os.path.join(result["save_path"], "checkpoint.pt")
     if not os.path.isfile(ckpt):
         raise AssertionError(f"no checkpoint at {ckpt}")
+    data_s = trainer.data_time.avg
     del trainer
     line(f"phase 7a cli.train FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B=8: {TRAIN_STEPS} steps in {train_s:.2f} s "
          f"(setup, gate and data included; tree written in {tree_s:.2f} s), epoch loss "
          f"{epoch['loss']:.6f} rec {epoch['rec_loss']:.6f}; K1 {k1}, K2 {k2} launches")
+    decode_times(root, data_s)
 
     frames, out_dir = os.path.join(workdir, "frames"), os.path.join(workdir, "frames_out")
     os.makedirs(frames)
@@ -570,11 +628,50 @@ def phase_train(rng, dev, workdir: str):
     return {"k1": k1 + infer_k1 + k1_t, "k2": k2 + k2_t, "worst": worst, "root": root, "ckpt": ckpt}
 
 
-def run_cli_train(flags, root: str, workdir: str):
-    """cli.train for TRAIN_STEPS steps of FAL_netB N=49 at 192x640 with the
-    stage's default batch; returns (result, trainer, teacher state after
-    setup, K1 launches, K2 launches, seconds).  The trainer is recorded from
-    its setup, so that the run's own teacher can be checked afterwards."""
+def decode_times(root: str, data_s: float) -> None:
+    """Phase 7a's decode record: the 16 375x1242 PNGs of one training batch
+    decoded by native.io.decode_batch (its thread pool, all cores), by
+    native.io.imread and by PIL in the loader's 4 threads (median of 5,
+    file bytes already read for the batch call); beside the trainer's Data
+    meter, the wait for a batch per step in the cli.train run.  No gain is
+    claimed: a record."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from fal_net_torch.native import io as native_io
+
+    stem = os.path.join(root, "2011_09_26/2011_09_26_drive_0001_sync")
+    paths = [os.path.join(stem, cam, "data", f"{i:010d}.png") for i in range(BATCH) for cam in ("image_02", "image_03")]
+    pil = lambda p: np.asarray(Image.open(p))
+    with ThreadPoolExecutor(4) as pool:
+        def timed(fn, *args):
+            ts = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn(*args)
+                ts.append(time.perf_counter() - t0)
+            return float(np.median(ts))
+
+        pil_s = timed(lambda: list(pool.map(pil, paths)))
+        if native_io.available():
+            bufs = [open(p, "rb").read() for p in paths]
+            batch_s = timed(native_io.decode_batch, bufs)
+            threads_s = timed(lambda: list(pool.map(native_io.imread, paths)))
+            native = f"native decode_batch {batch_s:.4f} s, native imread in 4 threads {threads_s:.4f} s, "
+        else:
+            native = "native decoder unavailable (not built: no libpng/libjpeg headers), "
+    line(f"phase 7a decode of one batch's 16 {KITTI_H}x{KITTI_W} PNGs: {native}PIL in 4 threads {pil_s:.4f} s; "
+         f"decoder serving the loader: {native_io.decoder()}; cli.train Data meter {data_s:.4f} s a step "
+         f"(the wait for a batch, host clock)")
+
+
+def recorded_train(argv):
+    """fal_net_torch.cli.train.main(argv) with its Trainer recorded right
+    after setup, with what setup restored or loaded: the teacher's state
+    and the training state (step, Adam's state, learning rates, start
+    epoch).  Returns (result, trainer, that record, seconds); every loss
+    and validation metric of the run must be finite."""
     from fal_net_torch.cli import train
     from fal_net_torch.train.trainer import Trainer
 
@@ -583,27 +680,272 @@ def run_cli_train(flags, root: str, workdir: str):
 
     def recording_setup(self):
         setup(self)
-        teacher = None if self.teacher is None else {k: v.clone() for k, v in self.teacher.state_dict().items()}
-        made.append((self, teacher))
+        made.append((self, {
+            "teacher": None if self.teacher is None else {k: v.clone() for k, v in self.teacher.state_dict().items()},
+            "step": self.step, "start_epoch": self.cfg.start_epoch, "lr": self.scheduler.get_last_lr(),
+            "adam": {i: {k: v.detach().cpu().clone() if torch.is_tensor(v) else v for k, v in st.items()}
+                     for i, st in self.optimizer.state_dict()["state"].items()},
+        }))
 
     Trainer.setup = recording_setup
-    MedForward.launches = MedForward.bwd_launches = 0
     t0 = time.perf_counter()
     try:
-        result = train.main([
-            *flags, "--model", "B", "--no_levels", "49", "--a_p", "0", "--epochs", "1",
-            "--epoch_size", str(TRAIN_STEPS), "--print_freq", "1", "--data_root", root, "--lists_dir", root,
-            "--save_path", os.path.join(workdir, "runs"),
-        ])
+        result = train.main(argv)
         torch.cuda.synchronize()
     finally:
         Trainer.setup = setup
     secs = time.perf_counter() - t0
-    ((trainer, teacher),) = made
-    (epoch,) = result["history"]
-    if not all(np.isfinite(v) for v in epoch.values()):
-        raise AssertionError(f"non-finite training loss: {epoch}")
-    return result, trainer, teacher, MedForward.launches, MedForward.bwd_launches, secs
+    ((trainer, record),) = made
+    for h in result["history"]:
+        if not all(np.isfinite(v) for v in h.values()):
+            raise AssertionError(f"non-finite loss or validation metric: {h}")
+    return result, trainer, record, secs
+
+
+def run_cli_train(flags, root: str, workdir: str):
+    """cli.train for TRAIN_STEPS steps of FAL_netB N=49 at 192x640 with the
+    stage's default batch, a_p 0; returns (result, trainer, teacher state
+    after setup, K1 launches, K2 launches, seconds)."""
+    MedForward.launches = MedForward.bwd_launches = 0
+    result, trainer, record, secs = recorded_train([
+        *flags, "--model", "B", "--no_levels", "49", "--a_p", "0", "--epochs", "1",
+        "--epoch_size", str(TRAIN_STEPS), "--print_freq", "1", "--data_root", root, "--lists_dir", root,
+        "--save_path", os.path.join(workdir, "runs"),
+    ])
+    (_,) = result["history"]
+    return result, trainer, record["teacher"], MedForward.launches, MedForward.bwd_launches, secs
+
+
+def write_kitti2015_tree(rng, root: str) -> dict:
+    """KITTI 2015's training layout at its native sizes (VAL_SHAPES): _10 and
+    _11 stereo pairs (right = left shifted by KITTI_DISP px), sparse uint16
+    disp_occ_0 ground truth (KITTI_DISP px at about 30% of the pixels) and
+    16-bit RGB flow_occ PNGs written by native.io.imwrite_png16; returns
+    the flow arrays written, by frame."""
+    from PIL import Image
+
+    from fal_net_torch.native import io as native_io
+
+    for sub in ("image_2", "image_3", "disp_occ_0", "flow_occ"):
+        os.makedirs(os.path.join(root, "training", sub), exist_ok=True)
+    flows, i = {}, 0
+    for (h, w), n in VAL_SHAPES.items():
+        for _ in range(n):
+            for fr in ("10", "11"):
+                wide = smooth_frame(rng, h, w + KITTI_DISP)
+                for cam, img in (("image_2", wide[:, :w]), ("image_3", wide[:, KITTI_DISP:])):
+                    Image.fromarray(np.ascontiguousarray(img)).save(
+                        os.path.join(root, "training", cam, f"{i:06d}_{fr}.png"))
+            gt = np.where(rng.random((h, w)) < 0.3, KITTI_DISP * 256, 0).astype(np.uint16)
+            Image.fromarray(gt).save(os.path.join(root, "training", "disp_occ_0", f"{i:06d}_10.png"))
+            flow = rng.integers(0, 65536, (h, w, 3)).astype(np.uint16)
+            flow[..., 2] = rng.random((h, w)) < 0.5
+            native_io.imwrite_png16(os.path.join(root, "training", "flow_occ", f"{i:06d}_10.png"), flow)
+            flows[i] = flow
+            i += 1
+    return flows
+
+
+def k1_by_shape():
+    """Record each K1 launch's (mode, logits shape) while the returned list
+    is open: a context manager over ops.med_kernel._launch."""
+    import contextlib
+
+    from fal_net_torch.ops import med_kernel
+
+    @contextlib.contextmanager
+    def recording():
+        shapes, launch = [], med_kernel._launch
+
+        def rec(logits, image, tables, tab_stride, want_disp, want_pan, want_subocc, margin):
+            mode = "+".join(n for n, w in (("disp", want_disp), ("pan", want_pan), ("subocc", want_subocc)) if w)
+            shapes.append((mode, tuple(logits.shape)))
+            return launch(logits, image, tables, tab_stride, want_disp, want_pan, want_subocc, margin)
+
+        med_kernel._launch = rec
+        try:
+            yield shapes
+        finally:
+            med_kernel._launch = launch
+
+    return recording()
+
+
+def phase_default_run(rng, dev, kitti_root: str, workdir: str, card: str, seed: int) -> dict:
+    """Phase 7f: the reference's default training run through cli.train
+    (see the module docstring)."""
+    from collections import Counter
+
+    from fal_net_torch.data.datasets import kitti2015
+    from fal_net_torch.data.loader import to_device
+    from fal_net_torch.losses.vgg import init_vgg19
+    from fal_net_torch.native import io as native_io
+    from fal_net_torch.train.checkpoint import BEST_NAME
+    from fal_net_torch.train.stages import stage1_loss
+
+    val_root = os.path.join(workdir, "kitti2015")
+    t0 = time.perf_counter()
+    flows = write_kitti2015_tree(rng, val_root)
+    tree_s = time.perf_counter() - t0
+    _, flow_ds = kitti2015(val_root, split=0, disp=False, of=True)
+    for i, raw in flows.items():
+        valid = raw[..., 2] > 0
+        want = np.stack([np.where(valid, (raw[..., 0] - 2.0**15) / 64, 0), np.where(valid, (raw[..., 1] - 2.0**15) / 64, 0),
+                         valid], axis=-1).astype(np.float32)
+        if not np.array_equal(flow_ds.get(i)["targets"][0], want):
+            raise AssertionError(f"kitti2015(of=True): frame {i}'s flow differs from the PNG written")
+    n_val = sum(VAL_SHAPES.values())
+    line(f"phase 7f KITTI 2015 tree: {', '.join(f'{n} frames at {h}x{w}' for (h, w), n in VAL_SHAPES.items())} "
+         f"written in {tree_s:.2f} s; kitti2015(of=True) reads the {n_val} 16-bit RGB flow PNGs back exactly; "
+         f"decoder: {native_io.decoder()}")
+
+    weights = os.path.join(workdir, "vgg19.pth")
+    torch.save(init_vgg19(full=True, seed=seed).state_dict(), weights)  # torchvision's features.{i} keys
+    common = ["--model", "B", "--no_levels", "49", "--a_p", str(A_P), "--vgg_weights", weights, "--val_root", val_root,
+              "--tbatch_size", str(VAL_BATCH), "--epoch_size", "2", "--print_freq", "1", "--data_root", kitti_root,
+              "--lists_dir", kitti_root, "--save_path", os.path.join(workdir, "runs_7f")]
+    # K1 per validation pass: the batches of each shape, and the gate once per shape and trainer
+    val_batches = Counter({("disp+pan+subocc", (VAL_BATCH, 49, h, w)): -(-n // VAL_BATCH)
+                           for (h, w), n in VAL_SHAPES.items()})
+    val_gate = Counter({("disp+pan+subocc", (1, 49, h, w)): 1 for h, w in VAL_SHAPES})
+    train_shape = (49, TRAIN_H, TRAIN_W)
+
+    def run(argv, want_k1, want_k2, label):
+        MedForward.launches = MedForward.bwd_launches = 0
+        with k1_by_shape() as shapes:
+            result, trainer, record, secs = recorded_train(argv)
+        got = Counter(shapes)
+        if got != want_k1 or MedForward.bwd_launches != want_k2 or MedForward.launches != len(shapes):
+            raise AssertionError(f"{label}: K1 launches {dict(got)} (want {dict(want_k1)}), K2 "
+                                 f"{MedForward.bwd_launches} (want {want_k2})")
+        return result, trainer, record, secs, got
+
+    def epochs_line(result):
+        return "; ".join(f"epoch {h['epoch']} loss {h['loss']:.6f} val rmse {h['rmse']:.4f} epe {h['epe']:.4f} "
+                         f"abs_rel {h['abs_rel']:.4f}" for h in result["history"])
+
+    def gate_err(trainer):
+        return max(trainer.val_checked.values())
+
+    # 1: stage 1, 2 epochs of 2 steps, validation each epoch, the profiler on steps 1-2
+    steps = 2 * 2
+    want = Counter({("disp+pan", (1, *train_shape)): 1, ("disp+pan", (BATCH, *train_shape)): steps})
+    want += val_gate + Counter({k: 2 * v for k, v in val_batches.items()})
+    first, trainer, _, secs, got = run(["--stage", "1", "--epochs", "2", "--profile_steps", "2", *common], want,
+                                       1 + steps, "7f stage 1")
+    run_dir = first["save_path"]
+    best = torch.load(os.path.join(run_dir, BEST_NAME), weights_only=True)
+    rmses = [h["rmse"] for h in first["history"]]
+    if (best["best_metric"], best["best_value"], best["epoch"]) != ("rmse", min(rmses), int(np.argmin(rmses))):
+        raise AssertionError(f"model_best: {best['best_metric']} {best['best_value']} epoch {best['epoch']}, "
+                             f"epoch RMSEs {rmses}")
+    traces = os.listdir(os.path.join(run_dir, "profile"))
+    log_path = os.path.join(run_dir, "metrics.jsonl")
+    log_lines = sum(1 for _ in open(log_path))
+    worst = gate_err(trainer)
+    line(f"phase 7f cli.train --stage 1 --a_p {A_P} --vgg_weights <random VGG19, torchvision keys> --val_root "
+         f"--tbatch_size {VAL_BATCH} --profile_steps 2, FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B={BATCH}, 2 epochs x 2 "
+         f"steps in {secs:.2f} s: {epochs_line(first)}; model_best epoch {best['epoch']} (rmse "
+         f"{best['best_value']:.4f}); trace {traces}; metrics.jsonl {log_lines} lines; validation gate "
+         f"{ {k[1:]: f'{v:.3e}' for k, v in trainer.val_checked.items()} }")
+    line(f"phase 7f K1 launches by (mode, shape): {dict(got)}; K2 {1 + steps}")
+    k1_total, k2_total = sum(got.values()), 1 + steps
+    kernel_trainer = trainer
+
+    # 2: --resume for a third epoch
+    ckpt = first["checkpoint"]
+    saved = torch.load(ckpt, weights_only=True)
+    want = Counter({("disp+pan", (1, *train_shape)): 1, ("disp+pan", (BATCH, *train_shape)): 2}) + val_gate + val_batches
+    second, trainer, record, secs, got = run(["--stage", "1", "--epochs", "3", "--resume", ckpt, *common], want, 3,
+                                             "7f --resume")
+    adam_equal = all(torch.equal(record["adam"][i][k], v[k]) for i, v in saved["optimizer"]["state"].items()
+                     for k in ("exp_avg", "exp_avg_sq", "step"))
+    if not (record["step"] == saved["step"] and record["start_epoch"] == 2 and adam_equal
+            and record["lr"] == saved["scheduler"]["_last_lr"] and second["save_path"] == run_dir):
+        raise AssertionError(f"--resume restored step {record['step']} (saved {saved['step']}), start_epoch "
+                             f"{record['start_epoch']}, Adam equal {adam_equal}, lr {record['lr']} (saved "
+                             f"{saved['scheduler']['_last_lr']}), run dir {second['save_path']}")
+    grown = sum(1 for _ in open(log_path))
+    if grown <= log_lines:
+        raise AssertionError(f"metrics.jsonl did not grow across the resume: {log_lines} -> {grown} lines")
+    line(f"phase 7f cli.train --resume <epoch 1's checkpoint> --epochs 3 in {secs:.2f} s: step {record['step']}, "
+         f"start_epoch {record['start_epoch']}, Adam exp_avg/exp_avg_sq/step and lr {record['lr']} equal the saved "
+         f"ones; {epochs_line(second)}; best {second['best_metric']} {second['best_value']:.4f}; metrics.jsonl "
+         f"{log_lines} -> {grown} lines")
+    k1_total, k2_total = k1_total + sum(got.values()), k2_total + 3
+    worst = max(worst, gate_err(trainer))
+
+    # 3: stage 2 from model_best, 2 steps of the double batch with validation
+    best_path = os.path.join(run_dir, BEST_NAME)
+    want = Counter({("disp+pan+subocc", (1, *train_shape)): 1, ("disp", (1, *train_shape)): 1,
+                    ("disp+pan+subocc", (BATCH, *train_shape)): 2, ("disp", (BATCH, *train_shape)): 2})
+    want += val_gate + val_batches
+    third, trainer, _, secs, got = run(["--stage", "2", "--epochs", "1", "--fix_model", best_path, *common], want, 3,
+                                       "7f stage 2")
+    line(f"phase 7f cli.train --stage 2 --fix_model <model_best> --a_p {A_P} --val_root, B=4 (double batch 8), "
+         f"2 steps in {secs:.2f} s: {epochs_line(third)}; K1 launches {dict(got)}; K2 3")
+    k1_total, k2_total = k1_total + sum(got.values()), k2_total + 3
+    worst = max(worst, gate_err(trainer))
+    del trainer
+
+    # validation on the kernel path against the plain head, same weights and convolutions
+    tr = kernel_trainer
+    _, val_ds = kitti2015(val_root, split=0, disp=True, load_t1=False)
+
+    def validate_with(impl):
+        disps, fwd = [], tr.model.forward
+
+        def capture(*a, **kw):
+            out = fwd(*a, **kw)
+            disps.append(out.disp.cpu())
+            return out
+
+        tr.model.med_impl, tr.model.forward = impl, capture
+        try:
+            metrics = tr.validate(val_ds, epoch=1, log_images=0)
+        finally:
+            del tr.model.forward
+            tr.model.med_impl = "auto"
+        return metrics, np.concatenate([d.numpy().ravel() for d in disps])  # batches of both frame shapes
+
+    kern_m, kern_d = validate_with("auto")
+    MedForward.launches = 0
+    ref_m, ref_d = validate_with("reference")
+    if MedForward.launches:
+        raise AssertionError(f"the plain-head validation launched K1 {MedForward.launches} times")
+    rtol, atol = EVAL_DISP_TOL
+    disp_err = float(np.abs(kern_d - ref_d).max())
+    metric_err = {k: abs(kern_m[k] - ref_m[k]) for k in kern_m}
+    if not np.allclose(kern_d, ref_d, rtol=rtol, atol=atol) or max(metric_err.values()) > EVAL_METRIC_TOL:
+        raise AssertionError(f"validation, kernel path vs plain head: max |d disp| {disp_err:.3e}, metrics {metric_err}")
+    line(f"phase 7f validation ({n_val} frames, B={VAL_BATCH}) on K1 vs on the plain head: max |d disp| "
+         f"{disp_err:.3e} px (tolerance {atol} px + {rtol} relative), max |d metric| {max(metric_err.values()):.3e} "
+         f"(tolerance {EVAL_METRIC_TOL}); rmse {kern_m['rmse']:.4f} vs {ref_m['rmse']:.4f} [{card}]")
+
+    # K2 against the plain VJP on the model's logits, the stage-1 perceptual loss's cotangents
+    ds = tr.train_loader.dataset
+    items = [ds.get(i, np.random.default_rng((13, i))) for i in range(BATCH)]
+    batch = to_device({k: np.stack([it[k] for it in items]) for k in ("left", "right")}, dev)
+    with torch.no_grad():
+        logits = tr.model.logits(batch["left"], 300.0)
+    lg = logits.clone().requires_grad_()
+    heads = []
+
+    def head(x, a, z, **kw):  # the model's MED head on the shared logits
+        heads.append(med_outputs_fused(lg, x.contiguous(), a, z, **kw))
+        return heads[-1]
+
+    loss, aux = stage1_loss(head, batch, min_disp=2.0, max_disp=300.0, a_p=A_P, a_sm=tr.cfg.a_sm, vgg_fn=tr.vgg)
+    (out,) = heads
+    loss = loss * out.pan.numel()  # sum form: O(1) cotangents, so that atol 1e-5 means something
+    g_disp, g_pan = torch.autograd.grad(loss, (out.disp, out.pan), retain_graph=True)
+    (g_k2,) = torch.autograd.grad(loss, lg)
+    torch.cuda.synchronize()
+    g_plain, _ = med_vjp(logits, batch["left"], 2.0, 300.0, g_disp, g_pan, image_grad=False)
+    k2_err = compare_grads((g_k2, None), (g_plain, None), "stage-1 loss with the perceptual term, model logits B=8")
+    line(f"phase 7f K2 vs plain VJP with the perceptual term's cotangents (rec {aux['rec_loss'].item():.6f}): "
+         f"worst abs err {k2_err:.3e}")
+    return {"k1": k1_total, "k2": k2_total, "worst": worst, "k2_worst": k2_err}
 
 
 def phase_later_stages(dev, root: str, ckpt: str, workdir: str):
@@ -772,16 +1114,17 @@ def train_setup(dev, seed: int, batch_size: int = BATCH):
     return model, opt, sched, batch
 
 
-def train_step_fn(model, opt, sched, batch, loss_fn=None, **extra):
+def train_step_fn(model, opt, sched, batch, loss_fn=None, a_p=0.0, **extra):
     """One training step: ``loss_fn`` (stage1_loss unless given) with the
-    reference's bounds and weights, a_p = 0, backward, Adam."""
+    reference's bounds and weights (a_p as given: with a_p > 0 ``extra``
+    holds the frozen VGG as vgg_fn), backward, Adam."""
     from fal_net_torch.train.stages import stage1_loss
 
     loss_fn = loss_fn or stage1_loss
 
     def step():
         opt.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(model, batch, min_disp=2.0, max_disp=300.0, a_p=0.0, a_sm=0.2 * 2 / 512, **extra)
+        loss, _ = loss_fn(model, batch, min_disp=2.0, max_disp=300.0, a_p=a_p, a_sm=0.2 * 2 / 512, **extra)
         loss.backward()
         opt.step()
         sched.step()
@@ -866,38 +1209,82 @@ def phase_times(model, lefts, card: str, dev, seed: int):
     line(f"phase 5 stage-1 step FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B={BATCH} (forward, backward, Adam): "
          f"{ms:.3f} ms, {1000 * BATCH / ms:.2f} imgs/s; peak device memory "
          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+    vgg = perceptual_net(dev, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms_p = median_ms(train_step_fn(tmodel, opt, sched, batch, a_p=A_P, vgg_fn=vgg), reps=20, warmup=5)
+    times["step_a_p"] = ms_p
+    line(f"phase 5 stage-1 step with the perceptual term (a_p {A_P}, random VGG19 to pool3) FAL_netB N=49 "
+         f"{TRAIN_H}x{TRAIN_W} B={BATCH}: {ms_p:.3f} ms ({ms_p - ms:+.3f} ms against a_p 0), "
+         f"{1000 * BATCH / ms_p:.2f} imgs/s; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+         f"[{card}]")
     del tmodel, opt, sched, batch
-    times.update(later_stage_times(dev, seed, card))
+    times.update(later_stage_times(dev, seed, card, vgg))
+    times.update(validation_times(dev, seed, card))
     return times
 
 
-def later_stage_times(dev, seed: int, card: str) -> dict:
+def perceptual_net(dev, seed: int):
+    """The frozen VGG19 features of the perceptual term, seeded random
+    weights (no pretrained ones are in the repository)."""
+    from fal_net_torch.losses.vgg import init_vgg19
+
+    return init_vgg19(seed=seed, device=dev)
+
+
+def validation_times(dev, seed: int, card: str) -> dict:
+    """Validation's forward at a batch of 4 KITTI 2015 frames (375x1242),
+    disp + pan + subocc (FAL_netB N=49, no grad), and K1 in that mode alone
+    on (4, 49, 375, 1242) logits beside the plain head: CUDA events,
+    medians."""
+    model = create_model("B", 49, generator=torch.Generator().manual_seed(seed), device=dev).eval()
+    rng = np.random.default_rng(seed)
+    left = torch.from_numpy(np.stack([normalize(smooth_frame(rng, KITTI_H, KITTI_W)) for _ in range(4)])
+                            .transpose(0, 3, 1, 2).copy()).to(dev)
+    sub = MODES["disp+pan+subocc"]
+    with torch.inference_mode():
+        fwd = median_ms(lambda: model(left, 2.0, 300.0, **sub), reps=10, warmup=2)
+        logits = model.logits(left, 300.0)
+        k1 = median_ms(lambda: med_outputs_fused(logits, left, 2.0, 300.0, **sub), reps=20, warmup=3)
+        plain = median_ms(lambda: med_outputs(logits, left, 2.0, 300.0, **sub), reps=3, warmup=1)
+        out = med_outputs_fused(logits, left, 2.0, 300.0, **sub)
+    need = nbytes(logits, left, *out)
+    line(f"phase 5 validation forward FAL_netB N=49 B=4 {KITTI_H}x{KITTI_W} disp+pan+subocc: {fwd:.3f} ms, "
+         f"{4000 / fwd:.2f} frames/s; K1 disp+pan+subocc alone at (4, 49, {KITTI_H}, {KITTI_W}) {k1:.4f} ms, plain "
+         f"{plain:.4f} ms, bound {need / HBM_BYTES_PER_S * 1e3:.4f} ms from {need / 1e6:.1f} MB "
+         f"[{describe_plan('med_fwd', 49, 3, KITTI_W, pan=True, subocc=True)}] [{card}]")
+    return {"val_forward": fwd, "val_k1": k1}
+
+
+def later_stage_times(dev, seed: int, card: str, vgg) -> dict:
     """Stage 1 slow's and stage 2's steps at their batch of 4 (double
-    batch 8), 192x640: CUDA events, median of 20 after 5 warm-up steps, and
-    each step's peak device memory.  The stage-2 step is the teacher's
-    disp-only forward under no_grad, the student's subocc forward, its
-    backward and Adam."""
+    batch 8), 192x640, with a_p 0 and with the perceptual term (a_p 0.01):
+    CUDA events, median of 20 after 5 warm-up steps, and each step's peak
+    device memory.  The stage-2 step is the teacher's disp-only forward
+    under no_grad, the student's subocc forward, its backward and Adam."""
     from fal_net_torch.train.stages import stage1_slow_loss, stage2_loss
 
     times = {}
     for stage in ("stage1_slow", "stage2"):
-        model, opt, sched, batch = train_setup(dev, seed, batch_size=4)
-        if stage == "stage2":
-            teacher = create_model("B", 49, generator=torch.Generator().manual_seed(seed + 1), device=dev)
-            step = train_step_fn(model, opt, sched, batch, stage2_loss, teacher=teacher.requires_grad_(False).eval(),
-                                 a_mr=1.0)
-            what = "teacher disp forward, student subocc forward, backward, Adam"
-        else:
-            step = train_step_fn(model, opt, sched, batch, stage1_slow_loss)
-            what = "forward, backward, Adam"
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ms = median_ms(step, reps=20, warmup=5)
-        times[stage] = ms
-        line(f"phase 5 {stage} step FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B=4, double batch 8 ({what}): {ms:.3f} ms, "
-             f"{1000 * 4 / ms:.2f} pairs/s; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
-             f"[{card}]")
-        del model, opt, sched, batch, step
+        for a_p in (0.0, A_P):
+            model, opt, sched, batch = train_setup(dev, seed, batch_size=4)
+            extra = dict(a_p=a_p, vgg_fn=vgg if a_p else None)
+            if stage == "stage2":
+                teacher = create_model("B", 49, generator=torch.Generator().manual_seed(seed + 1), device=dev)
+                step = train_step_fn(model, opt, sched, batch, stage2_loss,
+                                     teacher=teacher.requires_grad_(False).eval(), a_mr=1.0, **extra)
+                what = "teacher disp forward, student subocc forward, backward, Adam"
+            else:
+                step = train_step_fn(model, opt, sched, batch, stage1_slow_loss, **extra)
+                what = "forward, backward, Adam"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = median_ms(step, reps=20, warmup=5)
+            times[stage if not a_p else f"{stage}_a_p"] = ms
+            line(f"phase 5 {stage} step a_p {a_p} FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B=4, double batch 8 ({what}): "
+                 f"{ms:.3f} ms, {1000 * 4 / ms:.2f} pairs/s; peak device memory "
+                 f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+            del model, opt, sched, batch, step
     return times
 
 
@@ -1254,12 +1641,13 @@ def phase_scripts(card: str) -> list[dict]:
         })
     b_ms, b_by = bound(k5["bytes"], 0)
     line(f"phase 9 roll_window (8, 128) wp={probe_roll_bug.TIMED_WP}: kernel {k5['ms']:.4f} ms, plain "
-         f"{k5['plain_ms']:.4f} ms, bound {b_ms:.6f} ms by {b_by}; {launches['roll_window']} launches [{card}]")
+         f"{k5['plain_ms']:.4f} ms, torch.roll of the zero-padded row {k5['library_ms']:.4f} ms, bound "
+         f"{b_ms:.6f} ms by {b_by}; {launches['roll_window']} launches [{card}]")
     entries.append({
         "name": "roll_window", "route": "cuda", "source": "fal_net_torch/csrc/roll_probe.cu",
         "replaces": "scripts/probe_roll_bug.py:25", "launches": launches["roll_window"],
         "max_abs_err": k5["max_abs_err"], "ms": k5["ms"], "plain_ms": k5["plain_ms"],
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": k5["library_ms"],  # torch.roll of the padded row
     })
     line(f"phase 9 scripts: K3, K4 agree with their TF32 and fp32 plain versions in every case, K5 exact, "
          f"launches {launches} in {secs:.2f} s")
@@ -1286,6 +1674,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as workdir:
         train = phase_train(rng, dev, workdir)
         later = phase_later_stages(dev, train["root"], train["ckpt"], workdir)
+        default = phase_default_run(rng, dev, train["root"], workdir, card, args.seed)
     phase_converge_stage2(dev, *phase_converge(dev))
     with tempfile.TemporaryDirectory() as workdir:
         evaluation = phase_eval(rng, dev, args.seed, card, workdir)
@@ -1298,9 +1687,10 @@ def main() -> None:
             "route": "cuda",
             "source": "fal_net_torch/csrc/med_fwd.cu",
             "replaces": "fal_net_tpu/ops/med_pallas.py:116",
-            # serving (phase 4), training (phase 7a-c, 7d stage 2, 7e stage 1 slow) and evaluation (phase 10)
-            "launches": serve_launches + train["k1"] + later["k1"] + evaluation["k1"],
-            "max_abs_err": max(worst3, worst4, evaluation["worst"]),
+            # serving (phase 4), training (phase 7a-c, 7d stage 2, 7e stage 1 slow, 7f the default run with
+            # validation) and evaluation (phase 10)
+            "launches": serve_launches + train["k1"] + later["k1"] + default["k1"] + evaluation["k1"],
+            "max_abs_err": max(worst3, worst4, default["worst"], evaluation["worst"]),
             "ms": times["disp"][0],  # disp-only at (8, 49, 384, 1280)
             "plain_ms": times["disp"][1],
             "bound_ms": k1_bound,
@@ -1312,8 +1702,8 @@ def main() -> None:
             "route": "cuda",
             "source": "fal_net_torch/csrc/med_bwd.cu",
             "replaces": "fal_net_tpu/ops/med_pallas.py:253",
-            "launches": train["k2"] + later["k2"],  # training paths (phase 7a-c, 7d, 7e)
-            "max_abs_err": max(worst3b, train["worst"], later["worst"]),
+            "launches": train["k2"] + later["k2"] + default["k2"],  # training paths (phase 7a-c, 7d, 7e, 7f)
+            "max_abs_err": max(worst3b, train["worst"], later["worst"], default["k2_worst"]),
             "ms": times["k2"][0],  # disp+pan cotangents, no g_img, at (8, 49, 192, 640)
             "plain_ms": times["k2"][1],
             "bound_ms": k2_bound,

@@ -59,11 +59,18 @@ def restore_disparity(disp_hw: np.ndarray, orig_hw: Tuple[int, int]) -> np.ndarr
 
 def save_disp16(path: str, disp_hw: np.ndarray) -> None:
     """uint16 PNG, value*256 (the KITTI disparity file convention); the
-    format's ceiling is 65535/256 = 255.996 px, and values above clip."""
+    format's ceiling is 65535/256 = 255.996 px, and values above clip.
+    Written by the native encoder where it builds, else by PIL: the same
+    uint16 values either way (the compressed rows may be filtered apart)."""
+    from fal_net_torch.native import io as native_io
+
+    u16 = np.clip(np.asarray(disp_hw, np.float64) * 256.0, 0, 65535).astype(np.uint16)
+    if native_io.available():
+        native_io.imwrite_png16(path, u16)
+        return
     from PIL import Image
 
-    arr = np.clip(np.asarray(disp_hw, np.float64) * 256.0, 0, 65535)
-    Image.fromarray(arr.astype(np.uint16)).save(path)
+    Image.fromarray(u16).save(path)
 
 
 def build_parser() -> argparse.ArgumentParser:

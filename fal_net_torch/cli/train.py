@@ -1,13 +1,16 @@
 """Training CLI, the three stages (counterpart of fal_net_tpu/cli/train.py).
 
     python -m fal_net_torch.cli.train --stage 1 --data_root /data/KITTI \\
-        --a_p 0 --model B
+        --vgg_weights vgg19.pth --val_root /data/KITTI2015 --model B
     python -m fal_net_torch.cli.train --stage 1 --slow ...     # stage 1 slow
     python -m fal_net_torch.cli.train --stage 2 --fix_model STAGE1.pt ...
+    python -m fal_net_torch.cli.train --resume RUN_DIR/checkpoint.pt ...
 
-Runs on the GPU unless ``--device cpu`` is given.  The flags of later
-slices (validation, resume, bf16, the profiler, multi-GPU) are parsed so
-that giving one raises and names the ROADMAP item that brings it; none is
+Runs on the GPU unless ``--device cpu`` is given.  ``--val_root`` validates
+on KITTI 2015 every epoch and picks ``model_best`` by the view-synthesis
+RMSE; ``--resume`` restores the full training state and continues its run's
+directory.  The flags of later slices (bf16, multi-GPU) are parsed so that
+giving one raises and names the ROADMAP item that brings it; none is
 ignored.
 """
 
@@ -15,19 +18,9 @@ from __future__ import annotations
 
 import argparse
 
-from fal_net_torch.data.datasets import REGISTRY as DATASETS
+from fal_net_torch.data.datasets import REGISTRY as DATASETS, kitti2015
 from fal_net_torch.train.config import Stage1Config, Stage2Config
 from fal_net_torch.train.trainer import Trainer, not_ported
-
-# flag -> (what it enables, ROADMAP.md queue 1 item)
-LATER = {
-    "val_root": ("--val_root (validation)", "item 10"),
-    "val_batch_size": ("--tbatch_size (validation)", "item 10"),
-    "rel_baseline_val": ("--rel_baset (validation)", "item 10"),
-    "resume": ("--resume (full-state resume)", "item 10"),
-    "profile_steps": ("--profile_steps", "item 10"),
-    "num_devices": ("--num_devices (multi-GPU)", "item 12"),
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -66,8 +59,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="epochs at which LR halves (MultiStepLR; default 30 40)",
     )
     p.add_argument("--print_freq", "--print-freq", dest="print_freq", type=int, default=None)
-    p.add_argument("--tbatch_size", "--val_batch_size", dest="val_batch_size", type=int, default=None)
-    p.add_argument("--rel_baset", "--rel_baseline_val", dest="rel_baseline_val", type=float, default=None)
+    p.add_argument("--tbatch_size", "--val_batch_size", dest="val_batch_size", type=int, default=None,
+                   help="validation batch size (metrics per image, the same as at 1)")
+    p.add_argument("--rel_baset", "--rel_baseline_val", dest="rel_baseline_val", type=float, default=None,
+                   help="validation-set baseline scale (Train_Stage1_K.py:36)")
     p.add_argument("--max_disp", type=float, default=300.0)
     p.add_argument("--min_disp", type=float, default=2.0)
     p.add_argument("--a_p", type=float, default=None)
@@ -81,10 +76,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--start_epoch", type=int, default=0)
     p.add_argument("--pretrained", default=None,
                    help="params-only warm start (port .pt or reference .pth.tar)")
-    p.add_argument("--resume", default=None)
+    p.add_argument("--resume", default=None,
+                   help="full-state resume: params, Adam moments, schedule and step (a checkpoint.pt or "
+                   "its run directory); the run continues in that directory")
     p.add_argument("--save_every_steps", type=int, default=0,
                    help="also checkpoint mid-epoch every N steps")
-    p.add_argument("--profile_steps", type=int, default=None)
+    p.add_argument("--profile_steps", type=int, default=0,
+                   help="torch.profiler trace of this many first-epoch steps (from step 1) under "
+                   "<run dir>/profile")
     p.add_argument("--fix_model", default=None, help="stage-2 frozen teacher ckpt")
     p.add_argument("--vgg_weights", default=None)
     p.add_argument("--allow_random_vgg", action="store_true")
@@ -106,9 +105,8 @@ def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     if args.dtype != "float32":
         raise not_ported(f"--dtype {args.dtype}", "item 10")
-    for name, (what, item) in LATER.items():
-        if getattr(args, name) is not None:
-            raise not_ported(what, item)
+    if args.num_devices is not None:
+        raise not_ported("--num_devices (multi-GPU)", "item 12")
     if args.stage == 2 and args.slow:
         raise ValueError("--slow is a stage-1 variant; it does not apply to --stage 2")
     if args.stage == 1 and (args.fix_model is not None or args.a_mr is not None):
@@ -132,7 +130,9 @@ def main(argv=None) -> dict:
         save_path=args.save_path,
         start_epoch=args.start_epoch,
         pretrained=args.pretrained,
+        resume=args.resume,
         save_every_steps=args.save_every_steps,
+        profile_steps=args.profile_steps,
         vgg_weights=args.vgg_weights,
         allow_random_vgg=args.allow_random_vgg,
         grad_accum=args.grad_accum,
@@ -148,12 +148,17 @@ def main(argv=None) -> dict:
         cfg.num_levels = args.no_levels
     if args.milestones is not None:
         cfg.milestones = tuple(args.milestones)
-    for name in ("batch_size", "epochs", "lr", "a_p", "a_sm", "beta1", "beta2", "print_freq"):
+    for name in ("batch_size", "epochs", "lr", "a_p", "a_sm", "beta1", "beta2", "print_freq", "val_batch_size",
+                 "rel_baseline_val"):
         v = getattr(args, name)
         if v is not None:
             setattr(cfg, name, v)
     stage = "stage2" if args.stage == 2 else ("stage1_slow" if args.slow else "stage1")
-    result = Trainer(cfg, stage=stage, device=args.device).fit()
+    val_dataset = None
+    if args.val_root:
+        # the _10 pair and its disparity ground truth (load_t1=False: no t+1 decode)
+        _, val_dataset = kitti2015(args.val_root, split=0, disp=True, load_t1=False)
+    result = Trainer(cfg, stage=stage, device=args.device, val_dataset=val_dataset).fit()
     print(f"best {result['best_metric']}:", result["best_value"])
     return result
 

@@ -39,11 +39,18 @@
 //     rest of the sweep.  Blocks are persistent over rows;
 //   * ring path (W = 1280 at N = 49: a 250,880 B row): the stages stream
 //     through fewer slots in both sweeps;
-//   * direct path, for pan cotangents on rows too wide to stage the image
-//     and g_pan rows (32 B a column) beside the ring and the statistics
-//     (W > 4,449 at N = 49, > 4,131 with g_img): those two rows are read
-//     from device memory, through the caches, at the shifted columns; the
-//     plane rows stream through the ring as above;
+//   * direct path, for rows too wide to stage whole plane rows beside the
+//     image and g_pan rows (32 B a column) and the statistics (at N = 49:
+//     W > 4,449 with pan cotangents, > 4,131 with g_img, > 28,936 with disp
+//     alone): a slot row holds one 1,280-column chunk's window, the chunk
+//     and the shift margin on each side, so shared memory does not grow
+//     with W; the image and g_pan rows are read from device memory, through
+//     the caches, at the shifted columns.  The shifted statistics are kept
+//     for three chunks (the one before, the current one and the next); the
+//     sweeps go stats(0), then per chunk c stats(c + 1), the plain
+//     statistics of c and its gradient, whose S^T reads statistics within a
+//     margin of c.  g_shift_n is made per stage for the 1,282 columns the
+//     chunk's S^T reads (x - f_n - 1 for x in the chunk, and one more);
 //   * exponentials in base 2 (ex2.approx on l log2 e); the online softmaxes
 //     take a stage's maximum first and rescale their sums once a stage, with
 //     no branch;
@@ -62,6 +69,10 @@ namespace {
 // Floats of the plane tables, a multiple of 4.
 __host__ __device__ inline int bwd_tab_floats(int N) { return 4 * (N + kGroup - 1); }
 
+// Floats of a g_shift (or D) row of the direct path: the chunk's columns
+// and one on each side.
+__host__ __device__ inline int gs_pitch(int chunk_cols) { return (chunk_cols + 2 + 3) / 4 * 4; }
+
 template <bool kDisp, bool kPan, bool kImg, int kCpt, bool kDirect>
 __global__ void __launch_bounds__(kStageThreads, 1)
 med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
@@ -74,22 +85,28 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
                int tab_stride, int N, int C, int H, int W, int rows, int bulk, const StagePlan p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* extra;
-  const RowStage st = stage_init(smem_raw, p, W, bulk, &extra);
+  const RowStage st = stage_init(smem_raw, p, bulk, &extra);
   // extra: [plane tables], then for pan [image row][g_pan row] (not on the
   // direct path) [(lse1, sq) W][g_shift: G rows of pitch P][D: G rows, for
-  // g_img]; the rows as the staged ones, column 0 at offset 4 and zero guards
+  // g_img]; the rows as the staged ones, column 0 at offset 4 and zero
+  // guards.  On the direct path (lse1, sq) is kept for three chunks' columns
+  // (column y at y mod their count) and the g_shift and D rows are of
+  // gs_pitch, column u standing for x - f_n - 1 + u, x the chunk's first.
+  const int chunk_cols = p.cpt * p.consumers, st_cols = kDirect ? 3 * chunk_cols : W;
+  const int gsp = kDirect ? gs_pitch(chunk_cols) : st.P;  // g_shift and D row pitch
   PlaneTab* s_tab = reinterpret_cast<PlaneTab*>(extra);
   float4* s_img4 = reinterpret_cast<float4*>(extra + bwd_tab_floats(N)) + 1;  // column 0
   float4* s_gp4 = s_img4 + W + 2;
   float2* s_st = kDirect ? reinterpret_cast<float2*>(extra + bwd_tab_floats(N)) : reinterpret_cast<float2*>(s_gp4 + W + 1);
-  float* s_gs = reinterpret_cast<float*>(s_st + W) + 4;
-  float* s_d = s_gs + p.group * st.P;
+  float* s_gs = reinterpret_cast<float*>(s_st + st_cols) + 4;
+  float* s_d = s_gs + p.group * gsp;
+  auto st_at = [&](int y) { return kDirect ? y % st_cols : y; };  // 0 <= y < W
   if (tab_stride == 0) load_plane_tabs(s_tab, nullptr, tables, N, threadIdx.x, blockDim.x);
   __syncthreads();
 
   const int tid = threadIdx.x;
   if (tid >= p.consumers) {
-    produce_rows(st, p, logits, N, H, rows, bulk);
+    produce_rows(st, p, logits, N, H, W, rows, bulk);
     return;
   }
 
@@ -128,6 +145,7 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
     // Statistics of chunk c: the plain softmax into registers (do_disp), the
     // shifted one into shared memory (do_pan).
     auto stats = [&](int ch, bool do_disp, bool do_pan) {
+      const RowCols<kDirect> cols{W, kDirect ? ch * chunk_cols - p.margin : 0, p.span};
       float m0[kCpt], z0[kCpt], a0[kCpt], m1[kCpt], z1[kCpt], aq[kCpt];
       float4 gp[kCpt];  // g_pan at the column, zero past C
 #pragma unroll
@@ -154,7 +172,7 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
             float a[kGroup], mx = m0[k];
 #pragma unroll
             for (int i = 0; i < kGroup; ++i) {
-              a[i] = lr[i][x] * kLog2e;
+              a[i] = cols.in(lr[i], x) * kLog2e;
               mx = fmaxf(mx, a[i]);
             }
             const float r = ex2(m0[k] - mx);  // 0 on the first stage
@@ -173,7 +191,7 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
 #pragma unroll
             for (int i = 0; i < kGroup; ++i) {
               const int j = x + tb[i].f;
-              a[i] = lerp_at(lr[i], j, tb[i].t, W) * kLog2e;
+              a[i] = cols.lerp(lr[i], j, tb[i].t) * kLog2e;
               mx = fmaxf(mx, a[i]);
               const float4 v = img_lerp(j, tb[i].t);
               gd[i] = fmaf(v.x, gp[k].x, fmaf(v.y, gp[k].y, fmaf(v.z, gp[k].z, v.w * gp[k].w)));
@@ -200,7 +218,7 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
           disp[k] = a0[k] / z0[k];
         }
         if (kPan && do_pan) {
-          s_st[x] = make_float2(m1[k] + log2f(z1[k]), aq[k] / z1[k]);
+          s_st[st_at(x)] = make_float2(m1[k] + log2f(z1[k]), aq[k] / z1[k]);
         }
       }
     };
@@ -211,6 +229,8 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
     // of its columns of the whole row (and D_n(y) for g_img) in shared
     // memory, and after a barrier gathers them at x - f and x - f - 1.
     auto grad = [&](int ch) {
+      const RowCols<kDirect> cols{W, kDirect ? ch * chunk_cols - p.margin : 0, p.span};
+      const int c0 = ch * chunk_cols;
       float gd[kCpt];
       float4 gi[kCpt];
 #pragma unroll
@@ -225,7 +245,30 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
         PlaneTab tb[kGroup];
 #pragma unroll
         for (int i = 0; i < kGroup; ++i) tb[i] = s_tab[n0 + i];
-        if (kPan) {
+        if (kPan && kDirect) {
+          consumers_sync(p.consumers);  // the last stage's gathers are done
+          // g_shift_n(y) and D_n(y) for y = c0 - f_n - 1 + u, u <= chunk_cols:
+          // the columns the chunk's S^T reads; zero outside the row
+          for (int i = 0; i < kGroup; ++i) {
+            if (i >= g) break;
+            const int y0 = c0 - tb[i].f - 1;
+            for (int u = tid; u < chunk_cols + 2; u += p.consumers) {
+              const int y = y0 + u;
+              float gs = 0.f, d = 0.f;
+              if (y >= 0 && y < W) {
+                const float2 sy = s_st[st_at(y)];
+                const float4 gq = gp_in(y);
+                const int j = y + tb[i].f;
+                d = ex2(fmaf(cols.lerp(lr[i], j, tb[i].t), kLog2e, -sy.x));
+                const float4 v = img_lerp(j, tb[i].t);
+                gs = d * (fmaf(v.x, gq.x, fmaf(v.y, gq.y, fmaf(v.z, gq.z, v.w * gq.w))) - sy.y);
+              }
+              s_gs[i * gsp + u] = gs;
+              if (kImg) s_d[i * gsp + u] = d;
+            }
+          }
+          consumers_sync(p.consumers);
+        } else if (kPan) {
           consumers_sync(p.consumers);  // the last stage's gathers are done
           for (int c2 = 0; c2 < p.chunks; ++c2) {
 #pragma unroll
@@ -259,14 +302,18 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
             const int x = column(p, ch, k, tid);
             if (x >= W) continue;
             float gl = 0.f;
-            if (kDisp) gl = ex2(fmaf(lr[i][x], kLog2e, -lse0[k])) * (tb[i].lev - disp[k]) * gd[k];
+            if (kDisp) gl = ex2(fmaf(cols.in(lr[i], x), kLog2e, -lse0[k])) * (tb[i].lev - disp[k]) * gd[k];
             if (kPan) {
               // S^T: y0 = x - f takes weight 1-t, y0 - 1 weight t; zero outside the row
-              const int y0 = x - tb[i].f;
-              const float a = pad(s_gs + i * st.P, y0, W), c = pad(s_gs + i * st.P, y0 - 1, W);
+              // (on the direct path, y0 is column u = x - c0 + 1 of the chunk's rows)
+              const int y0 = x - tb[i].f, u = x - c0 + 1;
+              const float* gsr = s_gs + i * gsp;
+              const float* dr = s_d + i * gsp;
+              const float a = kDirect ? gsr[u] : pad(gsr, y0, W), c = kDirect ? gsr[u - 1] : pad(gsr, y0 - 1, W);
               gl += fmaf(t, c - a, a);
               if (kImg) {
-                const float da = (1.f - t) * pad(s_d + i * st.P, y0, W), dc = t * pad(s_d + i * st.P, y0 - 1, W);
+                const float da = (1.f - t) * (kDirect ? dr[u] : pad(dr, y0, W)),
+                            dc = t * (kDirect ? dr[u - 1] : pad(dr, y0 - 1, W));
                 const float4 ga = gp_at(y0), gc = gp_at(y0 - 1);
                 gi[k] = make_float4(fmaf(da, ga.x, fmaf(dc, gc.x, gi[k].x)), fmaf(da, ga.y, fmaf(dc, gc.y, gi[k].y)),
                                     fmaf(da, ga.z, fmaf(dc, gc.z, gi[k].z)), fmaf(da, ga.w, fmaf(dc, gc.w, gi[k].w)));
@@ -288,8 +335,21 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
       }
     };
 
-    // The sweeps of bwd_sweeps(), in that order.
-    if (p.chunks == 1) {
+    // The sweeps of bwd_sweeps(), in that order (on the direct path, that of
+    // sweep_chunk, with a barrier of the consumers before a chunk's shifted
+    // statistics, which take the place of those of three chunks back).
+    if (kDirect) {
+      if (kPan) stats(0, false, true);
+      for (int ch = 0; ch < p.chunks; ++ch) {
+        if (kPan && ch + 1 < p.chunks) {
+          consumers_sync(p.consumers);
+          stats(ch + 1, false, true);
+        }
+        if (kDisp) stats(ch, true, false);
+        if (kPan) consumers_sync(p.consumers);
+        grad(ch);
+      }
+    } else if (p.chunks == 1) {
       stats(0, true, true);
       if (kPan) consumers_sync(p.consumers);  // the gradient reads statistics of other columns
       grad(0);
@@ -314,21 +374,21 @@ int bwd_sweeps(int chunks, bool disp, bool pan) {
   return (pan ? chunks : 0) + chunks * (disp ? 2 : 1);
 }
 
-bool bwd_plan(StagePlan& p, int N, int C, int W, bool disp, bool pan, bool img) {
+bool bwd_plan(StagePlan& p, int N, int C, int W, bool disp, bool pan, bool img, int margin) {
   plan_columns(p, W);
-  // pan: image and g_pan rows (not on the direct path), (lse1, sq), and per
-  // stage row a g_shift row (and a D row)
+  // pan: image and g_pan rows, (lse1, sq), and per stage row a g_shift row
+  // (and a D row)
   const size_t per_row = pan ? 4 * (size_t)row_pitch(W) * (img ? 2 : 1) : 0;
-  const int sweeps = bwd_sweeps(p.chunks, disp, pan);
-  for (int direct = 0; direct <= (pan && p.cpt == 2); ++direct) {
-    const size_t rows = direct ? 0 : 2 * (size_t)image_floats(W);
-    const size_t extra = plane_tab_bytes(N) + (pan ? 4 * (rows + 2 * (size_t)W) : 0);
-    if (plan_slots(p, N, W, sweeps, extra, per_row)) {
-      p.direct = direct;
-      return true;
-    }
-  }
-  return false;
+  const size_t extra = plane_tab_bytes(N) + (pan ? 4 * (2 * (size_t)image_floats(W) + 2 * (size_t)W) : 0);
+  if (plan_slots(p, N, bwd_sweeps(p.chunks, disp, pan), extra, per_row)) return true;
+  // the direct path: per chunk the shifted statistics of the next one
+  // (pan), then its plain statistics (disp) and its gradient; (lse1, sq) of
+  // three chunks, the g_shift and D rows of gs_pitch, their offset of 4
+  const int chunk_cols = p.cpt * p.consumers, own = disp ? 2 : 1;
+  if (!plan_direct(p, margin, pan, own)) return false;
+  const size_t d_per_row = pan ? 4 * (size_t)gs_pitch(chunk_cols) * (img ? 2 : 1) : 0;
+  const size_t d_extra = plane_tab_bytes(N) + (pan ? 4 * (6 * (size_t)chunk_cols + 4) : 0);
+  return plan_slots(p, N, p.chunks * ((pan ? 1 : 0) + own), d_extra, d_per_row);
 }
 
 template <bool kDisp, bool kPan, bool kImg>
@@ -337,11 +397,9 @@ cudaError_t launch(const StagePlan& p, const float* logits, const float* image, 
                    int N, int C, int H, int W, cudaStream_t stream) {
   const int rows = B * H;
   const int bulk = W % 4 == 0 && reinterpret_cast<uintptr_t>(logits) % 16 == 0;
-  if constexpr (kPan) {
-    if (p.direct)  // planned only with 2 columns a thread
-      return launch_rows<med_bwd_kernel<kDisp, kPan, kImg, 2, true>>(p, rows, stream, logits, image, g_disp, g_pan,
-                         g_logits, g_image, tables, tab_stride, N, C, H, W, rows, bulk);
-  }
+  if (p.direct)  // planned only with 2 columns a thread
+    return launch_rows<med_bwd_kernel<kDisp, kPan, kImg, 2, true>>(p, rows, stream, logits, image, g_disp, g_pan,
+                       g_logits, g_image, tables, tab_stride, N, C, H, W, rows, bulk);
   if (p.cpt == 1)
     return launch_rows<med_bwd_kernel<kDisp, kPan, kImg, 1, false>>(p, rows, stream, logits, image, g_disp, g_pan,
                        g_logits, g_image, tables, tab_stride, N, C, H, W, rows, bulk);
@@ -353,7 +411,7 @@ cudaError_t launch(const StagePlan& p, const float* logits, const float* image, 
 
 extern "C" {
 
-// Launch the MED backward on `stream`.  `tables` as for med_fwd.  g_disp is
+// Launch the MED backward on `stream`.  `tables` and `margin` as for med_fwd.  g_disp is
 // read only with want_disp, image and g_pan only with want_pan, and g_image
 // is written only with want_gimg (which needs want_pan); unused pointers may
 // be null.  Every element of g_logits is written.  Returns
@@ -362,10 +420,10 @@ extern "C" {
 // ...); else cudaGetLastError() after the launch (0 on success).
 int med_bwd(const float* logits, const float* image, const float* g_disp, const float* g_pan, float* g_logits,
             float* g_image, const float* tables, int tab_stride, int B, int N, int C, int H, int W, int want_disp,
-            int want_pan, int want_gimg, void* stream) {
+            int want_pan, int want_gimg, int margin, void* stream) {
   StagePlan p;
   if (!med_sizes_ok(B, N, C, H, W, tab_stride) || (want_gimg && !want_pan) || !(want_disp || want_pan) ||
-      !bwd_plan(p, N, C, W, want_disp, want_pan, want_gimg))
+      !bwd_plan(p, N, C, W, want_disp, want_pan, want_gimg, margin))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int mode = (want_disp ? 1 : 0) | (want_pan ? 2 : 0) | (want_gimg ? 4 : 0);
@@ -385,12 +443,13 @@ int med_bwd(const float* logits, const float* image, const float* g_disp, const 
 #undef MED_CASE
 }
 
-// The staging plan med_bwd would launch with, as 10 ints into `out`:
-// StagePlan's fields in order.  Returns cudaErrorInvalidValue where med_bwd would refuse.
-int med_bwd_plan(int N, int C, int W, int want_disp, int want_pan, int want_gimg, int* out) {
+// The staging plan med_bwd would launch with, as kPlanFields ints into
+// `out`: StagePlan's fields in order up to `margin`.  Returns
+// cudaErrorInvalidValue where med_bwd would refuse.
+int med_bwd_plan(int N, int C, int W, int want_disp, int want_pan, int want_gimg, int margin, int* out) {
   StagePlan p;
   if (!med_sizes_ok(1, N, C, 1, W, 0) || !(want_disp || want_pan) || (want_gimg && !want_pan) ||
-      !bwd_plan(p, N, C, W, want_disp, want_pan, want_gimg))
+      !bwd_plan(p, N, C, W, want_disp, want_pan, want_gimg, margin))
     return (int)cudaErrorInvalidValue;
   plan_fields(p, out);
   return 0;

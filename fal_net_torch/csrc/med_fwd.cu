@@ -40,12 +40,16 @@
 //     probabilities in a second sweep: from the same slots where the row
 //     fits in shared memory (whole row), else from a second stream of the
 //     planes (ring);
-//   * direct path, for pan on rows too wide to stage the image row (16 B a
-//     column) beside the ring and the statistics (W > 9,634 at N = 49 with
-//     disp, > 7,225 with subocc): the image row is read from device memory,
-//     through the caches, at the shifted columns; the plane rows stream
-//     through the ring as above.  The subocc statistics (8 B a column) stay
-//     in shared memory: with the image row out they fit to W = 14,452.
+//   * direct path, for rows too wide to stage whole plane rows beside the
+//     image row (16 B a column) and the statistics (at N = 49: W > 9,634
+//     with pan, > 7,225 with pan and subocc, > 28,908 disp alone): a slot
+//     row holds one 1,280-column chunk's window, the chunk and the shift
+//     margin on each side, so shared memory does not grow with W; the image
+//     row is read from device memory, through the caches, at the shifted
+//     columns.  With subocc, the statistics are kept for three chunks (the
+//     one before, the current one and the next), and the chunks' sweeps go
+//     stats(0), stats(1), masks(0), stats(2), masks(1), ...: the masks of a
+//     chunk read statistics within a margin of it.
 // On an H100 the pan modes are bound by the consumers' issue rate and
 // shared-memory loads, not by device memory (PERF.md).
 // Plane tables (level, forward and backward floor/frac; 5*N fp32) are a
@@ -74,21 +78,24 @@ med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
   constexpr bool kShift = kPan || kSub;   // needs softmax(S l)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* extra;
-  const RowStage st = stage_init(smem_raw, p, W, bulk, &extra);
+  const RowStage st = stage_init(smem_raw, p, bulk, &extra);
   // extra: [plane tables][backward floors], [image row] for pan (not on
-  // the direct path), then [lse0 W][lse1 W] for subocc
+  // the direct path), then [lse0][lse1] for subocc: W columns each, or on
+  // the direct path three chunks' columns, column x at x mod their count
   constexpr bool kStageImg = kPan && !kDirect;
+  const int chunk_cols = p.cpt * p.consumers, lse_cols = kDirect ? 3 * chunk_cols : W;
   PlaneTab* s_tab = reinterpret_cast<PlaneTab*>(extra);
   int* s_fb = reinterpret_cast<int*>(s_tab + N + kGroup - 1);
   float4* s_img4 = reinterpret_cast<float4*>(extra + fwd_tab_floats(N)) + 1;  // column 0
   float* s_lse0 = extra + fwd_tab_floats(N) + (kStageImg ? image_floats(W) : 0);
-  float* s_lse1 = s_lse0 + W;
+  float* s_lse1 = s_lse0 + lse_cols;
+  auto lse_at = [&](int x) { return kDirect ? x % lse_cols : x; };  // 0 <= x < W
   if (tab_stride == 0) load_plane_tabs(s_tab, s_fb, tables, N, threadIdx.x, blockDim.x);
   __syncthreads();
 
   const int tid = threadIdx.x;
   if (tid >= p.consumers) {
-    produce_rows(st, p, logits, N, H, rows, bulk);
+    produce_rows(st, p, logits, N, H, W, rows, bulk);
     return;
   }
 
@@ -105,7 +112,9 @@ med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
     if (kStageImg || tab_stride) consumers_sync(p.consumers);
     RowSweeps sweeps(st, p, ring, N);
 
-    for (int ch = 0; ch < p.chunks; ++ch) {
+    // disp, pan and the subocc statistics of chunk ch's columns
+    auto first = [&](int ch) {
+      const RowCols<kDirect> cols{W, kDirect ? ch * chunk_cols - p.margin : 0, p.span};
       float m0[kCpt], z0[kCpt], acc[kCpt], m1[kCpt], z1[kCpt];
       float4 pc[kCpt];  // pan accumulators, channels 0..3
 #pragma unroll
@@ -132,7 +141,7 @@ med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
             float a[kGroup], mx = m0[k];
 #pragma unroll
             for (int i = 0; i < kGroup; ++i) {
-              a[i] = lr[i][x] * kLog2e;
+              a[i] = cols.in(lr[i], x) * kLog2e;
               mx = fmaxf(mx, a[i]);
             }
             const float r = ex2(m0[k] - mx);  // 0 on the first stage
@@ -150,7 +159,7 @@ med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
             float a[kGroup], mx = m1[k];
 #pragma unroll
             for (int i = 0; i < kGroup; ++i) {
-              a[i] = lerp_at(lr[i], x + tb[i].f, tb[i].t, W) * kLog2e;
+              a[i] = cols.lerp(lr[i], x + tb[i].f, tb[i].t) * kLog2e;
               mx = fmaxf(mx, a[i]);
             }
             const float r = ex2(m1[k] - mx);
@@ -184,15 +193,15 @@ med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
             if (c < C) pan[crow + c * plane + x] = v[c] * inv;
         }
         if (kSub) {
-          s_lse0[x] = m0[k] + log2f(z0[k]);
-          s_lse1[x] = m1[k] + log2f(z1[k]);
+          s_lse0[lse_at(x)] = m0[k] + log2f(z0[k]);
+          s_lse1[lse_at(x)] = m1[k] + log2f(z1[k]);
         }
       }
-    }
+    };
 
-    if (!kSub) continue;
-    consumers_sync(p.consumers);  // the masks read statistics of other columns
-    for (int ch = 0; ch < p.chunks; ++ch) {
+    // maskL and maskR of chunk ch's columns, from the statistics
+    auto masks = [&](int ch) {
+      const RowCols<kDirect> cols{W, kDirect ? ch * chunk_cols - p.margin : 0, p.span};
       float mr[kCpt], ml[kCpt];
 #pragma unroll
       for (int k = 0; k < kCpt; ++k) mr[k] = ml[k] = 0.f;
@@ -210,15 +219,15 @@ med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
             // maskR: S_{+s}(softmax(l)_n), the softmax taken at the source column
             const int j = x + tb.f;
             float a = 0.f, c = 0.f;
-            if (j >= 0 && j < W) a = ex2(fmaf(lr[i][j], kLog2e, -s_lse0[j]));
-            if (j + 1 >= 0 && j + 1 < W) c = ex2(fmaf(lr[i][j + 1], kLog2e, -s_lse0[j + 1]));
+            if (j >= 0 && j < W) a = ex2(fmaf(cols.in(lr[i], j), kLog2e, -s_lse0[lse_at(j)]));
+            if (j + 1 >= 0 && j + 1 < W) c = ex2(fmaf(cols.in(lr[i], j + 1), kLog2e, -s_lse0[lse_at(j + 1)]));
             mr[k] += fmaf(tb.t, c - a, a);
             // maskL: S_{-s}(Dprob_n), Dprob recomputed at the source column
             const int q = x + fb;
             a = c = 0.f;
-            if (q >= 0 && q < W) a = ex2(fmaf(lerp_at(lr[i], q + tb.f, tb.t, W), kLog2e, -s_lse1[q]));
+            if (q >= 0 && q < W) a = ex2(fmaf(cols.lerp(lr[i], q + tb.f, tb.t), kLog2e, -s_lse1[lse_at(q)]));
             if (q + 1 >= 0 && q + 1 < W)
-              c = ex2(fmaf(lerp_at(lr[i], q + 1 + tb.f, tb.t, W), kLog2e, -s_lse1[q + 1]));
+              c = ex2(fmaf(cols.lerp(lr[i], q + 1 + tb.f, tb.t), kLog2e, -s_lse1[lse_at(q + 1)]));
             ml[k] += fmaf(tb.tb, c - a, a);
           }
         }
@@ -230,25 +239,42 @@ med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
         mask_r[pix + x] = fminf(mr[k], 1.f);
         mask_l[pix + x] = fminf(ml[k], 1.f);
       }
+    };
+
+    // The sweeps in the order the producer streams them (sweep_chunk on the
+    // direct path).  A barrier of the consumers before masks: they read
+    // statistics of other columns; on the direct path also before a chunk's
+    // statistics, which take the place of those of three chunks back.
+    if (!kDirect || !kSub) {
+      for (int ch = 0; ch < p.chunks; ++ch) first(ch);
+      if (!kSub) continue;
+      consumers_sync(p.consumers);
+      for (int ch = 0; ch < p.chunks; ++ch) masks(ch);
+    } else {
+      first(0);
+      for (int ch = 0; ch < p.chunks; ++ch) {
+        if (ch + 1 < p.chunks) {
+          consumers_sync(p.consumers);
+          first(ch + 1);
+        }
+        consumers_sync(p.consumers);
+        masks(ch);
+      }
     }
   }
 }
 
 // Sweeps per image row: one per chunk for disp and pan, and a second one per
-// chunk for the masks.  The staged plan first; for pan where it does not
-// fit, the direct path (two columns a thread: W > 640).
-bool fwd_plan(StagePlan& p, int N, int C, int W, bool pan, bool sub) {
+// chunk for the masks.  The staged plan first; where it does not fit, the
+// direct path (two columns a thread: W > 640) with windows of `margin`.
+bool fwd_plan(StagePlan& p, int N, int C, int W, bool pan, bool sub, int margin) {
   plan_columns(p, W);
   const int sweeps = p.chunks * (sub ? 2 : 1);
-  for (int direct = 0; direct <= (pan && p.cpt == 2); ++direct) {
-    const size_t img = pan && !direct ? (size_t)image_floats(W) : 0;
-    const size_t extra = 4 * (fwd_tab_floats(N) + img + (sub ? 2 * (size_t)W : 0));
-    if (plan_slots(p, N, W, sweeps, extra)) {
-      p.direct = direct;
-      return true;
-    }
-  }
-  return false;
+  const size_t img = pan ? (size_t)image_floats(W) : 0;
+  if (plan_slots(p, N, sweeps, 4 * (fwd_tab_floats(N) + img + (sub ? 2 * (size_t)W : 0)))) return true;
+  const int chunk_cols = p.cpt * p.consumers;
+  return plan_direct(p, margin, sub, 1) &&
+         plan_slots(p, N, sweeps, 4 * (fwd_tab_floats(N) + (sub ? 6 * (size_t)chunk_cols : 0)));
 }
 
 template <bool kDisp, bool kPan, bool kSub>
@@ -257,11 +283,9 @@ cudaError_t launch(const StagePlan& p, const float* logits, const float* image, 
                    int W, cudaStream_t stream) {
   const int rows = B * H;
   const int bulk = W % 4 == 0 && reinterpret_cast<uintptr_t>(logits) % 16 == 0;
-  if constexpr (kPan) {
-    if (p.direct)  // planned only with 2 columns a thread
-      return launch_rows<med_fwd_kernel<kDisp, kPan, kSub, 2, true>>(p, rows, stream, logits, image, disp, pan,
-                         mask_l, mask_r, tables, tab_stride, N, C, H, W, rows, bulk);
-  }
+  if (p.direct)  // planned only with 2 columns a thread
+    return launch_rows<med_fwd_kernel<kDisp, kPan, kSub, 2, true>>(p, rows, stream, logits, image, disp, pan,
+                       mask_l, mask_r, tables, tab_stride, N, C, H, W, rows, bulk);
   if (p.cpt == 1)
     return launch_rows<med_fwd_kernel<kDisp, kPan, kSub, 1, false>>(p, rows, stream, logits, image, disp, pan,
                        mask_l, mask_r, tables, tab_stride, N, C, H, W, rows, bulk);
@@ -276,15 +300,17 @@ extern "C" {
 // Launch the MED forward on `stream`.  `tables` is a device buffer of
 // (B, 5, N) fp32 plane tables with `tab_stride` = 5*N, or one (5, N) table
 // for every sample with `tab_stride` = 0.  Unrequested outputs may be null.
-// Returns cudaErrorInvalidValue, launching nothing, for sizes it does not
-// take (no ring slot fits beside the statistics, N
-// outside 2..128, C outside 1..4, ...); else cudaGetLastError() after the
-// launch (0 on success).
+// `margin` is the direct path's window margin: a multiple of 4 of at least
+// 2 more than the largest |floor| in the tables' shift rows (its columns are
+// never read on the staged paths).  Returns cudaErrorInvalidValue, launching
+// nothing, for sizes it does not take (no ring slot fits beside the
+// statistics, a margin past a chunk, N outside 2..128, C outside 1..4, ...);
+// else cudaGetLastError() after the launch (0 on success).
 int med_fwd(const float* logits, const float* image, float* disp, float* pan, float* mask_l, float* mask_r,
             const float* tables, int tab_stride, int B, int N, int C, int H, int W, int want_disp, int want_pan,
-            int want_subocc, void* stream) {
+            int want_subocc, int margin, void* stream) {
   StagePlan p;
-  if (!med_sizes_ok(B, N, C, H, W, tab_stride) || !fwd_plan(p, N, C, W, want_pan, want_subocc))
+  if (!med_sizes_ok(B, N, C, H, W, tab_stride) || !fwd_plan(p, N, C, W, want_pan, want_subocc, margin))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int mode = (want_disp ? 1 : 0) | (want_pan ? 2 : 0) | (want_subocc ? 4 : 0);
@@ -306,12 +332,12 @@ int med_fwd(const float* logits, const float* image, float* disp, float* pan, fl
 #undef MED_CASE
 }
 
-// The staging plan med_fwd would launch with, as 10 ints into `out` (see
-// med_bwd_plan).  Returns cudaErrorInvalidValue where med_fwd would refuse.
-int med_fwd_plan(int N, int C, int W, int want_disp, int want_pan, int want_subocc, int* out) {
+// The staging plan med_fwd would launch with, as kPlanFields ints into `out`
+// (see med_bwd_plan).  Returns cudaErrorInvalidValue where med_fwd would refuse.
+int med_fwd_plan(int N, int C, int W, int want_disp, int want_pan, int want_subocc, int margin, int* out) {
   StagePlan p;
   if (!med_sizes_ok(1, N, C, 1, W, 0) || !(want_disp || want_pan || want_subocc) ||
-      !fwd_plan(p, N, C, W, want_pan, want_subocc))
+      !fwd_plan(p, N, C, W, want_pan, want_subocc, margin))
     return (int)cudaErrorInvalidValue;
   plan_fields(p, out);
   return 0;

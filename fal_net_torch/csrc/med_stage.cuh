@@ -43,6 +43,14 @@
 // c * cpt * consumers + k * consumers + i (k < cpt) of chunk c; cpt = 2 above
 // W = 640, so that W = 640 and W = 1280 fill every thread.  Wider rows take
 // several chunks, each a sweep of its own.
+// Where neither path fits a whole plane row (wide rows), the plan takes the
+// direct path: a slot row holds one chunk's window, the chunk's columns and
+// `margin` columns on each side (margin: the largest |floor| of the plane
+// shifts plus the lerp's and the masks' neighbours, from the bounds), so
+// that shared memory does not grow with W.  Every sweep streams its chunk's
+// window through the ring; the sweeps visit the chunks in the order of
+// sweep_chunk(), which the producer and the consumers share.  Reads outside
+// [0, W) give zero without touching the window (RowCols).
 
 #pragma once
 
@@ -151,7 +159,11 @@ struct StagePlan {
   int sweeps;     // sweeps over the N planes per image row
   int loads;      // stage loads per image row: ceil(N / G) if whole, else sweeps * ceil(N / G)
   int smem;       // dynamic shared memory bytes: [2R mbarriers][R slots of G rows][extra]
-  int direct;     // the image row (K1, K2) and g_pan row (K2) read from device memory, not staged (rows too wide)
+  int direct;     // rows too wide: slot rows hold a chunk's window; image and g_pan rows read from device memory
+  int margin;     // direct: window columns on each side of a chunk (a multiple of 4); else 0
+  int span;       // columns of a slot row: W, or on the direct path cpt * consumers + 2 * margin
+  int ahead;      // direct: sweeps of chunk c + 1 made before chunk c's own (0 or 1; see sweep_chunk)
+  int own;        // direct: sweeps of chunk c made after them
 };
 
 // Row pitch in floats of a staged row: W floats from offset 4 (16 bytes, so
@@ -169,7 +181,9 @@ inline bool med_sizes_ok(int B, int N, int C, int H, int W, int tab_stride) {
 
 // Columns to threads: cpt = 2 above 640 columns, at most kMaxConsumers threads.
 inline void plan_columns(StagePlan& p, int W) {
-  p.direct = 0;
+  p.direct = p.margin = p.ahead = 0;
+  p.own = 1;
+  p.span = W;
   p.cpt = W > kMaxConsumers ? 2 : 1;
   const int per = ((W + p.cpt - 1) / p.cpt + 31) / 32 * 32;
   p.consumers = per < kMaxConsumers ? per : kMaxConsumers;
@@ -179,20 +193,23 @@ inline void plan_columns(StagePlan& p, int W) {
 // Stages and ring: the N planes in ceil(N / G) stages of equal size, G the
 // largest at most kGroup for which one stage fits beside the dummy row,
 // `extra` bytes and `per_row` bytes for each row of a stage; then as many
-// stages in the ring as fit, at most a whole row.  False if not one plane
-// row fits.  plan_columns must have run (sweeps depend on chunks).
-inline bool plan_slots(StagePlan& p, int N, int W, int sweeps, size_t extra, size_t per_row = 0) {
+// stages in the ring as fit, at most a whole row.  Slot rows hold p.span
+// columns.  False if not one plane row fits.  plan_columns must have run
+// (sweeps depend on chunks).  The direct path never keeps a whole row: each
+// sweep reads a window of its own.
+inline bool plan_slots(StagePlan& p, int N, int sweeps, size_t extra, size_t per_row = 0) {
+  const size_t row = 4 * (size_t)row_pitch(p.span);
   for (int most = kGroup; most >= 1; --most) {
     const int g = (N + (N + most - 1) / most - 1) / ((N + most - 1) / most);
     const int stages = (N + g - 1) / g;
-    const size_t fixed = extra + 4 * (size_t)row_pitch(W) + per_row * g;  // and the dummy row
-    const size_t slot = 16 + 4 * (size_t)row_pitch(W) * g;               // two mbarriers and G plane rows
+    const size_t fixed = extra + row + per_row * g;  // and the dummy row
+    const size_t slot = 16 + row * g;               // two mbarriers and G plane rows
     if (fixed + slot > kMaxSmemBytes) continue;
     size_t r = (kMaxSmemBytes - fixed) / slot;
     if (r > (size_t)stages) r = stages;
     p.group = g;
     p.slots = (int)r;
-    p.whole = p.slots == stages;
+    p.whole = p.slots == stages && !p.direct;
     p.sweeps = sweeps;
     p.loads = p.whole ? stages : sweeps * stages;
     p.smem = (int)(r * slot + fixed);
@@ -201,10 +218,42 @@ inline bool plan_slots(StagePlan& p, int N, int W, int sweeps, size_t extra, siz
   return false;
 }
 
+// The direct path's settings, once the staged plans are found not to fit:
+// chunks' windows of `margin` columns on each side, `ahead` and `own` sweeps
+// a chunk (see sweep_chunk).  False where the margin does not fit: it must
+// be a multiple of 4 (the windows' copies stay 16-byte aligned) and at most
+// a chunk, since the statistics of other columns are kept for the chunks
+// before and after the current one only.  Only with cpt = 2 (W > 640).
+inline bool plan_direct(StagePlan& p, int margin, int ahead, int own) {
+  const int cw = p.cpt * p.consumers;
+  if (p.cpt != 2 || margin < 0 || margin % 4 || margin > cw) return false;
+  p.direct = 1;
+  p.margin = margin;
+  p.span = cw + 2 * margin;
+  p.ahead = ahead;
+  p.own = own;
+  return true;
+}
+
 // The plan's fields in order, for the C entries that report it.
+constexpr int kPlanFields = 11;
 inline void plan_fields(const StagePlan& p, int* out) {
-  const int v[10] = {p.consumers, p.cpt, p.chunks, p.group, p.slots, p.whole, p.sweeps, p.loads, p.smem, p.direct};
-  for (int i = 0; i < 10; ++i) out[i] = v[i];
+  const int v[kPlanFields] = {p.consumers, p.cpt,   p.chunks, p.group,  p.slots, p.whole,
+                              p.sweeps,    p.loads, p.smem,   p.direct, p.margin};
+  for (int i = 0; i < kPlanFields; ++i) out[i] = v[i];
+}
+
+// The chunk whose window sweep s of an image row reads, on the direct path:
+// chunk s / own without `ahead`; with it, chunk 0's ahead sweep, then for
+// each chunk c the ahead sweep of c + 1 (while there is one) and c's own
+// sweeps.  So the statistics a chunk's own sweeps read at other columns
+// (within a margin, so in chunks c - 1 .. c + 1) are complete.
+__host__ __device__ inline int sweep_chunk(const StagePlan& p, int s) {
+  if (!p.ahead) return s / p.own;
+  if (s == 0) return 0;
+  const int t = s - 1, c = t / (p.own + 1);
+  if (c >= p.chunks - 1) return p.chunks - 1;
+  return t % (p.own + 1) == 0 ? c + 1 : c;
 }
 
 // Column x of chunk c, sub-column k, for consumer thread i (W or more: none).
@@ -227,7 +276,7 @@ struct RowStage {
   uint32_t full, empty, slots_u32;  // shared addresses
   const float* slots;
   const float* dummy;  // column 0 of a row of kNoLogit: the rows of a short stage past its last plane
-  int W, P, G, R;      // columns, row pitch, rows per stage, slots
+  int P, G, R;         // row pitch (of p.span columns), rows per stage, slots
   // column 0 of the stage's first row; row i starts P floats after row i - 1
   __device__ __forceinline__ const float* rows(uint32_t s) const { return slots + (size_t)s * G * P + 4; }
 };
@@ -236,15 +285,13 @@ struct RowStage {
 // zero all of it (the rows' guards stay zero: copies write columns 0 .. W-1
 // only), fill the dummy row and initialise the barriers.  All threads call
 // this, then sync; `extra` points past the dummy row.
-__device__ __forceinline__ RowStage stage_init(unsigned char* smem, const StagePlan& p, int W, bool bulk,
-                                               float** extra) {
+__device__ __forceinline__ RowStage stage_init(unsigned char* smem, const StagePlan& p, bool bulk, float** extra) {
   for (int i = threadIdx.x; i < p.smem / 16; i += blockDim.x) reinterpret_cast<float4*>(smem)[i] = float4{};
   __syncthreads();
   RowStage st;
   st.R = p.slots;
   st.G = p.group;
-  st.W = W;
-  st.P = row_pitch(W);
+  st.P = row_pitch(p.span);
   st.full = smem_u32(smem);
   st.empty = st.full + 8 * p.slots;
   st.slots = reinterpret_cast<const float*>(smem + 16 * p.slots);
@@ -265,28 +312,39 @@ __device__ __forceinline__ RowStage stage_init(unsigned char* smem, const StageP
 
 // The producer warp: for each of the block's image rows, plan.loads stages
 // in the order the consumers read them; stage j holds planes
-// (j mod ceil(N/G)) * G onwards, at most G of them.
+// (j mod ceil(N/G)) * G onwards, at most G of them: whole plane rows, or on
+// the direct path the columns of sweep j / ceil(N/G)'s window that lie in
+// [0, W) (the rest of the slot row is never read).
 __device__ __forceinline__ void produce_rows(const RowStage& st, const StagePlan& p, const float* __restrict__ logits,
-                                             int N, int H, int rows, bool bulk) {
+                                             int N, int H, int W, int rows, bool bulk) {
   const int lane = threadIdx.x % 32;
   if (bulk && lane != 0) return;
-  const uint32_t bytes = 4 * st.W, pitch = 4 * st.P;
-  const size_t plane = (size_t)H * st.W;
+  const uint32_t pitch = 4 * st.P;
+  const size_t plane = (size_t)H * W;
+  const int stages = (N + st.G - 1) / st.G, chunk_cols = p.cpt * p.consumers;
   Ring ring;
   for (int row = blockIdx.x; row < rows; row += gridDim.x) {
     const int b = row / H, y = row - b * H;
-    const float* src0 = logits + ((size_t)b * N * H + y) * st.W;
+    const float* src0 = logits + ((size_t)b * N * H + y) * W;
     for (int j = 0, n0 = 0; j < p.loads; ++j) {
       const int g = N - n0 < st.G ? N - n0 : st.G;
-      const uint32_t full = st.full + 8 * ring.slot, dst = st.slots_u32 + ring.slot * st.G * pitch + 16;
-      const float* src = src0 + n0 * plane;
+      int lo = 0, hi = W, off = 0;  // columns [lo, hi) to slot column off
+      if (p.direct) {
+        const int ws = sweep_chunk(p, j / stages) * chunk_cols - p.margin;
+        lo = max(ws, 0);
+        hi = min(ws + p.span, W);
+        off = lo - ws;
+      }
+      const uint32_t bytes = 4 * (hi - lo);
+      const uint32_t full = st.full + 8 * ring.slot, dst = st.slots_u32 + ring.slot * st.G * pitch + 16 + 4 * off;
+      const float* src = src0 + n0 * plane + lo;
       mbar_wait(st.empty + 8 * ring.slot, ring.phase ^ 1);
       if (bulk) {
         mbar_expect_tx(full, g * bytes);
         for (int i = 0; i < g; ++i) bulk_load(dst + i * pitch, src + i * plane, bytes, full);
       } else {
         for (int i = 0; i < g; ++i)
-          for (int x = lane; x < st.W; x += 32) cp_async_4(dst + i * pitch + 4 * x, src + i * plane + x, true);
+          for (int x = lane; x < hi - lo; x += 32) cp_async_4(dst + i * pitch + 4 * x, src + i * plane + x, true);
         cp_async_arrive(full);
       }
       ring.next(st.R);
@@ -383,6 +441,29 @@ __device__ __forceinline__ float lerp_at(const float* v, int j, float t, int W) 
   const float a = pad(v, j, W);
   return fmaf(t, pad(v, j + 1, W) - a, a);
 }
+
+// Reads of a slot row v at image column j, zero outside [0, W): the whole
+// row (kWin false; column 0 at v[0], reads clamped into its zero guards), or
+// on the direct path a chunk's window (column ws at v[0]).  The window holds
+// every column in [0, W) that a read of its chunk reaches; the index is
+// clamped into the window all the same.
+template <bool kWin>
+struct RowCols {
+  int W, ws, span;
+  // column j, 0 <= j < W
+  __device__ __forceinline__ float in(const float* v, int j) const { return kWin ? v[j - ws] : v[j]; }
+  // the lerp gather (1-t) v[j] + t v[j+1]
+  __device__ __forceinline__ float lerp(const float* v, int j, float t) const {
+    if (!kWin) return lerp_at(v, j, t, W);
+    const float a = win(v, j);
+    return fmaf(t, win(v, j + 1) - a, a);
+  }
+
+ private:
+  __device__ __forceinline__ float win(const float* v, int j) const {
+    return (unsigned)j < (unsigned)W ? v[min(max(j - ws, 0), span - 1)] : 0.f;
+  }
+};
 
 // An image row in shared memory holds one float4 per column (channels 0..3,
 // zero past C) from column -1 to W, zero at -1 and W: one 16-byte load reads

@@ -7,7 +7,8 @@ in :mod:`fal_net_torch.data.loader` and the Evaluator.  Split-list files:
 the Eigen splits are bundled (:mod:`fal_net_torch.data.lists`) and used
 when no directory is given; pass ``lists_dir`` or set ``FAL_NET_LISTS_DIR``
 to read plain "left.png right.png" lines from files instead.  Images and
-16-bit depth PNGs decode with PIL, Make3D's .mat files with scipy.
+16-bit PNGs decode with the native decoder (:mod:`fal_net_torch.native.io`)
+where it builds, else with PIL; Make3D's .mat files with scipy.
 """
 
 from __future__ import annotations
@@ -24,6 +25,17 @@ from fal_net_torch.data.transforms import Compose, normalize
 
 
 def _imread(path: str) -> np.ndarray:
+    """Decode one image file: with the native decoder (GIL-free libpng and
+    libjpeg, the same pixels as PIL) where it is available, else with PIL;
+    also with PIL for a file the native decoder rejects (e.g. CMYK JPEGs,
+    which libjpeg does not convert to RGB), as fal_net_tpu's loader does."""
+    from fal_net_torch.native import io as native_io
+
+    if native_io.available():
+        try:
+            return native_io.imread(path)
+        except (ValueError, RuntimeError):
+            pass
     with Image.open(path) as im:
         return np.asarray(im)
 
@@ -39,14 +51,32 @@ def load_depth_npy(path: str) -> np.ndarray:
 
 
 def load_kitti_flow_png(path: str) -> np.ndarray:
-    """KITTI optical-flow PNGs are 16-bit RGB (u, v fixed point and a
-    validity channel).  PIL reads 16-bit RGB only as 8 bits, which corrupts
-    the encoding, and the port has no other decoder yet: this raises.  No
-    evaluation reads flow (the Evaluator uses targets[0], the disparity)."""
-    raise NotImplementedError(
-        f"{path}: KITTI flow PNGs are 16-bit RGB, which PIL reads as 8 bits; fal_net_torch has no "
-        "16-bit RGB decoder yet (ROADMAP.md queue 1, item 7: native/io)"
-    )
+    """A KITTI optical-flow PNG: uint16 RGB with u = (R - 2^15) / 64,
+    v = (G - 2^15) / 64 and B the validity mask.  Returns (H, W, 3) float32
+    [u, v, valid], u and v zero where invalid.
+
+    PIL reads 16-bit RGB PNGs as 8 bits, which corrupts the fixed-point
+    encoding: this reads them with the native decoder, or where it did not
+    build with :mod:`fal_net_torch.native.png16`.  It raises on a PNG that
+    is not 3 channels of uint16 (an 8-bit file)."""
+    from fal_net_torch.native import io as native_io, png16
+
+    if native_io.available():
+        raw = native_io.imread(path)  # RGB channel order
+    else:
+        with open(path, "rb") as f:
+            buf = f.read()
+        try:
+            raw = png16.decode(buf)
+        except ValueError as e:
+            raise ValueError(f"not a KITTI flow PNG (need 3 uint16 channels): {path}: {e}") from e
+    if raw.ndim != 3 or raw.shape[-1] < 3 or raw.dtype != np.uint16:
+        raise ValueError(f"not a KITTI flow PNG (need 3 uint16 channels): {path}")
+    rgb = raw.astype(np.float32)
+    u = (rgb[..., 0] - 2.0**15) / 64.0
+    v = (rgb[..., 1] - 2.0**15) / 64.0
+    valid = (rgb[..., 2] > 0).astype(np.float32)
+    return np.stack([u * valid, v * valid, valid], axis=-1)
 
 
 def load_make3d_depth(path: str) -> np.ndarray:

@@ -141,20 +141,10 @@ class Evaluator:
             checks.append(("disp", height, width))
         elif cfg.ms_post_process:
             checks.append(("disp", int(height * MS_UP_FAC), int(width * MS_UP_FAC)))
-        from fal_net_torch.ops.med_kernel import describe_plan
-        from fal_net_torch.ops.med_selfcheck import med_selfcheck
+        from fal_net_torch.ops.med_selfcheck import gate_k1
 
-        for key in checks:
-            if key in self.med_checked:
-                continue
-            mode, h, w = key
-            err = med_selfcheck(h, w, model.num_levels, [self.bounds[0]], [self.bounds[1]], self.device,
-                                modes=(mode,), backward=False)
-            self.med_checked[key] = err
-            plan = describe_plan("med_fwd", model.num_levels, 3, w, disp=True, pan="pan" in mode,
-                                 subocc="subocc" in mode)
-            print(f"=> MED kernel K1 {mode} agrees with the plain head at {h}x{w}, N={model.num_levels}: "
-                  f"max abs err {err:.3e} [{plan}]")
+        for mode, h, w in checks:
+            gate_k1(self.med_checked, mode, h, w, model.num_levels, self.bounds, self.device)
 
     def _step(self, left: torch.Tensor, artifacts: bool):
         """One (B, H, W, C) batch on the device: normalize (raw uint8), the

@@ -157,6 +157,14 @@ def image_rmse(output: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.mean(torch.square(_denorm255(output) - (label + _mean(label)) * 255.0)))
 
 
+def image_rmse_np(output: np.ndarray, label: np.ndarray) -> float:
+    """:func:`image_rmse` on the host for fetched HWC images, per image: the
+    validation's view-synthesis RMSE, with no device round trip a frame."""
+    mean = np.asarray(RGB_MEAN, output.dtype)
+    out = np.clip((output + mean) * 255.0, 0.0, 255.0)
+    return float(np.sqrt(np.mean(np.square(out - (label + mean) * 255.0))))
+
+
 def image_mae(output: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(_denorm255(output) - (label + _mean(label)) * 255.0))
 

@@ -1,3 +1,2 @@
-"""Losses of the stage-1 path: masked L1 (+ perceptual) reconstruction and
-edge-aware smoothness.  The VGG19 perceptual network waits until its
-weights are in the repository."""
+"""Losses of the training stages: masked L1 (+ VGG19 perceptual)
+reconstruction, edge-aware smoothness, and the sparse EPE of evaluation."""

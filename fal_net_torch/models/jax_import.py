@@ -1,4 +1,5 @@
-"""Carry weights from fal_net_tpu's parameter tree into the port.
+"""Carry weights from fal_net_tpu's parameter trees into the port: the
+models' and the VGG19 perceptual net's.
 
 The port's modules have the reference's ``state_dict`` key layout, so
 fal_net_tpu.models.torch_import.convert_state_dict maps a port state_dict
@@ -55,4 +56,19 @@ def state_dict_from_jax(params: Mapping[str, Any], variant: str) -> Dict[str, np
         sd[f"{bk}.amask_conv.2.weight"] = _hwio_to_oihw(src["amask_conv2_kernel"])
     sd["conv0.weight"] = _hwio_to_oihw(params["logits_1x1"]["kernel"])
     sd["conv0.bias"] = np.array(params["logits_1x1"]["bias"])
+    return sd
+
+
+def vgg_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """fal_net_tpu's VGG19 feature params (``{"params": {"conv{i}": {"kernel"
+    (HWIO), "bias"}}}`` or the inner dict) -> the state_dict of
+    :class:`fal_net_torch.losses.vgg.Vgg19Features` (``features.{i}.weight``
+    OIHW, ``features.{i}.bias``), i the torchvision index; the inverse of
+    fal_net_tpu.losses.vgg.convert_torch_vgg19."""
+    src = params.get("params", params)
+    sd: Dict[str, np.ndarray] = {}
+    for name, leaf in src.items():
+        idx = int(name[len("conv"):])
+        sd[f"features.{idx}.weight"] = _hwio_to_oihw(leaf["kernel"])
+        sd[f"features.{idx}.bias"] = np.array(leaf["bias"])
     return sd

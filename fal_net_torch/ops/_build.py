@@ -118,11 +118,11 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.med_fwd, lib.med_bwd):
-        fn.argtypes = [p] * 7 + [i] * 9 + [p]
+        fn.argtypes = [p] * 7 + [i] * 10 + [p]
     lib.conv3x3_wgmma.argtypes = [p] * 3 + [i] * 5 + [p]
     lib.roll_window.argtypes = [p] * 3 + [i] * 4 + [p]
-    lib.med_fwd_plan.argtypes = [i] * 6 + [p]
-    lib.med_bwd_plan.argtypes = [i] * 6 + [p]
+    lib.med_fwd_plan.argtypes = [i] * 7 + [p]
+    lib.med_bwd_plan.argtypes = [i] * 7 + [p]
     for fn in (lib.med_fwd, lib.med_bwd, lib.conv3x3_wgmma, lib.roll_window, lib.med_fwd_plan, lib.med_bwd_plan):
         fn.restype = i
     return lib

@@ -11,7 +11,10 @@ else raises here.  The plain versions are
 Both kernels stage plane rows in shared memory (csrc/med_stage.cuh); their
 C entries plan the staging, own the size limits that follow from it and
 refuse, launching nothing, what does not fit (the wrapper raises
-ValueError).  :func:`stage_plan` reports a plan.
+ValueError).  :func:`stage_plan` reports a plan.  Rows too wide for whole
+plane rows take the direct path, which stages each column chunk's window
+with a margin of :func:`shift_margin` columns on each side: no width is
+refused there, only a margin wider than a chunk (disparities past ~1,276 px).
 
 ``MedForward.launches`` and ``MedForward.bwd_launches`` count the launches of
 K1 and K2, so that a run can show that its main path went through them;
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import numbers
 
 import torch
@@ -117,25 +121,57 @@ def _check_bwd(logits, image, g_disp, g_pan):
             raise ValueError(f"{name} must be float32 on {logits.device}, got {g.dtype} on {g.device}")
 
 
-PLAN_FIELDS = ("consumers", "cpt", "chunks", "group", "slots", "whole", "sweeps", "loads", "smem", "direct")
+PLAN_FIELDS = ("consumers", "cpt", "chunks", "group", "slots", "whole", "sweeps", "loads", "smem", "direct", "margin")
 
 
-def stage_plan(kernel: str, n: int, c: int, w: int, *, disp=True, pan=False, subocc=False, image_grad=False) -> dict:
+def shift_margin(largest_disp: float, width: int) -> int:
+    """Columns the direct path's chunk windows hold on each side for
+    disparities of magnitude up to ``largest_disp``: the largest |floor| of
+    a plane shift d (W-1)/W is at most ceil(|d|) (the tables clamp floors at
+    W + 1), plus the lerp's second column and the masks' neighbour, rounded
+    up to a multiple of 4 so that the windows' copies stay 16-byte aligned."""
+    m = min(math.ceil(abs(largest_disp)), width + 1) + 2
+    return (m + 3) // 4 * 4
+
+
+def _flags(kernel, disp, pan, subocc, image_grad):
+    return int(disp), int(pan), int(subocc if kernel == "med_fwd" else image_grad)
+
+
+def _shifted(kernel, flags) -> bool:
+    """Whether a kernel reads other columns than its own: K1 with pan or
+    subocc, K2 with pan cotangents.  Without, its windows need no margin."""
+    return bool(flags[1] or (kernel == "med_fwd" and flags[2]))
+
+
+def _plan(kernel, n, c, w, flags, margin):
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    if getattr(load_library(), f"{kernel}_plan")(n, c, w, *flags, margin, out) != 0:
+        return None
+    return dict(zip(PLAN_FIELDS, out))
+
+
+def stage_plan(kernel: str, n: int, c: int, w: int, *, disp=True, pan=False, subocc=False, image_grad=False,
+               max_disp: float = 300.0) -> dict:
     """The staging plan the C entry of ``kernel`` ("med_fwd" or "med_bwd")
     launches with at N = ``n``, C = ``c``, W = ``w`` and the given outputs
-    (K1: disp, pan, subocc) or cotangents (K2: disp, pan, image_grad), from
-    the built library: consumer threads, columns per thread, column chunks,
-    plane rows per stage, ring slots (stages), whether the whole row is
-    staged (each plane row loaded once per image row), sweeps over the
-    planes, stage loads per image row, dynamic shared-memory bytes, and
-    whether the kernel reads the image row (and K2 the g_pan row) from
-    device memory instead of staging it (rows too wide; see csrc/med_fwd.cu
-    and csrc/med_bwd.cu).  Raises ValueError for sizes the kernel refuses."""
-    out = (ctypes.c_int * len(PLAN_FIELDS))()
-    flags = (int(disp), int(pan), int(subocc if kernel == "med_fwd" else image_grad))
-    if getattr(load_library(), f"{kernel}_plan")(n, c, w, *flags, out) != 0:
-        raise ValueError(f"{kernel} takes no plan at N={n}, C={c}, W={w} with these outputs or cotangents")
-    return dict(zip(PLAN_FIELDS, out))
+    (K1: disp, pan, subocc) or cotangents (K2: disp, pan, image_grad), for
+    disparities of magnitude up to ``max_disp``, from the built library:
+    consumer threads, columns per thread, column chunks, plane rows per
+    stage, ring slots (stages), whether the whole row is staged (each plane
+    row loaded once per image row), sweeps over the planes, stage loads per
+    image row, dynamic shared-memory bytes, whether the kernel takes the
+    direct path (rows too wide: chunk windows in the slots, the image row
+    and K2's g_pan row read from device memory; see csrc/med_fwd.cu and
+    csrc/med_bwd.cu) and its windows' margin.  Raises ValueError for sizes
+    the kernel refuses."""
+    flags = _flags(kernel, disp, pan, subocc, image_grad)
+    margin = shift_margin(max_disp, w) if _shifted(kernel, flags) else 0
+    p = _plan(kernel, n, c, w, flags, margin)
+    if p is None:
+        raise ValueError(f"{kernel} takes no plan at N={n}, C={c}, W={w} with these outputs or cotangents "
+                         f"and a shift margin of {margin} columns")
+    return p
 
 
 def describe_plan(kernel: str, n: int, c: int, w: int, **flags) -> str:
@@ -144,12 +180,48 @@ def describe_plan(kernel: str, n: int, c: int, w: int, **flags) -> str:
     path = "whole row" if p["whole"] else f"ring of {p['slots']}"
     copy = "bulk copies" if w % 4 == 0 else "cp.async"
     rows = "image and g_pan rows" if kernel == "med_bwd" else "image row"
-    direct = f", {rows} from device memory" if p["direct"] else ""
+    span = p["cpt"] * p["consumers"] + 2 * p["margin"]
+    direct = (f", chunk windows of {span} columns (margin {p['margin']}), {rows} from device memory"
+              if p["direct"] else "")
     return (f"{path} in stages of {p['group']}, {p['chunks']} chunk(s), {p['loads']} stage loads a row, "
             f"{copy}, {p['smem']} B{direct}")
 
 
-def _launch(logits, image, tables, tab_stride, want_disp, want_pan, want_subocc):
+@functools.lru_cache(maxsize=256)
+def _takes_direct(kernel, n, c, w, flags) -> bool:
+    """Whether the kernel's staged plans do not fit at these sizes, so that
+    it takes the direct path (host-only: the C plan entry)."""
+    p = _plan(kernel, n, c, w, flags, 0)
+    return p is not None and bool(p["direct"])
+
+
+def _largest(v) -> float:
+    return abs(float(v)) if _is_number(v) else float(v.detach().abs().max())
+
+
+def _margin(kernel, n, c, w, flags, min_disp, max_disp) -> int:
+    """The window margin to launch with: 0 on the staged paths and for a
+    kernel that reads no other column, else :func:`shift_margin` of the
+    bounds (per-sample bound tensors: their largest magnitude; read from the
+    card only on the direct path)."""
+    if not _shifted(kernel, flags) or not _takes_direct(kernel, n, c, w, flags):
+        return 0
+    return shift_margin(max(_largest(min_disp), _largest(max_disp)), w)
+
+
+def _launch_sized(name, device, margin, *args):
+    """:func:`launch` with the margin last; a refusal on the direct path
+    names the margin, the only size it can refuse there."""
+    try:
+        launch(name, device, *args, margin)
+    except ValueError as e:
+        if margin:
+            raise ValueError(f"{name}: a shift margin of {margin} columns does not fit the direct path's "
+                             f"chunk windows (at most 1280 a side): sizes beyond the kernel's limits") from e
+        raise
+
+
+def _launch(logits, image, tables, tab_stride, want_disp, want_pan, want_subocc, margin):
     b, n, h, w = logits.shape
     c = image.shape[1]
 
@@ -159,8 +231,8 @@ def _launch(logits, image, tables, tab_stride, want_disp, want_pan, want_subocc)
     disp, pan = out(1, want_disp), out(c, want_pan)
     mask_l, mask_r = out(1, want_subocc), out(1, want_subocc)
     dptr = lambda t: 0 if t is None else t.data_ptr()
-    launch(
-        "med_fwd", logits.device, logits.data_ptr(), image.data_ptr(),
+    _launch_sized(
+        "med_fwd", logits.device, margin, logits.data_ptr(), image.data_ptr(),
         dptr(disp), dptr(pan), dptr(mask_l), dptr(mask_r),
         tables.data_ptr(), tab_stride,
         b, n, c, h, w, int(want_disp), int(want_pan), int(want_subocc),
@@ -171,15 +243,15 @@ def _launch(logits, image, tables, tab_stride, want_disp, want_pan, want_subocc)
     return disp, pan, mask_l, mask_r
 
 
-def _launch_bwd(logits, image, g_disp, g_pan, tables, tab_stride, image_grad):
+def _launch_bwd(logits, image, g_disp, g_pan, tables, tab_stride, image_grad, margin):
     b, n, h, w = logits.shape
     c = image.shape[1]
     want_gimg = image_grad and g_pan is not None
     g_logits = torch.empty_like(logits)
     g_image = torch.empty_like(image) if want_gimg else None
     dptr = lambda t: 0 if t is None else t.data_ptr()
-    launch(
-        "med_bwd", logits.device, logits.data_ptr(), image.data_ptr(), dptr(g_disp), dptr(g_pan),
+    _launch_sized(
+        "med_bwd", logits.device, margin, logits.data_ptr(), image.data_ptr(), dptr(g_disp), dptr(g_pan),
         g_logits.data_ptr(), dptr(g_image), tables.data_ptr(), tab_stride,
         b, n, c, h, w, int(g_disp is not None), int(g_pan is not None), int(want_gimg),
     )
@@ -197,26 +269,36 @@ class MedForward(torch.autograd.Function):
     bwd_launches = 0  # K2
 
     @staticmethod
-    def forward(ctx, logits, image, tables, tab_stride, want_disp, want_pan, want_subocc):
-        outs = _launch(logits, image, tables, tab_stride, want_disp, want_pan, want_subocc)
+    def forward(ctx, logits, image, tables, tab_stride, want_disp, want_pan, want_subocc, bound):
+        _, n, _, w = logits.shape
+        margin = _margin("med_fwd", n, image.shape[1], w, (int(want_disp), int(want_pan), int(want_subocc)), *bound)
+        outs = _launch(logits, image, tables, tab_stride, want_disp, want_pan, want_subocc, margin)
         ctx.mark_non_differentiable(*(t for t in outs[2:] if t is not None))
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(logits, image, tables)
         ctx.tab_stride = tab_stride
+        ctx.bound = bound
         return outs
 
     @staticmethod
     def backward(ctx, g_disp, g_pan, _g_mask_l, _g_mask_r):
         if g_disp is None and g_pan is None:
-            return (None,) * 7
+            return (None,) * 8
         logits, image, tables = ctx.saved_tensors
         g_disp = None if g_disp is None else g_disp.contiguous()
         g_pan = None if g_pan is None else g_pan.contiguous()
         _check_bwd(logits, image, g_disp, g_pan)
-        g_logits, g_image = _launch_bwd(
-            logits, image, g_disp, g_pan, tables, ctx.tab_stride, ctx.needs_input_grad[1]
-        )
-        return g_logits, g_image, None, None, None, None, None
+        g_logits, g_image = _bwd(logits, image, g_disp, g_pan, tables, ctx.tab_stride, ctx.needs_input_grad[1],
+                                 ctx.bound)
+        return g_logits, g_image, None, None, None, None, None, None
+
+
+def _bwd(logits, image, g_disp, g_pan, tables, tab_stride, image_grad, bound):
+    _, n, _, w = logits.shape
+    want_gimg = image_grad and g_pan is not None
+    flags = (int(g_disp is not None), int(g_pan is not None), int(want_gimg))
+    margin = _margin("med_bwd", n, image.shape[1], w, flags, *bound)
+    return _launch_bwd(logits, image, g_disp, g_pan, tables, tab_stride, image_grad, margin)
 
 
 def med_outputs_fused(
@@ -237,7 +319,7 @@ def med_outputs_fused(
     _, n, _, w = logits.shape
     tables, tab_stride = _device_tables(min_disp, max_disp, n, w, logits.device)
     disp, pan, mask_l, mask_r = MedForward.apply(
-        logits, image, tables, tab_stride, ret_disp, ret_pan, ret_subocc
+        logits, image, tables, tab_stride, ret_disp, ret_pan, ret_subocc, (min_disp, max_disp)
     )
     return MedOutputs(pan=pan, disp=disp, maskL=mask_l, maskR=mask_r)
 
@@ -260,4 +342,4 @@ def med_vjp_fused(
     _check_bwd(logits, image, g_disp, g_pan)
     _, n, _, w = logits.shape
     tables, tab_stride = _device_tables(min_disp, max_disp, n, w, logits.device)
-    return _launch_bwd(logits, image, g_disp, g_pan, tables, tab_stride, image_grad)
+    return _bwd(logits, image, g_disp, g_pan, tables, tab_stride, image_grad, (min_disp, max_disp))

@@ -99,3 +99,23 @@ def med_selfcheck(
                 f"{list(max_disp)}: max abs err {err:.3e} (rtol {rtol}, atol {atol})"
             )
     return worst
+
+
+def gate_k1(checked: dict, mode: str, height: int, width: int, num_levels: int, bounds, device, *,
+            seed: int = 0, where: str = "") -> None:
+    """K1 in ``mode`` at one (height, width) against the plain head, once:
+    ``checked`` maps each (mode, height, width) already held to its largest
+    error, and a new one is added.  One sample at the number ``bounds``
+    (min, max); raises :class:`MedSelfcheckError` on disagreement.  The
+    Evaluator gates each shape its batches launch K1 at, the trainer each
+    validation frame shape."""
+    key = (mode, height, width)
+    if key in checked:
+        return
+    err = med_selfcheck(height, width, num_levels, [bounds[0]], [bounds[1]], device, seed=seed, modes=(mode,),
+                        backward=False)
+    checked[key] = err
+    plan = med_kernel.describe_plan("med_fwd", num_levels, 3, width, disp=True, pan="pan" in mode,
+                                    subocc="subocc" in mode)
+    print(f"=> MED kernel K1 {mode} agrees with the plain head at {where}{height}x{width}, N={num_levels}: "
+          f"max abs err {err:.3e} [{plan}]")

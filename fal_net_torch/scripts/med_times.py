@@ -5,10 +5,11 @@
 K1 (disp, disp+pan and disp+pan+subocc at (8, 49, 384, 1280); disp+pan at
 (8, 49, 192, 640); disp at the evaluation's KITTI shapes (8, 49, 375, 1242)
 and its 2/3 shape (8, 49, 250, 828); where the package has K1's direct path,
-disp+pan at (8, 49, 16, 11572) beside the ring at (8, 49, 16, 1500)), K2 (disp+pan cotangents, without and with the image
-gradient, at (8, 49, 192, 640); and, where the package has K2's direct
-path, at (8, 49, 16, 5000) beside the ring at (8, 49, 16, 1500), the same
-per logit), the FAL_netB N=49 disp forward at batch 8
+disp+pan at (8, 49, 16, 11572) beside the ring at (8, 49, 16, 1500)), K2
+(disp+pan cotangents, without and with the image gradient, at
+(8, 49, 192, 640); and, where the package has K2's direct path, at
+(8, 49, 16, 5000) and (8, 49, 16, 11572) beside the ring at
+(8, 49, 16, 1500), the same per logit), the FAL_netB N=49 disp forward at batch 8
 and 384x1280, and the stage-1 training step at batch 8 and 192x640: CUDA
 events around one call, median of 50 calls after warm-up, on inputs and
 weights from seed 0.  Prints one JSON object with the card's name.
@@ -71,12 +72,12 @@ def main(argv=None) -> dict:
         except ValueError:  # a version without K1's direct path refuses W = 11572
             pass
         del kl, ki
-    for w in (1500, 5000):  # K2's ring, and its direct path (image rows unstaged)
+    for w in (1500, 5000, 11572):  # K2's ring, and its direct path (image rows unstaged)
         wl, wi, wd, wp = (torch.from_numpy(wide.standard_normal((B, c, 16, w), np.float32)).to(dev) for c in (N, 3, 1, 3))
         try:
             out[f"k2 disp+pan (16, {w})"] = median_ms(lambda: med_vjp_fused(wl, wi, 2.0, 300.0, wd, wp,
                                                                           image_grad=False), REPS)
-        except ValueError:  # a version without the direct path refuses W = 5000
+        except ValueError:  # a version without the direct path refuses W = 5000 (older ones 11572 too)
             pass
         del wl, wi, wd, wp
 

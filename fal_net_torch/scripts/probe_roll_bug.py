@@ -7,8 +7,10 @@ that wrap (wp - 1, -3, wp + 5).
 A zero row of wp columns holds x (8, 128) at [128, 256); the kernel rolls
 it left by f, read from device memory, and reads the window back.  Each
 (wp, f) must equal numpy's roll of the same row exactly, and so must the
-plain version.  Prints one line per wp, the kernel's and the plain
-version's times at wp = 640 (median of 20 calls), and ``ROLL PROBE: PASS``
+plain version.  Prints one line per wp, the kernel's, the plain
+version's and ``torch.roll``'s times at wp = 640 (median of 20 calls; the
+library call rolls the zero-padded row, made once, and its window is a
+view), and ``ROLL PROBE: PASS``
 or ``FAIL``; exits nonzero on FAIL.  x comes from seed 0.  Runs on the GPU
 only.
 """
@@ -65,11 +67,16 @@ def main(argv=None) -> dict:
 
     ms = median_ms(launch, reps=REPS)
     plain_ms = median_ms(lambda: roll_window_plain(x, ft, TIMED_WP, L), reps=REPS)
-    print(f"wp={TIMED_WP} f=17 ({H}, {W}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"[{torch.cuda.get_device_name(dev)}]", flush=True)
+    row = x.new_zeros((H, TIMED_WP))
+    row[:, L : L + W] = x
+    library = lambda: torch.roll(row, -17, dims=1)[:, L : L + W]
+    ok_all &= torch.equal(library(), roll_window_plain(x, ft, TIMED_WP, L))
+    library_ms = median_ms(library, reps=REPS)
+    print(f"wp={TIMED_WP} f=17 ({H}, {W}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.roll "
+          f"{library_ms:.4f} ms [{torch.cuda.get_device_name(dev)}]", flush=True)
     print("ROLL PROBE:", "PASS" if ok_all else "FAIL", flush=True)
-    return {"ok": ok_all, "ms": ms, "plain_ms": plain_ms, "calls": calls, "max_abs_err": worst,
-            "bytes": 4 * (2 * x.numel() + 1)}
+    return {"ok": ok_all, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "calls": calls,
+            "max_abs_err": worst, "bytes": 4 * (2 * x.numel() + 1)}
 
 
 if __name__ == "__main__":

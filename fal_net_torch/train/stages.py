@@ -58,6 +58,14 @@ def _stacked(bounds):
     return mn, mx
 
 
+def _label_features(vgg_fn, *images):
+    """VGG features of the real views, the perceptual term's labels: the
+    loss's constants, computed without autograd (the VGG is frozen and the
+    views are data, so no gradient reaches them either way)."""
+    with torch.no_grad():
+        return tuple(vgg_fn(im) for im in images)
+
+
 def _two_sided(left, right, ldisp, rdisp, lpan, rpan, rec_masks, a_p, a_sm, vgg_fn):
     """The reconstruction of both views and the smoothness of both
     disparities, each the mean of its two sides.  ``rec_masks`` is
@@ -65,7 +73,7 @@ def _two_sided(left, right, ldisp, rdisp, lpan, rpan, rec_masks, a_p, a_sm, vgg_
     w = left.shape[-1]
     x0, x1 = int(0.20 * w), int(0.80 * w)
     if a_p > 0 and vgg_fn is not None:
-        vgg_right, vgg_left = vgg_fn(right), vgg_fn(left)
+        vgg_right, vgg_left = _label_features(vgg_fn, right, left)
     else:
         vgg_right = vgg_left = None
     o_l, o_r = rec_masks
@@ -101,7 +109,7 @@ def stage1_loss(
     out = model(left, mn, mx, ret_disp=True, ret_pan=True)
     rpan, ldisp = out.pan, out.disp
 
-    vgg_right = vgg_fn(right) if (a_p > 0 and vgg_fn is not None) else None
+    vgg_right = _label_features(vgg_fn, right)[0] if (a_p > 0 and vgg_fn is not None) else None
     rec = rec_loss(1.0, rpan, right, vgg_right, a_p, vgg_fn)
 
     sm = torch.zeros((), device=left.device)

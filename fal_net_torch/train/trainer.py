@@ -8,34 +8,52 @@ its backward, once each per step (per microbatch with ``grad_accum``):
 stage 1 on the batch, stage 1 slow and stage 2 on the double batch
 [view | flipped other view], stage 2 with K1's sub-occlusion masks.  Stage
 2's frozen teacher (``fix_model``) adds one disp-only K1 launch per step,
-outside autograd.  Setup runs the MED kernel gate (ops/med_selfcheck.py) in
-every mode the run launches, which raises on a disagreement.  Validation,
-full-state resume and the perceptual term wait for later slices and raise
-here.
+outside autograd.  With ``a_p > 0`` the frozen VGG19 (losses/vgg.py) adds
+the perceptual term.  Setup runs the MED kernel gate (ops/med_selfcheck.py)
+in every mode the run launches, which raises on a disagreement.
+
+Validation mirrors Train_Stage1_K.py:279-347 on KITTI 2015: view-synthesis
+RMSE (the checkpoint-selection metric), sparse real EPE and the 7 KITTI
+depth metrics, through K1 in its disp + pan + subocc mode at the frames'
+own shapes, each gated once before its first batch (a disagreement raises;
+the JAX package validates through its plain head instead).  ``model_best``
+is the epoch of lowest RMSE, or of lowest train loss without validation.
+Checkpoints hold the full state (model, Adam, schedule, step), and
+``resume`` restores it and continues the run in its directory.
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import datetime
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from fal_net_torch.data.datasets import REGISTRY as DATASETS, TRAIN_FACTORIES
 from fal_net_torch.data.loader import DataLoader, prefetch_to_device
-from fal_net_torch.data.transforms import default_train_transform
+from fal_net_torch.data.transforms import RGB_MEAN, default_train_transform, normalize
+from fal_net_torch.eval.metrics import (
+    KITTI_ERROR_NAMES,
+    compute_kitti_errors,
+    disps_to_depths_kitti2015,
+    image_rmse_np,
+)
+from fal_net_torch.losses.epe import real_epe, real_epe_np
+from fal_net_torch.losses.vgg import build_vgg
 from fal_net_torch.models import create_model
 from fal_net_torch.models.checkpoint import load_model_any, read_state_dict
-from fal_net_torch.train.checkpoint import save_checkpoint
+from fal_net_torch.train.checkpoint import CKPT_NAME, load_checkpoint, save_checkpoint
 from fal_net_torch.train.config import Stage2Config, TrainConfig
 from fal_net_torch.train.stages import stage1_loss, stage1_slow_loss, stage2_loss
 from fal_net_torch.train.state import create_optimizer
 from fal_net_torch.utils.device import resolve_device
-from fal_net_torch.utils.meters import AverageMeter
+from fal_net_torch.utils.logging import MetricsLogger, dump_settings
+from fal_net_torch.utils.meters import AverageMeter, MultiAverageMeter
+from fal_net_torch.utils.viz import disp2rgb
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -47,18 +65,20 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 STAGES = ("stage1", "stage1_slow", "stage2")
 # K1's mode in each stage's student forward (ops/med_selfcheck.py MODES)
 STUDENT_MODE = {"stage1": "disp+pan", "stage1_slow": "disp+pan", "stage2": "disp+pan+subocc"}
+VAL_MODE = "disp+pan+subocc"  # K1's mode in validation
 
 
 class Trainer:
-    def __init__(self, cfg: TrainConfig, stage: str = "stage1", device="cuda"):
+    """``train_dataset`` / ``val_dataset`` replace the configured training
+    set and supply the validation set (``cli.train --val_root`` passes
+    KITTI 2015's); without a validation set, nothing is validated."""
+
+    def __init__(self, cfg: TrainConfig, stage: str = "stage1", device="cuda", train_dataset=None,
+                 val_dataset=None):
         if stage not in STAGES:
             raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
         if cfg.compute_dtype != "float32":
             raise not_ported(f"compute_dtype={cfg.compute_dtype!r}", "item 10")
-        if cfg.resume:
-            raise not_ported("full-state resume", "item 10")
-        if cfg.profile_steps:
-            raise not_ported("profile_steps", "item 10")
         if cfg.batch_size % cfg.grad_accum:
             raise ValueError(f"batch_size {cfg.batch_size} is not divisible by grad_accum {cfg.grad_accum}")
         self.cfg = cfg
@@ -68,24 +88,19 @@ class Trainer:
             cfg.model, cfg.num_levels, device=self.device,
             generator=torch.Generator().manual_seed(cfg.seed),
         )
+        self._external_train = train_dataset
+        self.val_dataset = val_dataset
+        self.logger: Optional[MetricsLogger] = None
+        self.resume_meta: Dict[str, Any] = {}
+        self.val_checked: Dict[Tuple[str, int, int], float] = {}  # K1 gate at validation: (mode, H, W) -> err
         self._setup_done = False
 
     def setup(self) -> None:
         cfg = self.cfg
         if cfg.pretrained:
             self.model.load_state_dict(read_state_dict(cfg.pretrained))
-        if cfg.a_p > 0:
-            if not (cfg.vgg_weights or cfg.allow_random_vgg):
-                # The reference always trains a_p>0 against pretrained
-                # ImageNet VGG features (loss_functions.py:10,48).
-                raise ValueError(
-                    f"a_p={cfg.a_p} > 0 enables the perceptual loss but no "
-                    "--vgg_weights were given.  Either supply a torchvision "
-                    "vgg19 state_dict (--vgg_weights path.pth), disable the "
-                    "term (--a_p 0), or explicitly opt into random-init VGG "
-                    "features with --allow_random_vgg."
-                )
-            raise not_ported("the perceptual term (losses/vgg.py)", "item 9")
+        # the frozen perceptual net, once, on the trainer's device
+        self.vgg = build_vgg(cfg.vgg_weights, cfg.allow_random_vgg, cfg.a_p, cfg.seed, self.device)
 
         # Stage 2's frozen teacher: any variant and N, never optimized.
         self.teacher = None
@@ -124,12 +139,15 @@ class Trainer:
                 print(f"=> MED kernels ({', '.join(modes)}{', K2' if backward else ''}) agree with their "
                       f"plain versions at {cfg.crop_size}, N={n}: max abs err {err:.3e}")
 
-        factory = DATASETS[cfg.dataset]
-        if factory not in TRAIN_FACTORIES:
-            train_names = sorted(k for k, f in DATASETS.items() if f in TRAIN_FACTORIES)
-            raise ValueError(f"dataset {cfg.dataset!r} is an evaluation set; training takes one of {train_names}")
-        train_ds, _ = factory(cfg.data_root, split=1, co_transform=default_train_transform(cfg.crop_size),
-                              max_pix=cfg.max_disp, fix=cfg.fix_order, lists_dir=cfg.lists_dir)
+        train_ds = self._external_train
+        if train_ds is None:
+            factory = DATASETS[cfg.dataset]
+            if factory not in TRAIN_FACTORIES:
+                train_names = sorted(k for k, f in DATASETS.items() if f in TRAIN_FACTORIES)
+                raise ValueError(
+                    f"dataset {cfg.dataset!r} is an evaluation set; training takes one of {train_names}")
+            train_ds, _ = factory(cfg.data_root, split=1, co_transform=default_train_transform(cfg.crop_size),
+                                  max_pix=cfg.max_disp, fix=cfg.fix_order, lists_dir=cfg.lists_dir)
         self.train_loader = DataLoader(
             train_ds, batch_size=cfg.batch_size, shuffle=True,
             num_workers=cfg.workers, seed=cfg.seed,
@@ -142,7 +160,9 @@ class Trainer:
                 f"{len(train_ds)} training pairs make no batch of {cfg.batch_size}"
             )
         self.steps_per_epoch = steps_per_epoch
-        self.step = cfg.start_epoch * steps_per_epoch
+        # a warm restart (--pretrained with --start_epoch) starts the
+        # schedule there; a full-state resume restores its own position
+        self.step = 0 if cfg.resume else cfg.start_epoch * steps_per_epoch
         self.optimizer, self.scheduler = create_optimizer(
             self.model,
             lr=cfg.lr, beta1=cfg.beta1, beta2=cfg.beta2,
@@ -151,6 +171,13 @@ class Trainer:
             start_step=self.step,
             weight_decay=cfg.weight_decay, bias_decay=cfg.bias_decay,
         )
+        if cfg.resume:
+            # full state: model, Adam moments, schedule, step (the reference
+            # restarts Adam's moments on a restart)
+            self.resume_meta = load_checkpoint(cfg.resume, self)
+            if self.resume_meta.get("epoch") is not None:
+                cfg.start_epoch = int(self.resume_meta["epoch"]) + 1
+            print(f"=> resumed {cfg.resume}: step {self.step}, next epoch {cfg.start_epoch}")
         self._setup_done = True
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -177,7 +204,7 @@ class Trainer:
         """The stage's loss and aux on one (micro)batch (counterpart of
         fal_net_tpu's ``Trainer._loss_fn``)."""
         cfg = self.cfg
-        kw = dict(min_disp=cfg.min_disp, max_disp=cfg.max_disp, a_p=cfg.a_p, a_sm=cfg.a_sm)
+        kw = dict(min_disp=cfg.min_disp, max_disp=cfg.max_disp, a_p=cfg.a_p, a_sm=cfg.a_sm, vgg_fn=self.vgg)
         if self.stage == "stage1":
             return stage1_loss(self.model, batch, **kw)
         if self.stage == "stage1_slow":
@@ -193,17 +220,57 @@ class Trainer:
             "stage": self.stage,
         }
 
+    def _save(self, save_path: str, meta: Dict[str, Any], is_best: bool = False) -> str:
+        return save_checkpoint(save_path, self.model, meta, is_best=is_best, optimizer=self.optimizer,
+                               scheduler=self.scheduler)
+
     def train_epoch(self, epoch: int, save_path: Optional[str] = None) -> Dict[str, float]:
         cfg = self.cfg
         self.train_loader.set_epoch(epoch)
         self.model.train()
         losses, rec_losses = AverageMeter(), AverageMeter()
         data_time, batch_time = AverageMeter(), AverageMeter()
+        self.data_time = data_time
+        # torch.profiler over steps [1, 1 + profile_steps) of the first
+        # epoch (step 0 builds and gates the kernels), a Chrome trace under
+        # <save_path>/profile; a profiler that cannot start only warns, as in
+        # the JAX package (no device path is switched by it)
+        window = None
+        if cfg.profile_steps > 0 and epoch == cfg.start_epoch and save_path:
+            window = (1, 1 + cfg.profile_steps)
+        prof = None
+
+        def profile(i: int, done: bool = False) -> None:
+            nonlocal prof
+            if window is None:
+                return
+            try:
+                if prof is None and not done and i == window[0]:
+                    acts = [torch.profiler.ProfilerActivity.CPU]
+                    if self.device.type == "cuda":
+                        acts.append(torch.profiler.ProfilerActivity.CUDA)
+                    prof = torch.profiler.profile(activities=acts)
+                    prof.start()
+                elif prof is not None and (done or i == window[1]):
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    prof.stop()
+                    out = os.path.join(save_path, "profile")
+                    os.makedirs(out, exist_ok=True)
+                    path = os.path.join(out, f"trace_epoch{epoch}_steps{window[0]}-{window[1]}.json")
+                    prof.export_chrome_trace(path)
+                    prof = None
+                    print(f"=> profiler trace in {path}")
+            except Exception as e:  # profiling never stops training
+                prof = None
+                print(f"=> profiler unavailable: {e}")
+
         end = time.time()
         with contextlib.closing(prefetch_to_device(iter(self.train_loader), self.device)) as it:
             for i, batch in enumerate(it):
                 if i >= self.steps_per_epoch:
                     break
+                profile(i)
                 data_time.update(time.time() - end)
                 model_batch = {"left": batch["left"], "right": batch["right"]}
                 if not cfg.fix_order:
@@ -221,19 +288,101 @@ class Trainer:
                         f"Time {batch_time} Data {data_time} "
                         f"Loss {losses} RecLoss {rec_losses}"
                     )
+                    if self.logger is not None:
+                        self.logger.scalars(self.step, {"loss": losses.val, "rec_loss": rec_losses.val},
+                                            prefix="train/")
                 if cfg.save_every_steps and save_path and (i + 1) % cfg.save_every_steps == 0:
-                    save_checkpoint(save_path, self.model, self._meta(epoch - 1))  # resume re-runs this epoch
+                    self._save(save_path, self._meta(epoch - 1))  # resume re-runs this epoch
+        profile(self.steps_per_epoch, done=True)  # close a window the epoch ended inside
         return {"loss": losses.avg, "rec_loss": rec_losses.avg}
 
-    def fit(self) -> Dict[str, Any]:
-        """Train ``cfg.start_epoch..cfg.epochs`` and checkpoint each epoch.
-        Without validation the best checkpoint is the lowest epoch train
-        loss, and its meta says so (best_metric: train_loss)."""
-        if not self._setup_done:
-            self.setup()
+    # ------------------------------------------------------------------
+    def _val_guard(self, height: int, width: int, bounds) -> None:
+        """Gate K1 in validation's mode at a validation frame shape before
+        its first batch (the setup gate saw only the training crop); a
+        disagreement raises."""
+        if not self.cfg.med_selfcheck or self.device.type != "cuda" or self.model.med_impl == "reference":
+            return
+        from fal_net_torch.ops.med_selfcheck import gate_k1
+
+        gate_k1(self.val_checked, VAL_MODE, height, width, self.model.num_levels, bounds, self.device,
+                seed=self.cfg.seed, where="the validation shape ")
+
+    def validate(self, dataset, epoch: int = 0, log_images: int = 3) -> Dict[str, float]:
+        """KITTI 2015 validation (Train_Stage1_K.py:279-347, counterpart of
+        fal_net_tpu's ``Trainer.validate``): view-synthesis RMSE, sparse real
+        EPE and the KITTI depth metrics, per image in numpy; the first
+        ``log_images`` frames' disparity, masks and pan go to the logger.
+
+        Batches of ``val_batch_size`` in per-shape buckets, a bucket's
+        ragged tail zero-padded; the forward at the bounds times
+        ``rel_baseline_val`` with disp, pan and the sub-occlusion masks."""
         cfg = self.cfg
-        # <save_path>/<dataset>_<stage>/<MM-DD-HH_MM>/<model>,e{E}es{S},b{B},lr{LR}
-        # (Train_Stage1_K.py:92-103); a clash in the same minute gets -2, -3, ...
+        bs = max(1, int(cfg.val_batch_size))
+        rb = cfg.rel_baseline_val
+        bounds = (cfg.min_disp * rb, cfg.max_disp * rb)
+        rmses, epes = AverageMeter(), AverageMeter()
+        kitti_errors = MultiAverageMeter(KITTI_ERROR_NAMES)
+        mean = np.asarray(RGB_MEAN, np.float32)
+        training = self.model.training
+        self.model.eval()
+
+        def process(items):
+            lefts = np.stack([np.asarray(s["left"]) for _, s in items])
+            if lefts.dtype == np.uint8:
+                lefts = normalize(lefts)
+            lefts = lefts.astype(np.float32, copy=False)
+            if len(items) < bs:
+                lefts = np.concatenate([lefts, np.zeros((bs - len(items),) + lefts.shape[1:], lefts.dtype)])
+            self._val_guard(lefts.shape[1], lefts.shape[2], bounds)
+            with torch.inference_mode():
+                x = torch.from_numpy(lefts).to(self.device).permute(0, 3, 1, 2).contiguous()
+                out = self.model(x, *bounds, ret_disp=True, ret_pan=True, ret_subocc=True)
+                pan, disp, mask_l, mask_r = (t.permute(0, 2, 3, 1).cpu().numpy()
+                                             for t in (out.pan, out.disp, out.maskL, out.maskR))
+            for slot, (i, s) in enumerate(items):
+                rmses.update(image_rmse_np(pan[slot], np.asarray(s["right"], np.float32)))
+                if self.logger is not None and i < log_images:
+                    # the images of Train_Stage1_K.py:322-338
+                    if epoch == 0:
+                        self.logger.image(0, f"val{i}/input_left", np.clip(lefts[slot] + mean, 0, 1))
+                    self.logger.image(epoch, f"val{i}/disparity", disp2rgb(disp[slot]))
+                    self.logger.image(epoch, f"val{i}/maskL", disp2rgb(mask_l[slot], 1.0))
+                    self.logger.image(epoch, f"val{i}/maskR", disp2rgb(mask_r[slot], 1.0))
+                    self.logger.image(epoch, f"val{i}/pan", np.clip(pan[slot] + mean, 0, 1))
+                if "targets" in s:
+                    target = np.asarray(s["targets"][0])
+                    if disp[slot].shape == target.shape:
+                        epes.update(real_epe_np(disp[slot][..., 0], target[..., 0]))
+                    else:  # the bilinear upsample to the target's size
+                        pred = torch.from_numpy(disp[slot][..., 0])[None, None]
+                        epes.update(float(real_epe(pred, torch.from_numpy(target[..., 0])[None, None], sparse=True)))
+                    gt_d, pred_d = disps_to_depths_kitti2015(target[None, ..., 0], disp[slot][None, ..., 0])
+                    kitti_errors.update(compute_kitti_errors(gt_d[0], pred_d[0]))
+
+        buckets: Dict[tuple, list] = {}
+        for i in range(len(dataset)):
+            s = dataset.get(i)
+            shape = np.asarray(s["left"]).shape
+            buckets.setdefault(shape, []).append((i, s))
+            if len(buckets[shape]) == bs:
+                items, buckets[shape] = buckets[shape], []
+                process(items)
+        for items in buckets.values():
+            if items:
+                process(items)
+        self.model.train(training)
+        metrics = {"rmse": rmses.avg, "epe": epes.avg}
+        metrics.update(zip(KITTI_ERROR_NAMES, (float(v) for v in kitti_errors.avg)))
+        return metrics
+
+    def _run_dir(self) -> str:
+        """A resumed run continues in its checkpoint's directory; a new one
+        gets <save_path>/<dataset>_<stage>/<MM-DD-HH_MM>/<model>,e{E}es{S},b{B},lr{LR}
+        (Train_Stage1_K.py:92-103), -2, -3, ... on a clash in the same minute."""
+        cfg = self.cfg
+        if cfg.resume:
+            return cfg.resume if os.path.isdir(cfg.resume) else os.path.dirname(os.path.abspath(cfg.resume))
         stamp = datetime.datetime.now().strftime("%m-%d-%H_%M")
         leaf = (
             f"{cfg.model},e{cfg.epochs}es{cfg.epoch_size if cfg.epoch_size > 0 else ''},"
@@ -245,28 +394,49 @@ class Trainer:
         while os.path.exists(save_path):
             save_path = os.path.join(base, f"{stamp}-{n}", leaf)
             n += 1
-        os.makedirs(save_path, exist_ok=True)
-        settings = "\n".join(
-            ["-------TRAINING SETTINGS---------"]
-            + [f"{k:>15s}: {v}" for k, v in sorted(dataclasses.asdict(cfg).items())]
-        )
-        print(settings)
-        with open(os.path.join(save_path, "settings.txt"), "w") as f:
-            f.write(settings + "\n")
+        return save_path
 
+    def fit(self) -> Dict[str, Any]:
+        """Train ``cfg.start_epoch..cfg.epochs``, validate every ``val_freq``
+        epochs and checkpoint each epoch.  ``model_best`` is the epoch of
+        lowest validation RMSE; without a validation set, of lowest train
+        loss, and its meta says which (best_metric; best_rmse only when it
+        is the RMSE).  Epochs whose validation is skipped do not compete.
+        A resumed run keeps its checkpoint's best when the metric is the
+        same, so that it picks what an uninterrupted run picks."""
+        if not self._setup_done:
+            self.setup()
+        cfg = self.cfg
+        save_path = self._run_dir()
+        dump_settings(save_path, cfg)
+        self.logger = MetricsLogger(save_path)
+        best_metric = "rmse" if self.val_dataset is not None else "train_loss"
         best_value = -1.0
+        if self.resume_meta.get("best_metric") == best_metric:
+            best_value = float(self.resume_meta.get("best_value", -1.0))
         history = []
-        for epoch in range(cfg.start_epoch, cfg.epochs):
-            metrics = self.train_epoch(epoch, save_path)
-            is_best = best_value < 0 or metrics["loss"] < best_value
-            if is_best:
-                best_value = metrics["loss"]
-            meta = {**self._meta(epoch), "best_metric": "train_loss", "best_value": best_value}
-            save_checkpoint(save_path, self.model, meta, is_best=is_best)
-            history.append({"epoch": epoch, **metrics})
+        try:
+            for epoch in range(cfg.start_epoch, cfg.epochs):
+                train_metrics = self.train_epoch(epoch, save_path)
+                val_metrics: Dict[str, float] = {}
+                if self.val_dataset is not None and epoch % cfg.val_freq == 0:
+                    val_metrics = self.validate(self.val_dataset, epoch)
+                    self.logger.scalars(epoch, val_metrics, prefix="val/")
+                candidate = val_metrics.get("rmse") if best_metric == "rmse" else train_metrics["loss"]
+                is_best = candidate is not None and (best_value < 0 or candidate < best_value)
+                if is_best:
+                    best_value = candidate
+                meta = {**self._meta(epoch), "best_metric": best_metric, "best_value": best_value}
+                if best_metric == "rmse":
+                    meta["best_rmse"] = best_value  # the reference's key, only when it is the RMSE
+                self._save(save_path, meta, is_best=is_best)
+                history.append({"epoch": epoch, **train_metrics, **val_metrics})
+        finally:
+            self.logger.close()
         return {
-            "best_metric": "train_loss",
+            "best_metric": best_metric,
             "best_value": best_value,
             "history": history,
             "save_path": save_path,
+            "checkpoint": os.path.join(save_path, CKPT_NAME),
         }

@@ -117,11 +117,14 @@ def test_eigen_factories_match_jax(raw_tree, name, raw_uint8):
 
 @pytest.fixture(scope="module")
 def kitti2015_tree(tmp_path_factory):
-    """KITTI 2015 scene-flow layout: 3 items with _10 and _11 stereo pairs
-    and uint16 disparity PNGs, one item missing its _11 pair."""
+    """KITTI 2015 scene-flow layout: 3 items with _10 and _11 stereo pairs,
+    uint16 disparity PNGs and 16-bit RGB flow PNGs (written by the native
+    encoder), one item missing its _11 pair."""
+    from fal_net_torch.native import io as native_io
+
     root = tmp_path_factory.mktemp("kitti2015")
     rng = np.random.default_rng(1)
-    for sub in ("image_2", "image_3", "disp_occ_0"):
+    for sub in ("image_2", "image_3", "disp_occ_0", "flow_occ"):
         (root / "training" / sub).mkdir(parents=True)
     (root / "testing" / "image_2").mkdir(parents=True)
     (root / "testing" / "image_3").mkdir(parents=True)
@@ -132,6 +135,9 @@ def kitti2015_tree(tmp_path_factory):
                 Image.fromarray(img).save(root / "training" / cam / f"{i:06d}_{fr}.png")
         disp = (rng.random((24, 1242)) * 60 * 256).astype(np.uint16)
         Image.fromarray(disp).save(root / "training" / "disp_occ_0" / f"{i:06d}_10.png")
+        flow = rng.integers(0, 65536, (24, 1242, 3)).astype(np.uint16)
+        flow[..., 2] = rng.random((24, 1242)) < 0.6  # validity
+        native_io.imwrite_png16(root / "training" / "flow_occ" / f"{i:06d}_10.png", flow)
     for cam in ("image_2", "image_3"):
         Image.fromarray(rng.integers(0, 255, (24, 1242, 3), dtype=np.uint8)).save(
             root / "testing" / cam / "000000_10.png")
@@ -149,10 +155,21 @@ def test_kitti2015_factory_matches_jax(kitti2015_tree):
                 _assert_samples_equal(g.get(i), w.get(i))
     _, test = datasets.kitti2015(root, split=0)
     assert len(test) == 3 and "left_t1" in test.get(0)
-    # flow targets are 16-bit RGB, which PIL cannot read: the loader raises
-    _, test = datasets.kitti2015(root, split=0, disp=False, of=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        test.get(0)
+    # flow targets are 16-bit RGB: the native decoder reads them as JAX's
+    # loader does, and the (u, v, valid) encoding round-trips exactly
+    for kw in (dict(disp=False, of=True), dict(disp=True, of=True)):
+        got, want = datasets.kitti2015(root, split=0, **kw)[1], jds.kitti2015(root, split=0, **kw)[1]
+        assert got.items == want.items
+        for i in range(len(got)):
+            _assert_samples_equal(got.get(i), want.get(i))
+    from fal_net_torch.native import io as native_io
+
+    raw = native_io.imread(os.path.join(root, "training", "flow_occ", "000000_10.png")).astype(np.float64)
+    flow = datasets.kitti2015(root, split=0, disp=False, of=True)[1].get(0)["targets"][0]
+    valid = raw[..., 2] > 0
+    np.testing.assert_array_equal(flow[..., 2], valid)
+    np.testing.assert_array_equal(flow[..., 0], np.where(valid, (raw[..., 0] - 2**15) / 64, 0))
+    np.testing.assert_array_equal(flow[..., 1], np.where(valid, (raw[..., 1] - 2**15) / 64, 0))
 
 
 def test_make3d_and_cityscapes_factories_match_jax(tmp_path):

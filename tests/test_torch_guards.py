@@ -58,6 +58,25 @@ assert not bad, bad
     assert "IMPORTED []" in proc.stdout
 
 
+def test_no_jax_in_the_port_sources():
+    """A grep of every source of the port (python, CUDA and the native C++
+    decoder) and of chip_smoke.py: no import of jax, jaxlib, flax or
+    fal_net_tpu, and no C++ include from fal_net_tpu."""
+    import glob
+    import re
+
+    pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|fal_net_tpu)\b|#\s*include\s+[<\"][^>\"]*fal_net_tpu",
+                         re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for ext in ("py", "cu", "cuh", "cpp"):
+        files += glob.glob(os.path.join(REPO, "fal_net_torch", "**", f"*.{ext}"), recursive=True)
+    assert any(f.endswith(os.path.join("native", "io_native.cpp")) for f in files)
+    for f in files:
+        with open(f) as fh:
+            hits = pattern.findall(fh.read())
+        assert not hits, (f, hits)
+
+
 def test_fused_head_raises_on_cpu_tensors():
     model = create_model("tiny", 5, med_impl="fused", device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
@@ -152,6 +171,24 @@ def test_med_selfcheck_raises_on_disagreement(monkeypatch):
     _plain_kernels(monkeypatch, offset=1e-2)
     with pytest.raises(med_selfcheck.MedSelfcheckError, match="pan disagrees"):
         med_selfcheck.med_selfcheck(8, 48, 5, [2.0], [30.0], "cpu")
+
+
+def test_k1_gate_checks_each_shape_once_and_raises(monkeypatch):
+    """gate_k1 (the Evaluator's and the validation's gate) holds K1 once per
+    (mode, shape), records the error, and raises on a disagreement."""
+    _plain_kernels(monkeypatch)
+    monkeypatch.setattr(med_kernel, "describe_plan", lambda *a, **kw: "plan")
+    calls = []
+    check = med_selfcheck.med_selfcheck
+    monkeypatch.setattr(med_selfcheck, "med_selfcheck", lambda *a, **kw: calls.append(a[:2]) or check(*a, **kw))
+    checked = {}
+    for _ in range(2):
+        med_selfcheck.gate_k1(checked, "disp+pan+subocc", 8, 48, 5, (2.0, 30.0), "cpu")
+    med_selfcheck.gate_k1(checked, "disp+pan+subocc", 6, 40, 5, (2.0, 30.0), "cpu")
+    assert calls == [(8, 48), (6, 40)] and checked == {("disp+pan+subocc", 8, 48): 0.0, ("disp+pan+subocc", 6, 40): 0.0}
+    _plain_kernels(monkeypatch, offset=1e-2)
+    with pytest.raises(med_selfcheck.MedSelfcheckError, match="disagrees"):
+        med_selfcheck.gate_k1({}, "disp+pan+subocc", 8, 48, 5, (2.0, 30.0), "cpu")
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

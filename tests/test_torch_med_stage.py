@@ -204,8 +204,8 @@ def test_stage_plans_on_gpu(cuda_device):
             for d, pn, img in BWD_MODES.values():
                 p = stage_plan("med_bwd", n, c, 3840, disp=d, pan=pn, image_grad=img)
                 assert p["smem"] <= 232_448 and p["slots"] >= 1
-    with pytest.raises(ValueError, match="no plan"):
-        stage_plan("med_bwd", 49, 3, 100_000, disp=True, pan=True)
+    with pytest.raises(ValueError, match="no plan"):  # a shift margin past a chunk's 1,280 columns
+        stage_plan("med_bwd", 49, 3, 100_000, disp=True, pan=True, max_disp=3000.0)
     # K1's staged plans at the training and serving widths (bytes and labels
     # unchanged by the direct path)
     keys = ("group", "slots", "whole", "loads", "smem", "direct")
@@ -223,15 +223,85 @@ def test_stage_plans_on_gpu(cuda_device):
 
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_cannot_stage_on_gpu(cuda_device):
-    """A width no ring slot fits raises from the C entry and launches nothing."""
+    """What no plan fits raises from the C entry and launches nothing: on
+    the direct path, only a shift margin wider than a chunk (disparities of
+    3,000 px here), and the error names the margin, not W."""
     logits = torch.zeros(1, 49, 1, 100_000, device=cuda_device)
     image = torch.zeros(1, 3, 1, 100_000, device=cuda_device)
     k1, k2 = MedForward.launches, MedForward.bwd_launches
-    with pytest.raises(ValueError, match="limits"):
-        med_outputs_fused(logits, image, 2.0, 300.0, ret_disp=True, ret_pan=True)
-    with pytest.raises(ValueError, match="limits"):
-        med_vjp_fused(logits, image, 2.0, 300.0, torch.zeros_like(logits[:, :1]), torch.zeros_like(image))
+    with pytest.raises(ValueError, match="margin of 3004 columns.*limits"):
+        med_outputs_fused(logits, image, 2.0, 3000.0, ret_disp=True, ret_pan=True)
+    with pytest.raises(ValueError, match="margin of 3004 columns.*limits"):
+        med_vjp_fused(logits, image, 2.0, 3000.0, torch.zeros_like(logits[:, :1]), torch.zeros_like(image))
     assert (MedForward.launches, MedForward.bwd_launches) == (k1, k2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [32_768, 65_536])
+@pytest.mark.parametrize("mode", list(FWD_MODES))
+def test_k1_direct_path_wide_on_gpu(cuda_device, w, mode):
+    """K1 on the direct path (chunk windows with the shift margin in the
+    slots) at widths past every staged plan: each mode matches the plain head."""
+    rng = np.random.default_rng(w)
+    draw = lambda ch: torch.from_numpy(rng.standard_normal((1, ch, 2, w), np.float32)).to(cuda_device)
+    logits, image = draw(49), draw(3)
+    kw = FWD_MODES[mode]
+    plan = stage_plan("med_fwd", 49, 3, w, disp=kw.get("ret_disp", False), pan=kw.get("ret_pan", False),
+                      subocc=kw.get("ret_subocc", False))
+    assert plan["direct"] and plan["chunks"] == -(-w // 1280)
+    assert plan["margin"] == (304 if kw.get("ret_pan") or kw.get("ret_subocc") else 0)
+    got = med_outputs_fused(logits, image, 2.0, 300.0, **kw)
+    torch.cuda.synchronize()
+    want = med_outputs(logits, image, 2.0, 300.0, **kw)
+    for name, (rtol, atol) in TOL.items():
+        g, ww = getattr(got, name), getattr(want, name)
+        assert (g is None) == (ww is None), name
+        if g is not None:
+            torch.testing.assert_close(g, ww, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [32_768, 65_536])
+@pytest.mark.parametrize("mode", list(BWD_MODES))
+def test_k2_direct_path_wide_on_gpu(cuda_device, w, mode):
+    """K2 on the direct path at widths past every staged plan, each
+    cotangent mode against the plain VJP."""
+    rng = np.random.default_rng(w + 1)
+    draw = lambda ch: torch.from_numpy(rng.standard_normal((1, ch, 2, w), np.float32)).to(cuda_device)
+    logits, image, g_disp, g_pan = draw(49), draw(3), draw(1), draw(3)
+    want_d, want_p, image_grad = BWD_MODES[mode]
+    assert stage_plan("med_bwd", 49, 3, w, disp=want_d, pan=want_p, image_grad=image_grad)["direct"]
+    gd, gp = (g_disp if want_d else None), (g_pan if want_p else None)
+    got = med_vjp_fused(logits, image, 2.0, 300.0, gd, gp, image_grad=image_grad)
+    torch.cuda.synchronize()
+    want = med_vjp(logits, image, 2.0, 300.0, gd, gp, image_grad=image_grad)
+    torch.testing.assert_close(got[0], want[0], rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    assert (got[1] is None) == (want[1] is None)
+    if want[1] is not None:
+        torch.testing.assert_close(got[1], want[1], rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+@pytest.mark.cuda
+def test_direct_path_per_sample_bounds_on_gpu(cuda_device):
+    """Per-sample bound tensors on the direct path: the margin comes from
+    their largest magnitude (here a negative one), and both kernels match
+    the plain versions."""
+    w = 20_000
+    rng = np.random.default_rng(3)
+    draw = lambda ch: torch.from_numpy(rng.standard_normal((2, ch, 2, w), np.float32)).to(cuda_device)
+    logits, image, g_disp, g_pan = draw(49), draw(3), draw(1), draw(3)
+    mn = torch.tensor([2.0, -1.0], device=cuda_device)
+    mx = torch.tensor([300.0, -420.0], device=cuda_device)
+    got = med_outputs_fused(logits, image, mn, mx, **ALL)
+    torch.cuda.synchronize()
+    want = med_outputs(logits, image, mn, mx, **ALL)
+    for name, (rtol, atol) in TOL.items():
+        torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=rtol, atol=atol)
+    got = med_vjp_fused(logits, image, mn, mx, g_disp, g_pan, image_grad=True)
+    torch.cuda.synchronize()
+    want = med_vjp(logits, image, mn, mx, g_disp, g_pan, image_grad=True)
+    for g, ww in zip(got, want):
+        torch.testing.assert_close(g, ww, rtol=GRAD_RTOL, atol=GRAD_ATOL)
 
 
 @pytest.mark.cuda
