@@ -6,7 +6,9 @@
 Phases, each reported on its own line; any failure exits nonzero:
   1. device: name, power limit, TF32 settings (no GPU -> exit 1);
   2. build: compile the CUDA kernels from fal_net_torch/csrc, one nvcc per
-     source, all started together;
+     source, and the ops' binding (csrc/torch_ops.cpp) with the host
+     compiler, all started together, each source's time printed; every
+     kernel then launches through a PyTorch op (torch.ops.fal_net_torch.*);
   3. K1 vs plain: the MED forward kernel against the plain PyTorch head
      on shared seeded inputs, every mode, at the TPU kernel tests' shapes, with
      per-sample bound tensors, at the training shape (8, 49, 192, 640) and at
@@ -116,8 +118,23 @@ Phases, each reported on its own line; any failure exits nonzero:
      within 2^-9 (|x| conv |w|) + 1e-4, in each of the JAX scripts' cases,
      timed beside cuDNN with TF32 off and on; K5 (``probe_roll_bug``) exact
      over the probe's sweep and wrapping shifts, timed beside ``torch.roll``
-     of the zero-padded row; each launch count must equal the calls the
-     scripts made.
+     of the zero-padded row in the same call; each launch count (the ops
+     fal_net_torch::conv3x3 and roll_window count them) must equal the calls
+     the scripts made;
+  11. serving artifacts: ``fal_net_torch.cli.export`` of phase 4's FAL_netB
+     N=49 checkpoint at 384x1280, disp at batch 8 and 1 and disp+pan+subocc
+     at batch 8, and of phase 10's checkpoint at its two KITTI shapes with
+     ``--with_ms_pp``; the 384x1280 artifacts loaded in a fresh interpreter
+     (no fal_net_torch.models, no jax imported; K1 launched inside the
+     artifacts, counted by mode) and their outputs on phase 4a's first 8
+     frames held against the live model's (same weights, TF32 convolutions
+     on in both) within phase 10's tolerances; ``cli.infer --artifact`` on
+     phase 4a's frames against its ``--pretrained`` PNGs; ``cli.test
+     --artifact`` on phase 10's tree against ``cli.test --pretrained``
+     (disparities within 5e-3 px + 1e-4 relative, each metric within 1e-3;
+     K1 counted by mode, the gate's included); the artifact's forward timed
+     against the live model's at batch 8 and 1, in turns; and
+     ``python -m fal_net_torch.cli.selfcheck --full``, which must exit 0.
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -338,11 +355,14 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    path, log = _build.build()
+    path, log, secs = _build.build()
     _build.load_library()
     regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-    line(f"phase 2 build: {os.path.relpath(path)} in {time.perf_counter() - t0:.2f} s; "
-         f"ptxas: {'; '.join(regs) or 'cached'}")
+    each = ", ".join(f"{src} {s:.2f} s" for src, s in secs.items() if src.endswith(".cu"))
+    binding = ", ".join(f"{src} {s:.2f} s" for src, s in secs.items() if src.endswith(".cpp"))
+    line(f"phase 2 build: {os.path.relpath(path)} in {time.perf_counter() - t0:.2f} s, all started together "
+         f"(nvcc: {each or 'cached'}; the ops' binding, host compiler: {binding or 'cached'}; link "
+         f"{secs.get('link', 0.0):.2f} s); ptxas: {'; '.join(regs) or 'cached'}")
 
 
 def phase_kernel_vs_plain(rng, dev) -> float:
@@ -444,7 +464,7 @@ def phase_slice(rng, dev, seed: int, workdir: str):
         for b in (1, BATCH)
     }
 
-    MedForward.launches = MedForward.bwd_launches = 0
+    _build.reset_launch_counts()
     t0 = time.perf_counter()
     written = infer.main([
         "--pretrained", ckpt, "--images", img_dir, "--out_dir", out_dir,
@@ -579,7 +599,7 @@ def phase_train(rng, dev, workdir: str):
     os.makedirs(frames)
     for i in range(2):
         Image.fromarray(smooth_frame(rng, KITTI_H, KITTI_W)).save(os.path.join(frames, f"f{i}.png"))
-    MedForward.launches = 0
+    _build.reset_launch_counts()
     written = infer.main(["--pretrained", ckpt, "--images", frames, "--out_dir", out_dir, "--batch_size", "2"])
     torch.cuda.synchronize()
     infer_k1 = MedForward.launches
@@ -595,7 +615,7 @@ def phase_train(rng, dev, workdir: str):
     )
     trainer = Trainer(cfg, device=dev)
     trainer.setup()  # the gate with (B,) bound tensors of both signs
-    MedForward.launches = MedForward.bwd_launches = 0
+    _build.reset_launch_counts()
     metrics = trainer.train_epoch(0)
     torch.cuda.synchronize()
     k1_t, k2_t = MedForward.launches, MedForward.bwd_launches
@@ -706,7 +726,7 @@ def run_cli_train(flags, root: str, workdir: str):
     """cli.train for TRAIN_STEPS steps of FAL_netB N=49 at 192x640 with the
     stage's default batch, a_p 0; returns (result, trainer, teacher state
     after setup, K1 launches, K2 launches, seconds)."""
-    MedForward.launches = MedForward.bwd_launches = 0
+    _build.reset_launch_counts()
     result, trainer, record, secs = recorded_train([
         *flags, "--model", "B", "--no_levels", "49", "--a_p", "0", "--epochs", "1",
         "--epoch_size", str(TRAIN_STEPS), "--print_freq", "1", "--data_root", root, "--lists_dir", root,
@@ -748,25 +768,28 @@ def write_kitti2015_tree(rng, root: str) -> dict:
 
 def k1_by_shape():
     """Record each K1 launch's (mode, logits shape) while the returned list
-    is open: a context manager over ops.med_kernel._launch."""
+    is open: a context manager over ops.med_kernel.med_outputs_op, the one
+    Python step before the op fal_net_torch::med_fwd on the live model's
+    path (the gate's included)."""
     import contextlib
 
     from fal_net_torch.ops import med_kernel
 
     @contextlib.contextmanager
     def recording():
-        shapes, launch = [], med_kernel._launch
+        shapes, op = [], med_kernel.med_outputs_op
 
-        def rec(logits, image, tables, tab_stride, want_disp, want_pan, want_subocc, margin):
-            mode = "+".join(n for n, w in (("disp", want_disp), ("pan", want_pan), ("subocc", want_subocc)) if w)
+        def rec(logits, image, min_disp, max_disp, *, ret_disp=True, ret_pan=False, ret_subocc=False, cuda=True):
+            mode = "+".join(n for n, w in (("disp", ret_disp), ("pan", ret_pan), ("subocc", ret_subocc)) if w)
             shapes.append((mode, tuple(logits.shape)))
-            return launch(logits, image, tables, tab_stride, want_disp, want_pan, want_subocc, margin)
+            return op(logits, image, min_disp, max_disp, ret_disp=ret_disp, ret_pan=ret_pan, ret_subocc=ret_subocc,
+                      cuda=cuda)
 
-        med_kernel._launch = rec
+        med_kernel.med_outputs_op = rec
         try:
             yield shapes
         finally:
-            med_kernel._launch = launch
+            med_kernel.med_outputs_op = op
 
     return recording()
 
@@ -811,7 +834,7 @@ def phase_default_run(rng, dev, kitti_root: str, workdir: str, card: str, seed: 
     train_shape = (49, TRAIN_H, TRAIN_W)
 
     def run(argv, want_k1, want_k2, label):
-        MedForward.launches = MedForward.bwd_launches = 0
+        _build.reset_launch_counts()
         with k1_by_shape() as shapes:
             result, trainer, record, secs = recorded_train(argv)
         got = Counter(shapes)
@@ -909,7 +932,7 @@ def phase_default_run(rng, dev, kitti_root: str, workdir: str, card: str, seed: 
         return metrics, np.concatenate([d.numpy().ravel() for d in disps])  # batches of both frame shapes
 
     kern_m, kern_d = validate_with("auto")
-    MedForward.launches = 0
+    _build.reset_launch_counts()
     ref_m, ref_d = validate_with("reference")
     if MedForward.launches:
         raise AssertionError(f"the plain-head validation launched K1 {MedForward.launches} times")
@@ -1028,7 +1051,7 @@ def phase_converge(dev):
     batch = {"left": nchw(wide[:, :, :w]), "right": nchw(wide[:, :, disp_px:])}
     model = create_model("tiny", n, generator=torch.Generator().manual_seed(0), device=dev)
     opt = torch.optim.Adam(model.parameters(), lr=5e-4, betas=(0.5, 0.999))
-    MedForward.launches = MedForward.bwd_launches = 0
+    _build.reset_launch_counts()
     t0 = time.perf_counter()
     for step in range(steps):
         opt.zero_grad(set_to_none=True)
@@ -1065,7 +1088,7 @@ def phase_converge_stage2(dev, teacher, batch):
     t0_state = {k: v.clone() for k, v in teacher.state_dict().items()}
     student = create_model("tiny", n, generator=torch.Generator().manual_seed(7), device=dev)
     opt = torch.optim.Adam(student.parameters(), lr=5e-4, betas=(0.5, 0.999))
-    MedForward.launches = MedForward.bwd_launches = 0
+    _build.reset_launch_counts()
     losses, mirrors = [], []
     t0 = time.perf_counter()
     for step in range(steps):
@@ -1425,7 +1448,7 @@ def write_eigen_tree(rng, root: str) -> dict:
 
 
 def recorded_eval(run):
-    """Call ``run()`` with every Evaluator it makes recorded and the
+    """Call ``run()`` with every Evaluator it runs recorded and the
     disparities of each image captured; K1's launches counted by mode from
     0.  Each Evaluator's ``collect_ends`` lists (time, images, shape) as
     each batch's outputs are read and processed.  Returns (result,
@@ -1433,14 +1456,12 @@ def recorded_eval(run):
     from fal_net_torch.eval.evaluate import Evaluator
 
     made, disps = [], {}
-    init, collect, process = Evaluator.__init__, Evaluator._collect, Evaluator._process_image
-
-    def recording_init(self, *a, **k):
-        init(self, *a, **k)
-        self.collect_ends = []
-        made.append(self)
+    collect, process = Evaluator._collect, Evaluator._process_image
 
     def timed_collect(self, pending, *rest):
+        if self not in made:  # Evaluator() and Evaluator.from_artifact alike
+            self.collect_ends = []
+            made.append(self)
         collect(self, pending, *rest)
         items = pending[0]
         self.collect_ends.append((time.perf_counter(), len(items), items[0][2].shape))
@@ -1449,14 +1470,14 @@ def recorded_eval(run):
         disps[i] = np.array(disp_np)
         process(self, i, sample, left_np, disp_np, *rest)
 
-    Evaluator.__init__, Evaluator._collect, Evaluator._process_image = recording_init, timed_collect, capturing
-    MedForward.launches, MedForward.mode_launches = 0, {}
+    Evaluator._collect, Evaluator._process_image = timed_collect, capturing
+    _build.reset_launch_counts()
     t0 = time.perf_counter()
     try:
         result = run()
         torch.cuda.synchronize()
     finally:
-        Evaluator.__init__, Evaluator._collect, Evaluator._process_image = init, collect, process
+        Evaluator._collect, Evaluator._process_image = collect, process
     return result, made, disps, dict(MedForward.mode_launches), time.perf_counter() - t0
 
 
@@ -1592,7 +1613,164 @@ def phase_eval(rng, dev, seed: int, card: str, workdir: str) -> dict:
          f"its metrics, per image) {timed['sec_per_image']:.4f} s [{card}]")
     line(f"phase 10 evaluation: {k1_total} K1 launches; tree of {n_all} frames written in {tree_s:.2f} s; worst "
          f"gate abs err {worst:.3e}")
-    return {"k1": k1_total, "worst": worst, "images_per_s": n_timed / secs, "steady_images_per_s": n_steady / steady_s}
+    return {"k1": k1_total, "worst": worst, "images_per_s": n_timed / secs, "steady_images_per_s": n_steady / steady_s,
+            "root": root, "lists": lists["all"], "ckpt": ckpt, "ms_metrics": ms_metrics, "ms_disps": ms_disps}
+
+
+# phase 11: the artifacts' forward in a fresh interpreter, on phase 4a's first 8 frames (raw
+# uint8 for a uint8-input artifact): argv[1] is JSON [{name: artifact path}, [frame paths], output .npz]
+ARTIFACT_CHILD = """
+import json, sys
+import numpy as np, torch
+from PIL import Image
+from fal_net_torch.data.transforms import normalize
+from fal_net_torch.ops import _build
+from fal_net_torch.ops.med_kernel import MedForward
+from fal_net_torch.serve import load_exported
+paths, frames, out = json.loads(sys.argv[1])
+raw = np.stack([np.asarray(Image.open(f).convert("RGB")) for f in frames])
+fwds = {name: load_exported(path) for name, path in paths.items()}
+_build.reset_launch_counts()
+res = {name: fwd((raw if fwd.meta["input"] == "uint8" else normalize(raw))[: fwd.meta["batch"]])
+       for name, fwd in fwds.items()}
+torch.cuda.synchronize()
+np.savez(out, **{f"{name}_{i}": t.cpu().numpy() for name, outs in res.items() for i, t in enumerate(outs)})
+print(json.dumps({"k1": MedForward.mode_launches, "imported": sorted(m for m in sys.modules if m.startswith(
+    "fal_net_torch.models") or m.split(".")[0] in ("jax", "fal_net_tpu"))}))
+"""
+
+
+def phase_artifact(dev, card: str, serve_dir: str, evaluation: dict, workdir: str) -> dict:
+    """Phase 11: serving artifacts on the card (see the module docstring).
+    ``serve_dir`` holds phase 4's checkpoint, frames and cli.infer PNGs;
+    ``evaluation`` phase 10's tree, checkpoint, ms-pp metrics and
+    disparities.  Returns the K1 launches of the artifact runs."""
+    from PIL import Image
+
+    from fal_net_torch.cli import export as cli_export
+    from fal_net_torch.cli import test as cli_test
+    from fal_net_torch.data.transforms import normalize, normalize_device
+    from fal_net_torch.models.checkpoint import load_checkpoint
+    from fal_net_torch.serve import load_exported
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(serve_dir, "falnetB_n49.pt")
+    art = {name: os.path.join(workdir, f"{name}.pt2z") for name in ("b8", "b1", "full", "eval")}
+    exports = {  # b8 takes raw frames, as cli.infer's pipeline uploads them; the others normalized floats
+        "b8": ["--pretrained", ckpt, "--batch", str(BATCH), "--uint8_input"],
+        "b1": ["--pretrained", ckpt, "--batch", "1"],
+        "full": ["--pretrained", ckpt, "--batch", str(BATCH), "--pan", "--subocc"],
+        "eval": ["--pretrained", evaluation["ckpt"], "--batch", str(BATCH), "--with_ms_pp",
+                 "--sizes", ",".join(f"{h}x{w}" for h, w in EVAL_SHAPES.values())],
+    }
+    t0 = time.perf_counter()
+    sizes = {name: cli_export.main([*flags, "--out", art[name]]) for name, flags in exports.items()}
+    export_s = time.perf_counter() - t0
+    line(f"phase 11 cli.export FAL_netB N=49: {SERVE_H}x{SERVE_W} disp B={BATCH} (uint8 input) and B=1, "
+         f"disp+pan+subocc B={BATCH}, and {list(EVAL_SHAPES.values())} with --with_ms_pp B={BATCH} in {export_s:.2f} s; "
+         f"{', '.join(f'{k} {v / 1e6:.1f} MB' for k, v in sizes.items())}")
+
+    # a fresh interpreter: the artifacts alone, K1 by mode, no model code
+    img_dir = os.path.join(serve_dir, "images")
+    frames = [os.path.join(img_dir, f) for f in sorted(os.listdir(img_dir))][:BATCH]
+    npz = os.path.join(workdir, "artifact_outputs.npz")
+    child = {k: art[k] for k in ("b8", "b1", "full")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", ARTIFACT_CHILD, json.dumps([child, frames, npz])], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the artifacts in a fresh interpreter failed:\n{proc.stdout}\n{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    if report["k1"] != {"disp": 2, "disp+pan+subocc": 1} or report["imported"]:
+        raise AssertionError(f"fresh interpreter: K1 launches {report['k1']} (want disp 2, disp+pan+subocc 1), "
+                             f"imported {report['imported']}")
+    got = np.load(npz)
+    raw = torch.from_numpy(np.stack([np.asarray(Image.open(f).convert("RGB")) for f in frames])).to(dev)
+    x = torch.from_numpy(normalize(raw.cpu().numpy())).to(dev).permute(0, 3, 1, 2).contiguous()
+    model = load_checkpoint(ckpt, device=dev).eval()
+    rtol, atol = EVAL_DISP_TOL
+    errs = {}
+    live_u8 = lambda u8: model(normalize_device(u8.permute(0, 3, 1, 2)).contiguous(), 2.0, 300.0, ret_disp=True)
+    with torch.inference_mode():
+        live = model(x, 2.0, 300.0, ret_disp=True, ret_pan=True, ret_subocc=True)
+        live1 = model(x[:1], 2.0, 300.0, ret_disp=True)
+        live8 = live_u8(raw)
+    for key, want in (("b8_0", live8.disp), ("b1_0", live1.disp), ("full_0", live.disp), ("full_1", live.pan),
+                      ("full_2", live.maskL), ("full_3", live.maskR)):
+        want = want.permute(0, 2, 3, 1).cpu().numpy()
+        errs[key] = float(np.abs(got[key] - want).max())
+        if got[key].shape != want.shape or not np.allclose(got[key], want, rtol=rtol, atol=atol):
+            raise AssertionError(f"artifact {key} vs the live model: shape {got[key].shape}, "
+                                 f"max abs err {errs[key]:.3e}")
+    line(f"phase 11 fresh interpreter ({child_s:.2f} s): no fal_net_torch.models, no jax; K1 launches {report['k1']}; "
+         f"artifact vs live model (same weights, TF32 convolutions on in both): "
+         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (tolerance {atol} px + {rtol} relative)")
+
+    # cli.infer --artifact on phase 4a's frames against its --pretrained PNGs
+    out_dir = os.path.join(workdir, "infer_artifact")
+    _build.reset_launch_counts()
+    written = infer.main(["--artifact", art["b8"], "--images", img_dir, "--out_dir", out_dir])
+    torch.cuda.synchronize()
+    k1_infer = MedForward.mode_launches
+    pngs = sorted(f for f in os.listdir(os.path.join(serve_dir, "out")) if f.endswith("_disp.png"))
+    png = lambda d: np.stack([np.asarray(Image.open(os.path.join(d, f))) for f in pngs]).astype(np.float64) / 256
+    a, b = png(out_dir), png(os.path.join(serve_dir, "out"))
+    batches = -(-N_IMAGES // BATCH)
+    if written != N_IMAGES or k1_infer != {"disp": batches} or not np.allclose(a, b, rtol=rtol, atol=atol + 1 / 256):
+        raise AssertionError(f"cli.infer --artifact: {written} PNGs, K1 {k1_infer}, max |d| {np.abs(a - b).max()}")
+    line(f"phase 11 cli.infer --artifact: {written} PNGs through K1 {k1_infer}; vs --pretrained's PNGs max |d disp| "
+         f"{np.abs(a - b).max():.3e} px")
+
+    # cli.test --artifact on phase 10's tree against cli.test --pretrained on the same input: the float
+    # artifact takes host-normalized images, so --pretrained runs with --fp32_upload (the device's
+    # normalization differs by an ulp, which TF32 convolutions can carry to pixels)
+    n_all = EVAL_FRAMES * len(EVAL_SHAPES)
+    common = ["--data_root", evaluation["root"], "--lists_dir", evaluation["lists"]]
+    metrics, (ev,), disps, by_mode, secs = recorded_eval(lambda: cli_test.main([
+        *common, "--artifact", art["eval"], "--save_path", os.path.join(workdir, "eval_artifact")]))
+    check_eval_outputs(os.path.join(workdir, "eval_artifact"), metrics, "artifact")
+    want_metrics, _, want_disps, _, _ = recorded_eval(lambda: cli_test.main([
+        *common, "--pretrained", evaluation["ckpt"], "--fp32_upload", "--batch_size", str(BATCH),
+        "--save_path", os.path.join(workdir, "eval_pretrained")]))
+    shapes = list(EVAL_SHAPES.values())
+    want_k1 = {"disp": 2 * (n_all // BATCH) + 2 * len(shapes)}  # the ms-pp passes, the gate at 4 shapes
+    disp_err = max(float(np.abs(disps[i] - want_disps[i]).max()) for i in disps)
+    bad = [i for i in disps if not np.allclose(disps[i], want_disps[i], rtol=rtol, atol=atol)]
+    metric_err = {k: abs(metrics[k] - want_metrics[k]) for k in ("abs_rel", "sq_rel", "rms", "log_rms", "a1", "a2",
+                                                                 "a3")}
+    upload = max(abs(evaluation["ms_metrics"][k] - want_metrics[k]) for k in metric_err)
+    if by_mode != want_k1 or len(disps) != n_all or bad or max(metric_err.values()) > EVAL_METRIC_TOL:
+        raise AssertionError(f"cli.test --artifact: K1 {by_mode} (want {want_k1}), {len(disps)} images, images {bad} "
+                             f"differ (max {disp_err:.3e}), metrics {metric_err}")
+    line(f"phase 11 cli.test --artifact (ms-pp, {n_all} images, B={BATCH}) in {secs:.2f} s: K1 {by_mode}, gate "
+         f"{sorted(ev.med_checked)}; vs cli.test --pretrained --fp32_upload: max |d disp| {disp_err:.3e} px, max "
+         f"|d metric| {max(metric_err.values()):.3e} (tolerance {EVAL_METRIC_TOL}); abs_rel {metrics['abs_rel']:.6f} "
+         f"(phase 10's uint8 upload: max |d metric| {upload:.3e} from --fp32_upload's) [{card}]")
+
+    # the artifact's forward against the live model's, in turns (live, artifact, artifact, live): B=8 from
+    # raw frames (the live model normalizes on the device first, as cli.infer does), B=1 from floats
+    b8, b1 = load_exported(art["b8"]), load_exported(art["b1"])
+    x1 = x[:1].permute(0, 2, 3, 1).contiguous()
+    with torch.inference_mode():
+        for b, live_fn, art_fn in ((BATCH, lambda: live_u8(raw), lambda: b8(raw)),
+                                   (1, lambda: model(x[:1], 2.0, 300.0, ret_disp=True), lambda: b1(x1))):
+            live_ms = [median_ms(live_fn)]
+            art_ms = [median_ms(art_fn) for _ in range(2)]
+            live_ms.append(median_ms(live_fn))
+            line(f"phase 11 forward FAL_netB N=49 {SERVE_H}x{SERVE_W} disp B={b}: live model "
+                 f"{live_ms[0]:.3f}, {live_ms[1]:.3f} ms; artifact {art_ms[0]:.3f}, {art_ms[1]:.3f} ms (in turns) [{card}]")
+
+    # the health gate, in its own process
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "fal_net_torch.cli.selfcheck", "--full", "--timeout", "300"],
+                          cwd=root, capture_output=True, text=True, timeout=900)
+    for ln in proc.stdout.strip().splitlines():
+        line(f"phase 11 cli.selfcheck --full: {ln.strip()}")
+    if proc.returncode != 0:
+        raise AssertionError(f"cli.selfcheck --full exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    line(f"phase 11 cli.selfcheck --full exit 0 in {time.perf_counter() - t0:.2f} s")
+    return {"k1": sum(report["k1"].values()) + sum(k1_infer.values()) + sum(by_mode.values())}
 
 
 def phase_scripts(card: str) -> list[dict]:
@@ -1601,18 +1779,18 @@ def phase_scripts(card: str) -> list[dict]:
     from fal_net_torch.ops import conv3x3, roll_probe
     from fal_net_torch.scripts import probe_roll_bug, proto_conv_kernel, proto_conv_kernel_v2
 
-    for counts in (conv3x3.LAUNCHES, roll_probe.LAUNCHES):
-        counts.update(dict.fromkeys(counts, 0))
     t0 = time.perf_counter()
+    _build.reset_launch_counts()
     k3 = proto_conv_kernel.main([])  # each sets TF32 itself: off for the plain versions
+    k3_launches = conv3x3.LAUNCHES["conv3x3"]  # one op, fal_net_torch::conv3x3, for K3 and K4
     k4 = proto_conv_kernel_v2.main([])
     k5 = probe_roll_bug.main([])
     secs = time.perf_counter() - t0
     if not k5["ok"]:
         raise AssertionError("K5: ROLL PROBE: FAIL")
     launches = {
-        "conv3x3_packed": conv3x3.LAUNCHES["conv3x3_packed"],
-        "conv3x3_v2": conv3x3.LAUNCHES["conv3x3_v2"],
+        "conv3x3_packed": k3_launches,
+        "conv3x3_v2": conv3x3.LAUNCHES["conv3x3"] - k3_launches,
         "roll_window": roll_probe.LAUNCHES["roll_window"],
     }
     calls = {"conv3x3_packed": k3["calls"], "conv3x3_v2": k4["calls"], "roll_window": k5["calls"]}
@@ -1665,20 +1843,21 @@ def main() -> None:
     phase_build()
     worst3 = phase_kernel_vs_plain(rng, dev)
     worst3b = phase_bwd_vs_plain(rng, dev)
-    with tempfile.TemporaryDirectory() as workdir:
-        model, lefts, serve_launches, worst4 = phase_slice(rng, dev, args.seed, workdir)
-    times = phase_times(model, lefts, card, dev, args.seed)
-    if args.profile:
-        phase_profile(model, lefts, card, args.profile, dev, args.seed)
-    del model, lefts
-    with tempfile.TemporaryDirectory() as workdir:
-        train = phase_train(rng, dev, workdir)
-        later = phase_later_stages(dev, train["root"], train["ckpt"], workdir)
-        default = phase_default_run(rng, dev, train["root"], workdir, card, args.seed)
-    phase_converge_stage2(dev, *phase_converge(dev))
-    with tempfile.TemporaryDirectory() as workdir:
-        evaluation = phase_eval(rng, dev, args.seed, card, workdir)
-    script_kernels = phase_scripts(card)
+    with tempfile.TemporaryDirectory() as serve_dir, tempfile.TemporaryDirectory() as eval_dir:
+        model, lefts, serve_launches, worst4 = phase_slice(rng, dev, args.seed, serve_dir)
+        times = phase_times(model, lefts, card, dev, args.seed)
+        if args.profile:
+            phase_profile(model, lefts, card, args.profile, dev, args.seed)
+        del model, lefts
+        with tempfile.TemporaryDirectory() as workdir:
+            train = phase_train(rng, dev, workdir)
+            later = phase_later_stages(dev, train["root"], train["ckpt"], workdir)
+            default = phase_default_run(rng, dev, train["root"], workdir, card, args.seed)
+        phase_converge_stage2(dev, *phase_converge(dev))
+        evaluation = phase_eval(rng, dev, args.seed, card, eval_dir)
+        script_kernels = phase_scripts(card)
+        with tempfile.TemporaryDirectory() as workdir:
+            artifact = phase_artifact(dev, card, serve_dir, evaluation, workdir)
     k1_bound, k1_by = bound(times["disp"][2], OPS_PER_LOGIT["med_fwd"] * times["disp_logits"])
     k2_bound, k2_by = bound(times["k2_bytes"], OPS_PER_LOGIT["med_bwd"] * times["k2_logits"])
     print(json.dumps({"kernels": [
@@ -1688,8 +1867,8 @@ def main() -> None:
             "source": "fal_net_torch/csrc/med_fwd.cu",
             "replaces": "fal_net_tpu/ops/med_pallas.py:116",
             # serving (phase 4), training (phase 7a-c, 7d stage 2, 7e stage 1 slow, 7f the default run with
-            # validation) and evaluation (phase 10)
-            "launches": serve_launches + train["k1"] + later["k1"] + default["k1"] + evaluation["k1"],
+            # validation), evaluation (phase 10) and the serving artifacts (phase 11)
+            "launches": serve_launches + train["k1"] + later["k1"] + default["k1"] + evaluation["k1"] + artifact["k1"],
             "max_abs_err": max(worst3, worst4, default["worst"], evaluation["worst"]),
             "ms": times["disp"][0],  # disp-only at (8, 49, 384, 1280)
             "plain_ms": times["disp"][1],

@@ -4,11 +4,17 @@ Test_KITTI.py).
     python -m fal_net_torch.cli.test --data_root /data/KITTI \\
         --lists_dir /data/lists --pretrained ckpt.pt --tdataName Kitti_eigen_test_improved
 
-``--pretrained`` takes a port ``.pt`` or a reference ``.pth.tar``.  Runs on
-the GPU unless ``--device cpu`` is given.  Writes ``errors.txt`` and
-``metrics.json`` under ``--save_path`` (eval/evaluate.py).  ``--artifact``,
-``--num_devices`` above 1 and ``--dtype bfloat16`` are parsed so that
-giving one raises and names the ROADMAP item that brings it.
+    python -m fal_net_torch.cli.test --data_root /data/KITTI \\
+        --lists_dir /data/lists --artifact bundle.pt2z     # a serving artifact
+
+``--pretrained`` takes a port ``.pt`` or a reference ``.pth.tar``;
+``--artifact`` a serving artifact from ``cli.export``, evaluated exactly as
+it is deployed (the checkpoint-mode flags it bakes in are refused, as JAX
+refuses them).  Runs on the GPU unless ``--device cpu`` is given (an
+artifact runs on the device type it was exported for).  Writes
+``errors.txt`` and ``metrics.json`` under ``--save_path``
+(eval/evaluate.py).  ``--num_devices`` above 1 and ``--dtype bfloat16`` are
+parsed so that giving one raises and names the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -25,6 +31,10 @@ from fal_net_torch.eval.evaluate import EvalConfig, Evaluator
 from fal_net_torch.models.checkpoint import load_checkpoint
 from fal_net_torch.train.trainer import not_ported
 
+# checkpoint-mode flags an artifact bakes in (or fixes); giving one with --artifact is refused
+ARTIFACT_FIXED = ("model", "no_levels", "max_disp", "min_disp", "rel_baseline", "dtype", "maskr_quirk",
+                  "batch_size", "fp32_upload", "num_devices")
+
 EVAL_DATASETS = {
     "Kitti_eigen_test_improved": kitti_eigen_test_improved,
     "Kitti_eigen_test_original": kitti_eigen_test_original,
@@ -40,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lists_dir", default=None)
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--pretrained", help="port .pt or reference .pth.tar checkpoint")
-    src.add_argument("--artifact", help="serving artifact (not ported yet: raises)")
+    src.add_argument("--artifact", help="serving artifact or bundle from cli.export")
     p.add_argument("--model", default=None, help="override model variant")
     p.add_argument("--no_levels", type=int, default=None)
     p.add_argument("--max_disp", type=float, default=300.0)
@@ -91,21 +101,36 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     """Returns the metrics the Evaluator wrote to metrics.json."""
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    fwd = model = None
     if args.artifact:
-        raise not_ported("--artifact (evaluating a serving artifact)", "item 11")
-    if args.num_devices and args.num_devices > 1:
-        raise not_ported("--num_devices > 1 (multi-GPU evaluation)", "item 12")
-    if args.dtype != "float32":
-        raise not_ported(f"--dtype {args.dtype}", "item 10")
-    model = load_checkpoint(args.pretrained, variant=args.model, num_levels=args.no_levels, device=args.device,
-                            a_maskr_quirk=args.maskr_quirk)
-    print(f"=> loaded {model.spec.torch_name} (N={model.num_levels}) from {args.pretrained}")
+        fixed = [name for name in ARTIFACT_FIXED if getattr(args, name) != parser.get_default(name)]
+        if fixed:
+            raise SystemExit("--artifact mode evaluates the deployed forward exactly; these checkpoint-mode "
+                             "flags have no effect here: " + ", ".join("--" + n for n in fixed)
+                             + ".  Re-export with cli.export to change them.")
+        from fal_net_torch.serve import load_exported
+
+        fwd = load_exported(args.artifact, device=args.device)
+        shapes = fwd.meta.get("shapes") or [[fwd.meta["height"], fwd.meta["width"]]]
+        print(f"=> loaded artifact {args.artifact} ({fwd.meta['variant']}, N={fwd.meta['num_levels']}, "
+              f"shapes {shapes}, batch {fwd.meta['batch']}, {fwd.meta['input']} input)")
+    else:
+        if args.num_devices and args.num_devices > 1:
+            raise not_ported("--num_devices > 1 (multi-GPU evaluation)", "item 12")
+        if args.dtype != "float32":
+            raise not_ported(f"--dtype {args.dtype}", "item 10")
+        model = load_checkpoint(args.pretrained, variant=args.model, num_levels=args.no_levels,
+                                device=args.device, a_maskr_quirk=args.maskr_quirk)
+        print(f"=> loaded {model.spec.torch_name} (N={model.num_levels}) from {args.pretrained}")
 
     factory = EVAL_DATASETS[args.tdataName]
     _, dataset = factory(args.data_root, split=0, lists_dir=args.lists_dir)
     print(f"=> {len(dataset)} evaluation samples")
-    if not args.fp32_upload:
+    if fwd is not None:
+        dataset.raw_uint8 = fwd.meta["input"] == "uint8"  # the artifact's input stage decides
+    elif not args.fp32_upload:
         dataset.raw_uint8 = True  # 4x fewer upload bytes; the Evaluator normalizes on the device
 
     cfg = EvalConfig(
@@ -126,7 +151,8 @@ def main(argv=None) -> dict:
         save_path=args.save_path,
         med_selfcheck=not args.no_med_selfcheck,
     )
-    metrics = Evaluator(model, cfg).run(dataset)
+    evaluator = Evaluator(model, cfg) if fwd is None else Evaluator.from_artifact(fwd, cfg)
+    metrics = evaluator.run(dataset)
     print({k: round(v, 4) for k, v in metrics.items()})
     return metrics
 

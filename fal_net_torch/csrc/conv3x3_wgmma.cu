@@ -86,6 +86,7 @@ constexpr int kThreads = kConsumers + 32;      // and one producer warp
 constexpr int kInFloats = kCi * kInRows * kBoxW;
 constexpr int kInBytes = kInFloats * 4;        // 43520
 constexpr int kAlign = 1024;
+constexpr int kMaxDevices = 64;                // the launch settings are kept per device
 
 __host__ __device__ constexpr int round_up(int v, int a) { return (v + a - 1) / a * a; }
 template <int N> struct Stage {
@@ -331,13 +332,20 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The shared-memory limit and the SM count are driver calls of microseconds
+// each, made while the card waits for the launch: once per device (and, for
+// the limit, per instance of the kernel), as med_stage.cuh::launch_rows does.
 template <int N, bool kTma>
 int launch(const CUtensorMap& xm, const CUtensorMap& wm, const float* x, const float* w2, float* out, int Cin,
-           int H, int W, int Cout, Tiles tiles, int sms, cudaStream_t stream) {
+           int H, int W, int Cout, Tiles tiles, int sms, int dev, cudaStream_t stream) {
   auto kernel = conv3x3_wgmma_kernel<N, kTma>;
   const int smem = Stage<N>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  static bool set[kMaxDevices];  // per device, for this instance
+  if (!set[dev]) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    set[dev] = true;
+  }
   const long long count = (long long)tiles.x_tiles * tiles.y_tiles * tiles.B * tiles.n_tiles;
   const int grid = (int)(count < sms ? count : sms);
   kernel<<<grid, kThreads, smem, stream>>>(xm, wm, x, w2, out, Cin, H, W, Cout, tiles);
@@ -346,16 +354,16 @@ int launch(const CUtensorMap& xm, const CUtensorMap& wm, const float* x, const f
 
 template <bool kTma>
 int dispatch(int N, const CUtensorMap& xm, const CUtensorMap& wm, const float* x, const float* w2, float* out,
-             int Cin, int H, int W, int Cout, Tiles tiles, int sms, cudaStream_t st) {
+             int Cin, int H, int W, int Cout, Tiles tiles, int sms, int dev, cudaStream_t st) {
   switch (N) {
-    case 8: return launch<8, kTma>(xm, wm, x, w2, out, Cin, H, W, Cout, tiles, sms, st);
-    case 16: return launch<16, kTma>(xm, wm, x, w2, out, Cin, H, W, Cout, tiles, sms, st);
-    case 24: return launch<24, kTma>(xm, wm, x, w2, out, Cin, H, W, Cout, tiles, sms, st);
-    case 32: return launch<32, kTma>(xm, wm, x, w2, out, Cin, H, W, Cout, tiles, sms, st);
-    case 40: return launch<40, kTma>(xm, wm, x, w2, out, Cin, H, W, Cout, tiles, sms, st);
-    case 48: return launch<48, kTma>(xm, wm, x, w2, out, Cin, H, W, Cout, tiles, sms, st);
-    case 56: return launch<56, kTma>(xm, wm, x, w2, out, Cin, H, W, Cout, tiles, sms, st);
-    default: return launch<64, kTma>(xm, wm, x, w2, out, Cin, H, W, Cout, tiles, sms, st);
+    case 8: return launch<8, kTma>(xm, wm, x, w2, out, Cin, H, W, Cout, tiles, sms, dev, st);
+    case 16: return launch<16, kTma>(xm, wm, x, w2, out, Cin, H, W, Cout, tiles, sms, dev, st);
+    case 24: return launch<24, kTma>(xm, wm, x, w2, out, Cin, H, W, Cout, tiles, sms, dev, st);
+    case 32: return launch<32, kTma>(xm, wm, x, w2, out, Cin, H, W, Cout, tiles, sms, dev, st);
+    case 40: return launch<40, kTma>(xm, wm, x, w2, out, Cin, H, W, Cout, tiles, sms, dev, st);
+    case 48: return launch<48, kTma>(xm, wm, x, w2, out, Cin, H, W, Cout, tiles, sms, dev, st);
+    case 56: return launch<56, kTma>(xm, wm, x, w2, out, Cin, H, W, Cout, tiles, sms, dev, st);
+    default: return launch<64, kTma>(xm, wm, x, w2, out, Cin, H, W, Cout, tiles, sms, dev, st);
   }
 }
 
@@ -375,16 +383,22 @@ int conv3x3_wgmma(const float* x, const float* w2, float* out, int B, int Cin, i
   const int N = round_up((Cout + n_tiles - 1) / n_tiles, 8);  // equal tiles, each a multiple of 8
   const Tiles tiles{(W + kCols - 1) / kCols, (H + kRows - 1) / kRows, B, n_tiles};
   if ((long long)tiles.x_tiles * tiles.y_tiles * B * n_tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
+  static int sms_of[kMaxDevices];  // per device: the SM count, read once
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!sms_of[dev]) {
+    err = cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int sms = sms_of[dev];
 
   CUtensorMap xm = {}, wm = {};
   const bool tma = W % 4 == 0 && Cin % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(w2) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!tma) return dispatch<false>(N, xm, wm, x, w2, out, Cin, H, W, Cout, tiles, sms, st);
+  if (!tma) return dispatch<false>(N, xm, wm, x, w2, out, Cin, H, W, Cout, tiles, sms, dev, st);
 
   EncodeTiled encode = encode_tiled();
   if (!encode) return (int)cudaErrorNotSupported;
@@ -403,7 +417,7 @@ int conv3x3_wgmma(const float* x, const float* w2, float* out, int B, int Cin, i
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
-  return dispatch<true>(N, xm, wm, x, w2, out, Cin, H, W, Cout, tiles, sms, st);
+  return dispatch<true>(N, xm, wm, x, w2, out, Cin, H, W, Cout, tiles, sms, dev, st);
 }
 
 }  // extern "C"

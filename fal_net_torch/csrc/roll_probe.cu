@@ -13,6 +13,9 @@
 // (8, 128) size; the bytes (x in, out back) are 8 KB.  One block per row
 // stages the zero-padded row in shared memory (wp floats) and gathers from
 // it, so every index is a shared-memory read and no read leaves the row.
+// So the launch path is the design: the op fal_net_torch::roll_window
+// (torch_ops.cpp) calls this entry from C++, and the entry makes no driver
+// call but the launch once a device's shared-memory limit is set.
 
 #include <cuda_runtime.h>
 
@@ -20,6 +23,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr size_t kMaxSmemBytes = 232448;  // dynamic shared memory one Hopper block may use
+constexpr size_t kDefaultSmemBytes = 48 * 1024;  // what a launch may use without the attribute
 
 __global__ void __launch_bounds__(kThreads)
     roll_window_kernel(const float* __restrict__ x, const int* __restrict__ f,
@@ -49,15 +53,26 @@ extern "C" {
 // device.  Returns cudaErrorInvalidValue, launching nothing, unless
 // 0 <= left, left + W <= wp and the row of wp floats fits a block's shared
 // memory (wp <= 58112); else cudaGetLastError() after the launch (0 on
-// success).
+// success).  The shared-memory limit is a driver call of microseconds: it is
+// set once per device, raised to the widest row asked for, and only past the
+// 48 KB that every launch may use.
 int roll_window(const float* x, const int* f, float* out, int H, int W, int wp, int left,
                 void* stream) {
   const size_t smem = (size_t)wp * sizeof(float);
   if (H < 1 || W < 1 || left < 0 || (long long)left + W > wp || smem > kMaxSmemBytes)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(roll_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  static size_t allowed[64];  // per device: the limit set so far
+  if (smem > kDefaultSmemBytes) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+    if (smem > allowed[dev]) {
+      err = cudaFuncSetAttribute(roll_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      allowed[dev] = smem;
+    }
+  }
   roll_window_kernel<<<H, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(x, f, out, W, wp,
                                                                                left);
   return (int)cudaGetLastError();

@@ -39,6 +39,7 @@ from torch import nn
 
 from fal_net_torch.models.backbone import VARIANTS, FalNetBackbone, VariantSpec
 from fal_net_torch.models.layers import conv, init_conv
+from fal_net_torch.ops._build import ensure_loaded
 from fal_net_torch.ops.med import MedOutputs, med_outputs, quirk_mask_r
 from fal_net_torch.ops.med_kernel import med_outputs_fused
 from fal_net_torch.utils.device import resolve_device
@@ -118,9 +119,11 @@ def create_model(
 ) -> FalNet:
     """Build a FAL-net variant with weights drawn from ``generator`` (a CPU
     ``torch.Generator``; the global one if None) on ``device``: the GPU
-    unless the caller asks for the CPU.  Without a card, "cuda" raises.
+    unless the caller asks for the CPU.  Without a card, "cuda" raises; with
+    one, the kernels are built (once) and loaded before the first forward.
     ``a_maskr_quirk``: see the module docstring."""
     device = resolve_device(device)
+    ensure_loaded(device)
     spec = resolve_variant(variant)
     model = FalNet(spec, num_levels or spec.default_levels, med_impl=med_impl, a_maskr_quirk=a_maskr_quirk)
     model.reset_parameters(generator)

@@ -22,8 +22,10 @@ The kernel truncates both operands to TF32 and sums in fp32:
 fp32 plain versions (``conv3x3_packed_plain``, ``conv3x3_v2_plain``) build
 the patch tensor step by step, as the TPU kernels do.  The wrappers take
 CUDA fp32 contiguous tensors and raise on anything else, the CPU included;
-the C entry owns the size limits and the wrappers raise when it refuses.
-``LAUNCHES`` counts each wrapper's launches.
+both launch through the op ``fal_net_torch::conv3x3`` (CUDA impl in
+csrc/torch_ops.cpp), whose C entry owns the size limits; the op raises when
+it refuses.  ``LAUNCHES`` reads the op's launch count (K3's and K4's
+together: one kernel).
 """
 
 from __future__ import annotations
@@ -31,9 +33,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from fal_net_torch.ops._build import launch
+from fal_net_torch.ops._build import LaunchCounts, load_library
 
-LAUNCHES = {"conv3x3_packed": 0, "conv3x3_v2": 0}
+LAUNCHES = LaunchCounts(("conv3x3",))
 
 
 def repack_weights(w: torch.Tensor) -> torch.Tensor:
@@ -120,12 +122,10 @@ def _check(x: torch.Tensor, w: torch.Tensor, name: str) -> tuple[int, int, int, 
 
 
 def _run(name: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    b, cin, h, wd, cout = _check(x, w, "w2" if name == "conv3x3_packed" else "w3")
-    out = x.new_empty((b, cout, h, wd))
+    _check(x, w, "w2" if name == "conv3x3_packed" else "w3")
     w2 = w if w.ndim == 2 else w[0]  # variant 0 of permuted_weights is repack_weights
-    launch("conv3x3_wgmma", x.device, x.data_ptr(), w2.data_ptr(), out.data_ptr(), b, cin, h, wd, cout)
-    LAUNCHES[name] += 1
-    return out
+    load_library()
+    return torch.ops.fal_net_torch.conv3x3.default(x, w2)
 
 
 def conv3x3_packed(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:

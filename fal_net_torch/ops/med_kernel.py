@@ -2,23 +2,27 @@
 and K2, its backward (``csrc/med_bwd.cu``).
 
 K1 replaces fal_net_tpu/ops/med_pallas.py::_fwd_kernel and K2 replaces
-``_bwd_kernel``.  They take CUDA fp32 contiguous NCHW tensors and disparity
-bounds that are numbers, 0-d tensors or per-sample (B,) tensors; anything
-else raises here.  The plain versions are
-:func:`fal_net_torch.ops.med.med_outputs` and
-:func:`fal_net_torch.ops.med_vjp.med_vjp`.
+``_bwd_kernel``.  Both launch through the PyTorch ops
+``fal_net_torch::med_fwd`` and ``med_bwd`` (ops/library.py), whose CUDA
+impls (csrc/torch_ops.cpp) check the tensors, plan the shift margin and
+launch on the current stream; ``med_fwd``'s autograd formula is K2.  The
+wrappers take CUDA fp32 contiguous NCHW tensors and disparity bounds that
+are numbers, 0-d tensors or per-sample (B,) tensors; anything else raises
+here.  The plain versions are :func:`fal_net_torch.ops.med.med_outputs`
+and :func:`fal_net_torch.ops.med_vjp.med_vjp`.
 
 Both kernels stage plane rows in shared memory (csrc/med_stage.cuh); their
 C entries plan the staging, own the size limits that follow from it and
-refuse, launching nothing, what does not fit (the wrapper raises
-ValueError).  :func:`stage_plan` reports a plan.  Rows too wide for whole
-plane rows take the direct path, which stages each column chunk's window
-with a margin of :func:`shift_margin` columns on each side: no width is
-refused there, only a margin wider than a chunk (disparities past ~1,276 px).
+refuse, launching nothing, what does not fit (the op raises ValueError).
+:func:`stage_plan` reports a plan.  Rows too wide for whole plane rows take
+the direct path, which stages each column chunk's window with a margin of
+:func:`shift_margin` columns on each side: no width is refused there, only
+a margin wider than a chunk (disparities past ~1,276 px).
 
-``MedForward.launches`` and ``MedForward.bwd_launches`` count the launches of
-K1 and K2, so that a run can show that its main path went through them;
-``MedForward.mode_launches`` counts K1's by mode.
+``MedForward.launches`` and ``MedForward.bwd_launches`` read the launch
+counts of K1 and K2 that the ops' CUDA impls keep, so that a run can show
+that its main path went through them; ``MedForward.mode_launches`` reads
+K1's by mode.  ``_build.reset_launch_counts()`` sets them to 0.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import numbers
 
 import torch
 
-from fal_net_torch.ops._build import launch, load_library
+from fal_net_torch.ops._build import K1_MODES, launch_counts, load_library
 from fal_net_torch.ops.med import MedOutputs, disparity_levels
 
 MAX_PLANES = 128  # kMaxPlanes in csrc/med_stage.cuh
@@ -56,8 +60,13 @@ def plane_tables(min_disp, max_disp, num_levels: int, width: int, *, device=None
 def _scalar_tables(min_disp: float, max_disp: float, num_levels: int, width: int, device) -> torch.Tensor:
     """The tables of number bounds, made once per key and kept on ``device``:
     the serving path passes the same bounds with every batch.  Read-only.
-    Made outside inference mode, since later calls may run outside it."""
-    with torch.inference_mode(False):
+    Made outside inference mode, since later calls may run outside it, and
+    outside any tracing mode, so that a trace (``torch.export``) finds a
+    real tensor here, which it lifts as a constant, and never leaves a fake
+    one in the cache."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with torch.inference_mode(False), _disable_current_modes():
         return plane_tables(min_disp, max_disp, num_levels, width).to(device)
 
 
@@ -65,16 +74,17 @@ def _is_number(v) -> bool:
     return isinstance(v, numbers.Real) and not isinstance(v, bool)
 
 
-def _device_tables(min_disp, max_disp, num_levels: int, width: int, device):
-    """(tables on ``device``, per-sample stride in elements: 0 if one table
-    serves the whole batch)."""
+def _device_tables(min_disp, max_disp, num_levels: int, width: int, device) -> torch.Tensor:
+    """The plane tables on ``device``: (1, 5, N) for one bound pair (cached
+    for numbers), (B, 5, N) for per-sample bounds."""
     if _is_number(min_disp) and _is_number(max_disp):
-        return _scalar_tables(float(min_disp), float(max_disp), num_levels, width, device), 0
-    tabs = plane_tables(min_disp, max_disp, num_levels, width, device=device)
-    return tabs, (0 if tabs.shape[0] == 1 else 5 * num_levels)
+        return _scalar_tables(float(min_disp), float(max_disp), num_levels, width, device)
+    return plane_tables(min_disp, max_disp, num_levels, width, device=device)
 
 
-def _check(logits, image, min_disp, max_disp, want_disp, want_pan, want_subocc):
+def _check(logits, image, min_disp, max_disp, want_disp, want_pan, want_subocc, cuda=True):
+    """Raise on what the kernels do not take; with ``cuda`` (the public
+    wrappers), on CPU tensors too."""
     for name, t in (("logits", logits), ("image", image)):
         if t.ndim != 4 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous NCHW tensor, got {tuple(t.shape)}")
@@ -89,7 +99,7 @@ def _check(logits, image, min_disp, max_disp, want_disp, want_pan, want_subocc):
                 f"{name} must be 0-d or hold one bound per sample (B={b}), got shape {tuple(v.shape)}"
             )
     for name, t in (("logits", logits), ("image", image)):
-        if not t.is_cuda:
+        if cuda and not t.is_cuda:
             raise ValueError(f"the MED kernel needs CUDA tensors; {name} is on {t.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"the MED kernel takes float32; {name} is {t.dtype}")
@@ -126,10 +136,13 @@ PLAN_FIELDS = ("consumers", "cpt", "chunks", "group", "slots", "whole", "sweeps"
 
 def shift_margin(largest_disp: float, width: int) -> int:
     """Columns the direct path's chunk windows hold on each side for
-    disparities of magnitude up to ``largest_disp``: the largest |floor| of
-    a plane shift d (W-1)/W is at most ceil(|d|) (the tables clamp floors at
-    W + 1), plus the lerp's second column and the masks' neighbour, rounded
-    up to a multiple of 4 so that the windows' copies stay 16-byte aligned."""
+    disparities of magnitude up to ``largest_disp``, as :func:`stage_plan`
+    plans them: the largest |floor| of a plane shift d (W-1)/W is at most
+    ceil(|d|) (the tables clamp floors at W + 1), plus the lerp's second
+    column and the masks' neighbour, rounded up to a multiple of 4 so that
+    the windows' copies stay 16-byte aligned.  The ops' CUDA impls launch
+    with the same count taken from the tables' floors themselves
+    (csrc/torch_ops.cpp::shift_margin), never more than this."""
     m = min(math.ceil(abs(largest_disp)), width + 1) + 2
     return (m + 3) // 4 * 4
 
@@ -187,118 +200,43 @@ def describe_plan(kernel: str, n: int, c: int, w: int, **flags) -> str:
             f"{copy}, {p['smem']} B{direct}")
 
 
-@functools.lru_cache(maxsize=256)
-def _takes_direct(kernel, n, c, w, flags) -> bool:
-    """Whether the kernel's staged plans do not fit at these sizes, so that
-    it takes the direct path (host-only: the C plan entry)."""
-    p = _plan(kernel, n, c, w, flags, 0)
-    return p is not None and bool(p["direct"])
+class _LaunchCounts(type):
+    """Read-only class properties over the ops' launch counts."""
+
+    @property
+    def launches(cls) -> int:
+        counts = launch_counts()
+        return sum(counts[f"med_fwd:{m}"] for m in K1_MODES)
+
+    @property
+    def mode_launches(cls) -> dict:
+        counts = launch_counts()
+        return {m: counts[f"med_fwd:{m}"] for m in K1_MODES if counts[f"med_fwd:{m}"]}
+
+    @property
+    def bwd_launches(cls) -> int:
+        return launch_counts()["med_bwd"]
 
 
-def _largest(v) -> float:
-    return abs(float(v)) if _is_number(v) else float(v.detach().abs().max())
+class MedForward(metaclass=_LaunchCounts):
+    """The launch counts of K1 (``launches``; ``mode_launches`` by mode,
+    e.g. "disp", "disp+pan+subocc") and K2 (``bwd_launches``), counted by
+    the ops' CUDA impls where they launch."""
 
 
-def _margin(kernel, n, c, w, flags, min_disp, max_disp) -> int:
-    """The window margin to launch with: 0 on the staged paths and for a
-    kernel that reads no other column, else :func:`shift_margin` of the
-    bounds (per-sample bound tensors: their largest magnitude; read from the
-    card only on the direct path)."""
-    if not _shifted(kernel, flags) or not _takes_direct(kernel, n, c, w, flags):
-        return 0
-    return shift_margin(max(_largest(min_disp), _largest(max_disp)), w)
-
-
-def _launch_sized(name, device, margin, *args):
-    """:func:`launch` with the margin last; a refusal on the direct path
-    names the margin, the only size it can refuse there."""
-    try:
-        launch(name, device, *args, margin)
-    except ValueError as e:
-        if margin:
-            raise ValueError(f"{name}: a shift margin of {margin} columns does not fit the direct path's "
-                             f"chunk windows (at most 1280 a side): sizes beyond the kernel's limits") from e
-        raise
-
-
-def _launch(logits, image, tables, tab_stride, want_disp, want_pan, want_subocc, margin):
-    b, n, h, w = logits.shape
-    c = image.shape[1]
-
-    def out(ch, want):
-        return torch.empty((b, ch, h, w), dtype=torch.float32, device=logits.device) if want else None
-
-    disp, pan = out(1, want_disp), out(c, want_pan)
-    mask_l, mask_r = out(1, want_subocc), out(1, want_subocc)
-    dptr = lambda t: 0 if t is None else t.data_ptr()
-    _launch_sized(
-        "med_fwd", logits.device, margin, logits.data_ptr(), image.data_ptr(),
-        dptr(disp), dptr(pan), dptr(mask_l), dptr(mask_r),
-        tables.data_ptr(), tab_stride,
-        b, n, c, h, w, int(want_disp), int(want_pan), int(want_subocc),
-    )
-    MedForward.launches += 1
-    mode = "+".join(name for name, want in (("disp", want_disp), ("pan", want_pan), ("subocc", want_subocc)) if want)
-    MedForward.mode_launches[mode] = MedForward.mode_launches.get(mode, 0) + 1
-    return disp, pan, mask_l, mask_r
-
-
-def _launch_bwd(logits, image, g_disp, g_pan, tables, tab_stride, image_grad, margin):
-    b, n, h, w = logits.shape
-    c = image.shape[1]
-    want_gimg = image_grad and g_pan is not None
-    g_logits = torch.empty_like(logits)
-    g_image = torch.empty_like(image) if want_gimg else None
-    dptr = lambda t: 0 if t is None else t.data_ptr()
-    _launch_sized(
-        "med_bwd", logits.device, margin, logits.data_ptr(), image.data_ptr(), dptr(g_disp), dptr(g_pan),
-        g_logits.data_ptr(), dptr(g_image), tables.data_ptr(), tab_stride,
-        b, n, c, h, w, int(g_disp is not None), int(g_pan is not None), int(want_gimg),
-    )
-    MedForward.bwd_launches += 1
-    return g_logits, g_image
-
-
-class MedForward(torch.autograd.Function):
-    """K1 as an autograd node whose backward is K2.  The masks are
-    stop-gradient; only disp and pan carry cotangents, and an output that
-    got none (unrequested or unused) adds no term."""
-
-    launches = 0  # K1
-    mode_launches: dict = {}  # K1 by mode, e.g. "disp", "disp+pan+subocc"
-    bwd_launches = 0  # K2
-
-    @staticmethod
-    def forward(ctx, logits, image, tables, tab_stride, want_disp, want_pan, want_subocc, bound):
-        _, n, _, w = logits.shape
-        margin = _margin("med_fwd", n, image.shape[1], w, (int(want_disp), int(want_pan), int(want_subocc)), *bound)
-        outs = _launch(logits, image, tables, tab_stride, want_disp, want_pan, want_subocc, margin)
-        ctx.mark_non_differentiable(*(t for t in outs[2:] if t is not None))
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(logits, image, tables)
-        ctx.tab_stride = tab_stride
-        ctx.bound = bound
-        return outs
-
-    @staticmethod
-    def backward(ctx, g_disp, g_pan, _g_mask_l, _g_mask_r):
-        if g_disp is None and g_pan is None:
-            return (None,) * 8
-        logits, image, tables = ctx.saved_tensors
-        g_disp = None if g_disp is None else g_disp.contiguous()
-        g_pan = None if g_pan is None else g_pan.contiguous()
-        _check_bwd(logits, image, g_disp, g_pan)
-        g_logits, g_image = _bwd(logits, image, g_disp, g_pan, tables, ctx.tab_stride, ctx.needs_input_grad[1],
-                                 ctx.bound)
-        return g_logits, g_image, None, None, None, None, None, None
-
-
-def _bwd(logits, image, g_disp, g_pan, tables, tab_stride, image_grad, bound):
+def med_outputs_op(logits, image, min_disp, max_disp, *, ret_disp=True, ret_pan=False, ret_subocc=False,
+                   cuda=True) -> MedOutputs:
+    """The MED head through the op ``fal_net_torch::med_fwd``: K1 on CUDA
+    tensors.  With ``cuda=False`` CPU tensors reach the op's plain CPU
+    kernel: for ``serve.export_forward``'s traced copy of the model only."""
+    _check(logits, image, min_disp, max_disp, ret_disp, ret_pan, ret_subocc, cuda=cuda)
+    if logits.is_cuda:
+        load_library()
     _, n, _, w = logits.shape
-    want_gimg = image_grad and g_pan is not None
-    flags = (int(g_disp is not None), int(g_pan is not None), int(want_gimg))
-    margin = _margin("med_bwd", n, image.shape[1], w, flags, *bound)
-    return _launch_bwd(logits, image, g_disp, g_pan, tables, tab_stride, image_grad, margin)
+    tables = _device_tables(min_disp, max_disp, n, w, logits.device)
+    disp, pan, mask_l, mask_r = torch.ops.fal_net_torch.med_fwd(logits, image, tables, ret_disp, ret_pan, ret_subocc)
+    return MedOutputs(pan=pan if ret_pan else None, disp=disp if ret_disp else None,
+                      maskL=mask_l if ret_subocc else None, maskR=mask_r if ret_subocc else None)
 
 
 def med_outputs_fused(
@@ -314,14 +252,9 @@ def med_outputs_fused(
     """The MED head through the CUDA kernel; same outputs as
     :func:`fal_net_torch.ops.med.med_outputs`.  ``min_disp`` / ``max_disp``
     are numbers, 0-d tensors or (B,) tensors of per-sample bounds.  Launches
-    on the current stream and does not synchronize."""
-    _check(logits, image, min_disp, max_disp, ret_disp, ret_pan, ret_subocc)
-    _, n, _, w = logits.shape
-    tables, tab_stride = _device_tables(min_disp, max_disp, n, w, logits.device)
-    disp, pan, mask_l, mask_r = MedForward.apply(
-        logits, image, tables, tab_stride, ret_disp, ret_pan, ret_subocc, (min_disp, max_disp)
-    )
-    return MedOutputs(pan=pan, disp=disp, maskL=mask_l, maskR=mask_r)
+    on the current stream and does not synchronize; differentiable (K2)."""
+    return med_outputs_op(logits, image, min_disp, max_disp, ret_disp=ret_disp, ret_pan=ret_pan,
+                          ret_subocc=ret_subocc)
 
 
 def med_vjp_fused(
@@ -340,6 +273,8 @@ def med_vjp_fused(
     want_disp, want_pan = g_disp is not None, g_pan is not None
     _check(logits, image, min_disp, max_disp, want_disp, want_pan, False)
     _check_bwd(logits, image, g_disp, g_pan)
+    load_library()
     _, n, _, w = logits.shape
-    tables, tab_stride = _device_tables(min_disp, max_disp, n, w, logits.device)
-    return _bwd(logits, image, g_disp, g_pan, tables, tab_stride, image_grad, (min_disp, max_disp))
+    tables = _device_tables(min_disp, max_disp, n, w, logits.device)
+    g_logits, g_image = torch.ops.fal_net_torch.med_bwd(logits, image, g_disp, g_pan, tables, image_grad)
+    return g_logits, g_image if g_image.numel() else None

@@ -10,18 +10,20 @@ amount f, and the window is read back:
 
 f is a (1,) int32 tensor, which the kernel reads from device memory as the
 TPU kernel reads it from SMEM; any f wraps, negative or past the row.
-The C entry owns the size limits (the window inside the row, the row in a
-block's shared memory) and the wrapper raises when it refuses.
-``LAUNCHES`` counts K5's launches.
+The kernel launches through the op ``fal_net_torch::roll_window``, whose
+CUDA impl (csrc/torch_ops.cpp) checks the tensors, allocates the output and
+launches from C++; the C entry owns the size limits (the window inside the
+row, the row in a block's shared memory) and the op raises when it refuses.
+``LAUNCHES`` reads K5's launch count, which the op keeps.
 """
 
 from __future__ import annotations
 
 import torch
 
-from fal_net_torch.ops._build import launch
+from fal_net_torch.ops._build import LaunchCounts, load_library
 
-LAUNCHES = {"roll_window": 0}
+LAUNCHES = LaunchCounts(("roll_window",))
 
 
 def roll_window_plain(x: torch.Tensor, f, wp: int, left: int = 128) -> torch.Tensor:
@@ -36,15 +38,11 @@ def roll_window_plain(x: torch.Tensor, f, wp: int, left: int = 128) -> torch.Ten
 
 def roll_window(x: torch.Tensor, f: torch.Tensor, wp: int, left: int = 128) -> torch.Tensor:
     """K5 on CUDA fp32 ``x`` (H, W) and int32 ``f`` (1,) on the same device.
-    Launches on the current stream and does not synchronize."""
-    if not (x.is_cuda and isinstance(f, torch.Tensor) and f.device == x.device):
+    Launches on the current stream and does not synchronize.  The op checks
+    the rest in C++: the one Python step before it is the device check that
+    keeps CPU tensors away from the op's plain CPU kernel (and a cached
+    call that loads the kernels once)."""
+    if not x.is_cuda:
         raise ValueError(f"the roll kernel needs x and f on one CUDA device; x is on {x.device}")
-    if x.dtype != torch.float32 or f.dtype != torch.int32:
-        raise TypeError(f"the roll kernel takes float32 x and int32 f, got {x.dtype} and {f.dtype}")
-    if x.ndim != 2 or not x.is_contiguous() or f.shape != (1,):
-        raise ValueError(f"x must be a contiguous (H, W) and f a (1,) tensor, got {tuple(x.shape)}, {tuple(f.shape)}")
-    h, w = x.shape
-    out = torch.empty_like(x)
-    launch("roll_window", x.device, x.data_ptr(), f.data_ptr(), out.data_ptr(), h, w, wp, left)
-    LAUNCHES["roll_window"] += 1
-    return out
+    load_library()
+    return torch.ops.fal_net_torch.roll_window.default(x, f, wp, left)

@@ -9,10 +9,15 @@ disp+pan at (8, 49, 16, 11572) beside the ring at (8, 49, 16, 1500)), K2
 (disp+pan cotangents, without and with the image gradient, at
 (8, 49, 192, 640); and, where the package has K2's direct path, at
 (8, 49, 16, 5000) and (8, 49, 16, 11572) beside the ring at
-(8, 49, 16, 1500), the same per logit), the FAL_netB N=49 disp forward at batch 8
-and 384x1280, and the stage-1 training step at batch 8 and 192x640: CUDA
-events around one call, median of 50 calls after warm-up, on inputs and
-weights from seed 0.  Prints one JSON object with the card's name.
+(8, 49, 16, 1500), the same per logit), K5 (the windowed roll at the probe's
+(8, 128), wp = 640) beside ``torch.roll`` of the zero-padded row (also in
+host microseconds a call, the mean over 5,000 calls, beside one native
+single-kernel op, ``torch.neg``, an ``empty_like``, and the events around
+an empty call: the launch path's floors), the
+FAL_netB N=49 disp forward at batch 8 and batch 1 and 384x1280, and the
+stage-1 training step at batch 8 and 192x640: CUDA events around one call,
+median of 50 calls after warm-up, on inputs and weights from seed 0.
+Prints one JSON object with the card's name.
 
 It calls only entry points that earlier versions of the package have too,
 so run as a file with another checkout of the package first on PYTHONPATH
@@ -25,6 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -32,6 +38,7 @@ import torch
 import fal_net_torch
 from fal_net_torch.models import create_model
 from fal_net_torch.ops.med_kernel import med_outputs_fused, med_vjp_fused
+from fal_net_torch.ops.roll_probe import roll_window
 from fal_net_torch.train.stages import stage1_loss
 from fal_net_torch.train.state import create_optimizer
 from fal_net_torch.utils.device import resolve_device
@@ -39,6 +46,20 @@ from fal_net_torch.utils.timing import median_ms
 
 SEED, REPS, B, N = 0, 50, 8, 49
 SERVE, TRAIN = (384, 1280), (192, 640)
+
+
+def host_us(fn, calls: int = 5000) -> float:
+    """Host microseconds a call of ``fn``: the mean over ``calls`` calls
+    after warm-up, the card drained before and after."""
+    for _ in range(200):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / calls * 1e6
 
 
 def main(argv=None) -> dict:
@@ -81,10 +102,25 @@ def main(argv=None) -> dict:
             pass
         del wl, wi, wd, wp
 
+    row = torch.from_numpy(np.random.default_rng(SEED + 3).standard_normal((8, 128), np.float32)).to(dev)
+    f = torch.tensor([17], dtype=torch.int32, device=dev)
+    padded = row.new_zeros((8, 640))
+    padded[:, 128:256] = row
+    launches = {
+        "k5 roll (8, 128) wp=640": lambda: roll_window(row, f, 640, 128),
+        "torch.roll (8, 640) window": lambda: torch.roll(padded, -17, dims=1)[:, 128:256],
+    }
+    for name, fn in launches.items():
+        out[name] = median_ms(fn, REPS)
+    floors = {"torch.neg (8, 128)": lambda: torch.neg(row), "empty_like (8, 128)": lambda: torch.empty_like(row)}
+    host = {name: host_us(fn) for name, fn in {**launches, **floors}.items()}
+    host["events around an empty call (us, median)"] = median_ms(lambda: None, 200) * 1e3
+
     model = create_model("B", N, generator=torch.Generator().manual_seed(SEED), device=dev)
     left = draw(3, SERVE)
     with torch.inference_mode():
         out[f"forward disp B={B} {SERVE}"] = median_ms(lambda: model(left, 2.0, 300.0, ret_disp=True), REPS)
+        out[f"forward disp B=1 {SERVE}"] = median_ms(lambda: model(left[:1], 2.0, 300.0, ret_disp=True), REPS)
     del left
     opt, sched = create_optimizer(
         model, lr=1e-4, beta1=0.5, beta2=0.999, milestones=(30, 40), lr_gamma=0.5, steps_per_epoch=1000
@@ -103,7 +139,7 @@ def main(argv=None) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    result = {"package": fal_net_torch.__file__, "card": card, "ms": out}
+    result = {"package": fal_net_torch.__file__, "card": card, "ms": out, "host_us": host}
     print(json.dumps(result), flush=True)
     return result
 

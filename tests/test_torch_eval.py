@@ -369,7 +369,6 @@ def test_cli_test_on_cpu_end_to_end(models, raw_tree, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--artifact", "x.bundle"], "item 11"),
     (["--pretrained", "x.pt", "--num_devices", "2"], "item 12"),
     (["--pretrained", "x.pt", "--dtype", "bfloat16"], "item 10"),
 ])
@@ -381,8 +380,6 @@ def test_cli_test_later_slice_flags_raise(flags, item):
 def test_evaluator_mesh_and_artifact_raise(models):
     with pytest.raises(NotImplementedError, match="item 12"):
         Evaluator(models[2], EvalConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Evaluator.from_artifact(None, EvalConfig())
     assert "relay_retries" not in {f.name for f in EvalConfig.__dataclass_fields__.values()}
 
 
