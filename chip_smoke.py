@@ -135,6 +135,33 @@ Phases, each reported on its own line; any failure exits nonzero:
      K1 counted by mode, the gate's included); the artifact's forward timed
      against the live model's at batch 8 and 1, in turns; and
      ``python -m fal_net_torch.cli.selfcheck --full``, which must exit 0.
+  12. bf16 compute (FAL_netB N=49, the backbone in bf16, its parameters, the
+     MED head and the logits fp32): ``cli.train --dtype bfloat16`` on phase
+     7a's tree for 4 steps (K1, K2 per step; the checkpoint's parameters
+     and Adam's state fp32); K1 inside the bf16 model against the plain head
+     on its fp32 logits in every mode at phase 3's tolerances; the bf16
+     drift against fp32 with TF32 off (printed, not bounded); the disp
+     forward at 384x1280, B=8 and B=1, and the stage-1 step at 192x640, B=8,
+     fp32 and bf16 in turns (CUDA events, median of 20) with peak memory;
+     one stage-2 step with a bf16 student and teacher (K1 twice, K2 once),
+     timed in turns with the fp32 student; ``cli.test --dtype bfloat16`` on
+     phase 10's tree (finite metrics, K1 by mode); ``cli.export --dtype
+     bfloat16`` of phase 4's checkpoint (meta dtype bfloat16, K1 inside it,
+     its output equal to the live bf16 model's at phase 10's tolerances);
+  13. multi-GPU: ``dryrun_multigpu(2)``, two ranks on cuda:0 over gloo (NCCL
+     refuses two ranks on one card), one DDP stage-1 step of FAL_netB at
+     global batch 8 with TF32 off: the ranks' all-reduced gradients held
+     against the average of each rank's own gradients on its slice [r::2]
+     of the global batch within 10 units of rtol 1e-4, atol 1e-6 max|g|
+     (``dryrun.SAME_SPLIT``), and gradients and
+     Adam moments against the one-process step within the cap that fp32
+     summation order at another batch size needs (parallel/dryrun.py), K1
+     and K2 launches per rank; over NCCL on two cards where two are
+     visible; the same at world size 1 over NCCL; ``cli.test --num_devices 1`` against phase 10's ms-pp
+     run, and an Evaluator on the mesh ["cuda:0", "cuda:0"] (each batch as
+     two parts of 4) against one device at batch 4 and, with TF32 off,
+     against phase 10's TF32-off run, at phase 10's tolerances (with TF32
+     on against phase 10's batch 8: printed).
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1614,7 +1641,8 @@ def phase_eval(rng, dev, seed: int, card: str, workdir: str) -> dict:
     line(f"phase 10 evaluation: {k1_total} K1 launches; tree of {n_all} frames written in {tree_s:.2f} s; worst "
          f"gate abs err {worst:.3e}")
     return {"k1": k1_total, "worst": worst, "images_per_s": n_timed / secs, "steady_images_per_s": n_steady / steady_s,
-            "root": root, "lists": lists["all"], "ckpt": ckpt, "ms_metrics": ms_metrics, "ms_disps": ms_disps}
+            "root": root, "lists": lists["all"], "ckpt": ckpt, "ms_metrics": ms_metrics, "ms_disps": ms_disps,
+            "off_metrics": off_metrics, "off_disps": off_disps}
 
 
 # phase 11: the artifacts' forward in a fresh interpreter, on phase 4a's first 8 frames (raw
@@ -1773,6 +1801,288 @@ def phase_artifact(dev, card: str, serve_dir: str, evaluation: dict, workdir: st
     return {"k1": sum(report["k1"].values()) + sum(k1_infer.values()) + sum(by_mode.values())}
 
 
+def peak_gb(fn) -> float:
+    """Peak device memory of one call of ``fn``, in GB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def in_turns(fns: dict, reps: int = 20) -> dict:
+    """Median ms of each of two callables in turns (a, b, b, a) and each one's
+    peak device memory: {name: (ms, ms, GB)}."""
+    (a, fa), (b, fb) = fns.items()
+    ms = {a: [median_ms(fa, reps=reps)], b: [median_ms(fb, reps=reps)]}
+    ms[b].append(median_ms(fb, reps=reps))
+    ms[a].append(median_ms(fa, reps=reps))
+    return {k: (*ms[k], peak_gb(f)) for k, f in fns.items()}
+
+
+def phase_bf16_train(root: str, workdir: str) -> dict:
+    """Phase 12a: cli.train --dtype bfloat16 on phase 7a's tree, 4 steps;
+    the checkpoint's parameters and Adam's state stay fp32."""
+    result, trainer, _, k1, k2, secs = run_cli_train(["--stage", "1", "--dtype", "bfloat16"], root, workdir)
+    (epoch,) = result["history"]
+    data = torch.load(os.path.join(result["save_path"], "checkpoint.pt"), map_location="cpu", weights_only=True)
+    dtypes = {v.dtype for v in data["state_dict"].values()}
+    dtypes |= {t.dtype for st in data["optimizer"]["state"].values() for t in st.values()
+               if torch.is_tensor(t) and t.ndim}
+    if (k1, k2) != (TRAIN_STEPS + 1, TRAIN_STEPS + 1) or trainer.model.dtype != torch.bfloat16 or dtypes != {
+            torch.float32}:
+        raise AssertionError(f"cli.train --dtype bfloat16: K1 {k1}, K2 {k2} launches, model {trainer.model.dtype}, "
+                             f"checkpoint dtypes {dtypes}")
+    line(f"phase 12 cli.train --dtype bfloat16 FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B={BATCH}: {TRAIN_STEPS} steps in "
+         f"{secs:.2f} s, epoch loss {epoch['loss']:.6f} rec {epoch['rec_loss']:.6f}; K1 {k1}, K2 {k2} launches; "
+         f"checkpoint parameters and Adam state fp32")
+    return {"k1": k1, "k2": k2}
+
+
+def phase_bf16(rng, dev, card: str, seed: int, serve_dir: str, evaluation: dict, workdir: str) -> dict:
+    """Phase 12: bf16 compute on the card (see the module docstring)."""
+    from fal_net_torch.cli import export as cli_export
+    from fal_net_torch.cli import test as cli_test
+    from fal_net_torch.models.checkpoint import load_checkpoint
+    from fal_net_torch.serve import load_exported
+    from fal_net_torch.train.stages import stage2_loss
+
+    k1_total = k2_total = 0
+    model32 = create_model("B", 49, generator=torch.Generator().manual_seed(seed), device=dev)
+    model16 = model32.with_dtype("bfloat16")
+    frames = np.stack([normalize(synthetic_image(rng)) for _ in range(BATCH)]).transpose(0, 3, 1, 2).copy()
+    x8 = torch.from_numpy(frames).to(dev)
+
+    # K1 inside the bf16 model against the plain head on the same fp32 logits, every mode
+    _build.reset_launch_counts()
+    worst = 0.0
+    with torch.inference_mode():
+        logits = model16.logits(x8, 300.0)
+        if logits.dtype != torch.float32:
+            raise AssertionError(f"bf16 model's logits are {logits.dtype}")
+        for mode in ("disp", "disp+pan", "disp+pan+subocc"):
+            got = med_outputs_fused(logits, x8, 2.0, 300.0, **MODES[mode])
+            want = med_outputs(logits, x8, 2.0, 300.0, **MODES[mode])
+            worst = max(worst, compare(got, want, f"bf16 model logits B={BATCH} {mode}"))
+        del logits
+        out = model16(x8, 2.0, 300.0, ret_disp=True, ret_pan=True, ret_subocc=True)
+        torch.cuda.synchronize()
+    k1 = MedForward.launches
+    if k1 != 4 or not all(torch.isfinite(t).all() for t in out) or out.disp.dtype != torch.float32:
+        raise AssertionError(f"bf16 forward: K1 {k1} launches, outputs {[t.dtype for t in out]}")
+    k1_total += k1
+    line(f"phase 12 K1 in the bf16 FAL_netB N=49 {SERVE_H}x{SERVE_W} B={BATCH}: fp32 logits, K1 = plain head in every "
+         f"mode (phase 3's tolerances), worst abs err {worst:.3e}; {k1} K1 launches")
+
+    # the bf16 drift against fp32, TF32 off (reported, not bounded)
+    with torch.inference_mode(), tf32(False):
+        d32 = model32(x8, 2.0, 300.0, ret_disp=True).disp
+        d16 = model16(x8, 2.0, 300.0, ret_disp=True).disp
+        drift = (d16 - d32).abs()
+    line(f"phase 12 bf16 drift (FAL_netB N=49 {SERVE_H}x{SERVE_W} B={BATCH} disp, random weights, bf16 vs fp32 "
+         f"with TF32 off): max |d disp| {float(drift.max()):.4f} px, mean |d disp| {float(drift.mean()):.5f} px")
+    del d32, d16, drift
+
+    # the forward at B=8 and B=1, fp32 (TF32 convs) and bf16 in turns
+    times = {}
+    with torch.inference_mode():
+        for b in (BATCH, 1):
+            x = x8[:b].contiguous()
+            got = in_turns({"fp32": lambda: model32(x, 2.0, 300.0, ret_disp=True),
+                            "bf16": lambda: model16(x, 2.0, 300.0, ret_disp=True)})
+            times[f"fwd_b{b}"] = got
+            line(f"phase 12 forward FAL_netB N=49 {SERVE_H}x{SERVE_W} disp B={b} (in turns fp32, bf16, bf16, fp32): "
+                 f"fp32 {got['fp32'][0]:.3f}, {got['fp32'][1]:.3f} ms, peak {got['fp32'][2]:.2f} GB; bf16 "
+                 f"{got['bf16'][0]:.3f}, {got['bf16'][1]:.3f} ms, peak {got['bf16'][2]:.2f} GB [{card}]")
+    del model32, model16, x8
+
+    # the stage-1 step at B=8 (192x640), fp32 and bf16 in turns; then one bf16 stage-2 step
+    tmodel, opt, sched, batch = train_setup(dev, seed)
+    t16 = tmodel.with_dtype("bfloat16")
+    _build.reset_launch_counts()
+    train_step_fn(t16, opt, sched, batch)()
+    torch.cuda.synchronize()
+    if (MedForward.launches, MedForward.bwd_launches) != (1, 1):
+        raise AssertionError(f"bf16 stage-1 step: K1 {MedForward.launches}, K2 {MedForward.bwd_launches}")
+    k1_total, k2_total = k1_total + 1, k2_total + 1
+    got = in_turns({"fp32": train_step_fn(tmodel, opt, sched, batch), "bf16": train_step_fn(t16, opt, sched, batch)})
+    times["step"] = got
+    if not all(torch.isfinite(p).all() for p in tmodel.parameters()) or {p.dtype for p in tmodel.parameters()} != {
+            torch.float32}:
+        raise AssertionError("bf16 steps left non-finite or non-fp32 parameters")
+    line(f"phase 12 stage-1 step FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B={BATCH} (forward, backward, Adam; in turns): fp32 "
+         f"{got['fp32'][0]:.3f}, {got['fp32'][1]:.3f} ms, peak {got['fp32'][2]:.2f} GB; bf16 {got['bf16'][0]:.3f}, "
+         f"{got['bf16'][1]:.3f} ms, peak {got['bf16'][2]:.2f} GB [{card}]")
+    del tmodel, opt, sched, batch, t16
+    s_model, s_opt, s_sched, s_batch = train_setup(dev, seed, batch_size=BATCH // 2)
+    teacher = create_model("B", 49, generator=torch.Generator().manual_seed(seed + 1), device=dev,
+                           dtype="bfloat16").requires_grad_(False).eval()
+    kw = dict(loss_fn=lambda *a, **k: stage2_loss(a[0], a[1], teacher, a_mr=1.0, **k))
+    step2 = {"fp32": train_step_fn(s_model, s_opt, s_sched, s_batch, **kw),
+             "bf16": train_step_fn(s_model.with_dtype("bfloat16"), s_opt, s_sched, s_batch, **kw)}
+    _build.reset_launch_counts()
+    step2["bf16"]()
+    torch.cuda.synchronize()
+    if (MedForward.launches, MedForward.bwd_launches) != (2, 1):
+        raise AssertionError(f"bf16 stage-2 step: K1 {MedForward.launches}, K2 {MedForward.bwd_launches}")
+    k1_total, k2_total = k1_total + 2, k2_total + 1
+    with torch.no_grad():
+        loss, _ = stage2_loss(s_model.with_dtype("bfloat16"), s_batch, teacher, min_disp=2.0, max_disp=300.0, a_p=0.0,
+                              a_sm=0.4 * 2 / 512, a_mr=1.0)
+    got = in_turns(step2, reps=10)
+    times["step2"] = got
+    line(f"phase 12 stage-2 step, bf16 student and teacher FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B={BATCH // 2} (double "
+         f"batch {BATCH}): K1 2, K2 1 launches, loss {loss.item():.6f}; in turns with the fp32 student (the teacher "
+         f"bf16 in both): fp32 {got['fp32'][0]:.3f}, {got['fp32'][1]:.3f} ms, bf16 {got['bf16'][0]:.3f}, "
+         f"{got['bf16'][1]:.3f} ms, peak {got['bf16'][2]:.2f} GB [{card}]")
+    if not np.isfinite(loss.item()):
+        raise AssertionError("bf16 stage-2 loss is not finite")
+    del s_model, s_opt, s_sched, s_batch, teacher
+
+    # cli.test --dtype bfloat16 on phase 10's tree
+    metrics, (ev,), disps, by_mode, secs = recorded_eval(lambda: cli_test.main([
+        "--data_root", evaluation["root"], "--lists_dir", evaluation["lists"], "--pretrained", evaluation["ckpt"],
+        "--batch_size", str(BATCH), "--dtype", "bfloat16", "--save_path", os.path.join(workdir, "eval_bf16")]))
+    check_eval_outputs(os.path.join(workdir, "eval_bf16"), metrics, "bf16")
+    n_all = EVAL_FRAMES * len(EVAL_SHAPES)
+    want_k1 = {"disp": 2 * (n_all // BATCH) + 2 * len(EVAL_SHAPES)}
+    if by_mode != want_k1 or len(disps) != n_all or ev.model.dtype != torch.bfloat16:
+        raise AssertionError(f"cli.test --dtype bfloat16: K1 {by_mode} (want {want_k1}), {len(disps)} images")
+    k1_total += sum(by_mode.values())
+    d_err = max(float(np.abs(disps[i] - evaluation["ms_disps"][i]).max()) for i in disps)
+    line(f"phase 12 cli.test --dtype bfloat16 (ms-pp, {n_all} images, B={BATCH}) in {secs:.2f} s: K1 {by_mode}; "
+         f"abs_rel {metrics['abs_rel']:.6f} a1 {metrics['a1']:.6f} (fp32, phase 10: {evaluation['ms_metrics']['abs_rel']:.6f}, "
+         f"{evaluation['ms_metrics']['a1']:.6f}); max |d disp| against fp32 {d_err:.4f} px [{card}]")
+
+    # cli.export --dtype bfloat16 of phase 4's checkpoint: the artifact against the live bf16 model
+    ckpt = os.path.join(serve_dir, "falnetB_n49.pt")
+    art = os.path.join(workdir, "bf16.pt2z")
+    t0 = time.perf_counter()
+    size = cli_export.main(["--pretrained", ckpt, "--batch", str(BATCH), "--dtype", "bfloat16", "--out", art])
+    export_s = time.perf_counter() - t0
+    fwd = load_exported(art)
+    live = load_checkpoint(ckpt, device=dev, dtype="bfloat16")
+    x = torch.from_numpy(frames).to(dev)
+    _build.reset_launch_counts()
+    with torch.inference_mode():
+        (got,) = fwd(x.permute(0, 2, 3, 1).contiguous())
+        torch.cuda.synchronize()
+        k1_art = MedForward.mode_launches
+        want = live(x, 2.0, 300.0, ret_disp=True).disp.permute(0, 2, 3, 1)
+    err = float((got - want).abs().max())
+    rtol, atol = EVAL_DISP_TOL
+    if fwd.meta["dtype"] != "bfloat16" or k1_art != {"disp": 1} or not torch.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"bf16 artifact: dtype {fwd.meta['dtype']}, K1 {k1_art}, max abs err {err:.3e}")
+    k1_total += 1
+    with torch.inference_mode():
+        xa = x.permute(0, 2, 3, 1).contiguous()
+        got_t = in_turns({"live": lambda: live(x, 2.0, 300.0, ret_disp=True), "artifact": lambda: fwd(xa)})
+    line(f"phase 12 cli.export --dtype bfloat16 {SERVE_H}x{SERVE_W} disp B={BATCH} in {export_s:.2f} s, "
+         f"{size / 1e6:.1f} MB, meta dtype {fwd.meta['dtype']}; K1 inside it {k1_art}; vs the live bf16 model max abs "
+         f"err {err:.3e} px; forward in turns: live {got_t['live'][0]:.3f}, {got_t['live'][1]:.3f} ms, artifact "
+         f"{got_t['artifact'][0]:.3f}, {got_t['artifact'][1]:.3f} ms [{card}]")
+    return {"k1": k1_total, "k2": k2_total, "worst": worst, "times": times}
+
+
+def phase_multi(dev, card: str, evaluation: dict, workdir: str) -> dict:
+    """Phase 13: multi-GPU (see the module docstring)."""
+    from fal_net_torch.cli import test as cli_test
+    from fal_net_torch.data.datasets import kitti_eigen_test_improved
+    from fal_net_torch.eval.evaluate import EvalConfig, Evaluator
+    from fal_net_torch.models.checkpoint import load_checkpoint
+    from fal_net_torch.parallel.dryrun import ORDER_ONLY, SAME_SPLIT, dryrun_multigpu
+    from fal_net_torch.parallel.mesh import make_mesh
+
+    n_cards = torch.cuda.device_count()
+    try:
+        make_mesh(n_cards + 1)
+        raise AssertionError(f"make_mesh({n_cards + 1}) took {n_cards} visible cards")
+    except ValueError as e:
+        line(f"phase 13 make_mesh({n_cards + 1}) with {n_cards} visible: ValueError: {e}")
+    k1_total = k2_total = 0
+    runs = [(2, "cuda:0", "gloo", "two ranks on cuda:0")]
+    if torch.cuda.device_count() >= 2:
+        runs.append((2, "cuda", "nccl", "two cards"))
+    runs.append((1, "cuda", "nccl", "world size 1"))
+    for n, device, backend, what in runs:
+        cached = torch.cuda.memory_reserved(0) / 2**30  # handed back to the ranks by the dry run
+        t0 = time.perf_counter()
+        rep = dryrun_multigpu(n, device, backend, store_dir=workdir, timeout=300, join_timeout=600, timed_steps=5)
+        secs = time.perf_counter() - t0
+        if rep["k1"] != [1] * n or rep["k2"] != [1] * n:
+            raise AssertionError(f"dryrun_multigpu({n}, {backend}): K1 {rep['k1']}, K2 {rep['k2']} per rank")
+        k1_total += sum(rep["k1"])
+        k2_total += sum(rep["k2"])
+        line(f"phase 13 dryrun_multigpu({n}) {what} over {backend}: one DDP stage-1 step FAL_netB N=49 "
+             f"{TRAIN_H}x{TRAIN_W}, global batch {BATCH} ({BATCH // n} a rank), TF32 off: loss per rank "
+             f"{[round(v, 6) for v in rep['loss']]} vs one process {rep['one_process_loss']:.6f}; gradients "
+             f"and Adam moments against the one-process step (cuDNN deterministic): worst {rep['worst']:.3f} of "
+             f"the tolerance rtol 1e-4, atol 1e-6 max|g| (limit {ORDER_ONLY}); the all-reduced gradients "
+             f"against the average of the ranks' own on the global batch's slices [r::{n}]: "
+             f"{rep['mean_worst']:.3f} (limit {SAME_SPLIT}); "
+             f"K1 per rank {rep['k1']}, K2 per rank {rep['k2']}; step after it (median of 5, host "
+             f"clock) per rank {[round(v, 3) for v in rep['step_ms']]} ms, one process "
+             f"{rep['one_process_step_ms']:.3f} ms; {secs:.1f} s in all; {cached:.2f} GiB cached here before, "
+             f"{rep['free_gib']:.2f} GiB free on the card as the ranks started [{card}]")
+
+    # evaluation: cli.test --num_devices 1 and an Evaluator on ["cuda:0", "cuda:0"] against phase 10
+    rtol, atol = EVAL_DISP_TOL
+    n_all = EVAL_FRAMES * len(EVAL_SHAPES)
+
+    def against(metrics, disps, want_metrics, want_disps, label):
+        d_err = max(float(np.abs(disps[i] - want_disps[i]).max()) for i in want_disps)
+        bad = [i for i in want_disps if not np.allclose(disps[i], want_disps[i], rtol=rtol, atol=atol)]
+        m_err = max(abs(metrics[k] - want_metrics[k]) for k in ("abs_rel", "sq_rel", "rms", "log_rms", "a1", "a2",
+                                                                 "a3"))
+        if len(disps) != n_all or bad or m_err > EVAL_METRIC_TOL:
+            raise AssertionError(f"{label}: {len(disps)} images, images {bad} differ (max {d_err:.3e}), metric "
+                                 f"{m_err:.3e}")
+        return d_err, m_err
+
+    metrics, (ev,), disps, by_mode, secs = recorded_eval(lambda: cli_test.main([
+        "--data_root", evaluation["root"], "--lists_dir", evaluation["lists"], "--pretrained", evaluation["ckpt"],
+        "--batch_size", str(BATCH), "--num_devices", "1", "--save_path", os.path.join(workdir, "eval_n1")]))
+    d_err, m_err = against(metrics, disps, evaluation["ms_metrics"], evaluation["ms_disps"],
+                                   "cli.test --num_devices 1")
+    k1_total += sum(by_mode.values())
+    line(f"phase 13 cli.test --num_devices 1 (ms-pp, {n_all} images) in {secs:.2f} s: K1 {by_mode}; vs phase 10 max "
+         f"|d disp| {d_err:.3e} px, max |d metric| {m_err:.3e}")
+
+    model = load_checkpoint(evaluation["ckpt"], device=dev)
+    _, ds = kitti_eigen_test_improved(evaluation["root"], split=0, lists_dir=evaluation["lists"])
+    ds.raw_uint8 = True
+
+    def evaluate(out, batch, mesh=None):
+        cfg = EvalConfig(batch_size=batch, save_path=os.path.join(workdir, out), print_freq=1000)
+        metrics, (ev,), disps, by_mode, secs = recorded_eval(lambda: Evaluator(model, cfg, mesh=mesh).run(ds))
+        want_k1 = {"disp": 2 * n_all // (batch // len(mesh or [0])) + 2 * len(EVAL_SHAPES)}  # ms-pp a part; gate
+        if by_mode != want_k1 or len(disps) != n_all:
+            raise AssertionError(f"Evaluator {out}: K1 {by_mode} (want {want_k1}), {len(disps)} images")
+        return metrics, disps, by_mode, secs, ev
+
+    # the mesh splits each batch of 8 into two parts of 4: held exactly against one device at batch 4 (the
+    # same convolutions), and against phase 10's batch 8 with TF32 off; with TF32 on, cuDNN's TF32 sums at
+    # batch 4 and 8 round apart, which the random-weight net carries to pixels (reported, as phase 10's drift)
+    mesh = ["cuda:0", "cuda:0"]
+    m_on, d_on, k_on, s_on, ev = evaluate("mesh_tf32", BATCH, mesh)
+    b4_metrics, b4_disps, k_b4, _, _ = evaluate("b4_tf32", BATCH // 2)
+    with tf32(False):
+        m_off, d_off, k_off, s_off, _ = evaluate("mesh_no_tf32", BATCH, mesh)
+    k1_total += sum(k_on.values()) + sum(k_b4.values()) + sum(k_off.values())
+    d4, m4 = against(m_on, d_on, b4_metrics, b4_disps, "mesh Evaluator (TF32) vs one device at batch 4")
+    d_o, m_o = against(m_off, d_off, evaluation["off_metrics"], evaluation["off_disps"],
+                               "mesh Evaluator (TF32 off) vs phase 10's TF32-off Evaluator")
+    drift = max(float(np.abs(d_on[i] - evaluation["ms_disps"][i]).max()) for i in d_on)
+    m_drift = max(abs(m_on[k] - evaluation["ms_metrics"][k]) for k in ("abs_rel", "sq_rel", "rms", "log_rms", "a1",
+                                                                       "a2", "a3"))
+    line(f"phase 13 Evaluator on the mesh [cuda:0, cuda:0] (ms-pp, {n_all} images, B={BATCH} as 2 x {BATCH // 2}) "
+         f"in {s_on:.2f} s (TF32), {s_off:.2f} s (TF32 off): K1 {k_on} and {k_off}, gate {sorted(ev.med_checked)}; "
+         f"vs one device at B={BATCH // 2} (TF32) max |d disp| {d4:.3e} px, max |d metric| {m4:.3e}; vs phase 10's "
+         f"TF32-off Evaluator (TF32 off) {d_o:.3e} px, {m_o:.3e}; vs phase 10's cli.test at B={BATCH} (TF32, not "
+         f"bounded) {drift:.4f} px, {m_drift:.3e} [{card}]")
+    return {"k1": k1_total, "k2": k2_total}
+
+
 def phase_scripts(card: str) -> list[dict]:
     """Phase 9: the ported kernel scripts' main() on the card; returns the
     kernels line's entries of K3, K4 and K5."""
@@ -1853,11 +2163,15 @@ def main() -> None:
             train = phase_train(rng, dev, workdir)
             later = phase_later_stages(dev, train["root"], train["ckpt"], workdir)
             default = phase_default_run(rng, dev, train["root"], workdir, card, args.seed)
+            bf16_train = phase_bf16_train(train["root"], workdir)
         phase_converge_stage2(dev, *phase_converge(dev))
         evaluation = phase_eval(rng, dev, args.seed, card, eval_dir)
         script_kernels = phase_scripts(card)
         with tempfile.TemporaryDirectory() as workdir:
             artifact = phase_artifact(dev, card, serve_dir, evaluation, workdir)
+        with tempfile.TemporaryDirectory() as workdir:
+            bf16 = phase_bf16(rng, dev, card, args.seed, serve_dir, evaluation, workdir)
+            multi = phase_multi(dev, card, evaluation, workdir)
     k1_bound, k1_by = bound(times["disp"][2], OPS_PER_LOGIT["med_fwd"] * times["disp_logits"])
     k2_bound, k2_by = bound(times["k2_bytes"], OPS_PER_LOGIT["med_bwd"] * times["k2_logits"])
     print(json.dumps({"kernels": [
@@ -1867,9 +2181,11 @@ def main() -> None:
             "source": "fal_net_torch/csrc/med_fwd.cu",
             "replaces": "fal_net_tpu/ops/med_pallas.py:116",
             # serving (phase 4), training (phase 7a-c, 7d stage 2, 7e stage 1 slow, 7f the default run with
-            # validation), evaluation (phase 10) and the serving artifacts (phase 11)
-            "launches": serve_launches + train["k1"] + later["k1"] + default["k1"] + evaluation["k1"] + artifact["k1"],
-            "max_abs_err": max(worst3, worst4, default["worst"], evaluation["worst"]),
+            # validation), evaluation (phase 10), the serving artifacts (phase 11), bf16 (phase 12) and the
+            # DDP ranks and evaluation replicas (phase 13)
+            "launches": serve_launches + train["k1"] + later["k1"] + default["k1"] + evaluation["k1"] + artifact["k1"]
+            + bf16_train["k1"] + bf16["k1"] + multi["k1"],
+            "max_abs_err": max(worst3, worst4, default["worst"], evaluation["worst"], bf16["worst"]),
             "ms": times["disp"][0],  # disp-only at (8, 49, 384, 1280)
             "plain_ms": times["disp"][1],
             "bound_ms": k1_bound,
@@ -1881,7 +2197,8 @@ def main() -> None:
             "route": "cuda",
             "source": "fal_net_torch/csrc/med_bwd.cu",
             "replaces": "fal_net_tpu/ops/med_pallas.py:253",
-            "launches": train["k2"] + later["k2"] + default["k2"],  # training paths (phase 7a-c, 7d, 7e, 7f)
+            # training paths (phase 7a-c, 7d, 7e, 7f, the bf16 steps of phase 12, the DDP ranks of phase 13)
+            "launches": train["k2"] + later["k2"] + default["k2"] + bf16_train["k2"] + bf16["k2"] + multi["k2"],
             "max_abs_err": max(worst3b, train["worst"], later["worst"], default["k2_worst"]),
             "ms": times["k2"][0],  # disp+pan cotangents, no g_img, at (8, 49, 192, 640)
             "plain_ms": times["k2"][1],

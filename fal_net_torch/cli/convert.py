@@ -1,7 +1,8 @@
-"""Convert a reference PyTorch checkpoint to the port's format (counterpart
-of fal_net_tpu/cli/convert.py).
+"""Convert a reference PyTorch checkpoint, or a JAX msgpack checkpoint, to
+the port's format (counterpart of fal_net_tpu/cli/convert.py).
 
     python -m fal_net_torch.cli.convert --input model_best.pth.tar --output ckpt_dir/
+    python -m fal_net_torch.cli.convert --input jax_run/model_best.msgpack --output ckpt_dir/
 
 The reference publishes pretrained ``.pth.tar`` weights; this writes
 ``checkpoint.pt`` (``{"m_model", "state_dict"}``, the ``module.`` prefix of
@@ -21,19 +22,26 @@ import os
 def main(argv=None) -> str:
     """Returns the path of the written checkpoint."""
     p = argparse.ArgumentParser(description="reference checkpoint -> fal_net_torch .pt")
-    p.add_argument("--input", required=True, help="reference .pth/.pth.tar file")
+    p.add_argument("--input", required=True,
+                   help="reference .pth/.pth.tar file, or a JAX .msgpack checkpoint or run directory")
     p.add_argument("--output", required=True, help="output directory")
     args = p.parse_args(argv)
 
     import torch
 
-    from fal_net_torch.models.checkpoint import detect_variant, strip_data_parallel
+    from fal_net_torch.models.checkpoint import TORCH_SUFFIXES, detect_variant, read_checkpoint, strip_data_parallel
+    from fal_net_torch.models.falnet import resolve_variant
 
-    data = torch.load(args.input, map_location="cpu", weights_only=False)
-    state_dict = strip_data_parallel(data["state_dict"] if "state_dict" in data else data)
-    spec = detect_variant(state_dict)
+    if args.input.endswith(TORCH_SUFFIXES):
+        data = torch.load(args.input, map_location="cpu", weights_only=False)
+        state_dict = strip_data_parallel(data["state_dict"] if "state_dict" in data else data)
+        spec = detect_variant(state_dict)
+        name = data.get("m_model", spec.torch_name) if isinstance(data, dict) else spec.torch_name
+    else:
+        state_dict, jax_name, _ = read_checkpoint(args.input)
+        spec = resolve_variant(jax_name) if jax_name else detect_variant(state_dict)
+        name = spec.torch_name
     num_levels = int(state_dict["conv0.weight"].shape[0])
-    name = data.get("m_model", spec.torch_name) if isinstance(data, dict) else spec.torch_name
     os.makedirs(args.output, exist_ok=True)
     path = os.path.join(args.output, "checkpoint.pt")
     torch.save({"m_model": name, "state_dict": state_dict}, path)

@@ -9,6 +9,8 @@ weights in and runs through ``fal_net_torch.serve.load_exported`` on the
 device type it was exported for (``--device``, the card by default; JAX's
 ``--platforms`` lists TPU lowerings instead), with no model code or
 checkpoint on the serving host.  On the card its MED head is K1.
+``--pretrained`` also takes a JAX msgpack checkpoint; ``--dtype bfloat16``
+bakes in a bf16 backbone (the MED head and the outputs stay fp32).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from fal_net_torch.eval.postprocess import MS_UP_FAC
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="fal_net_torch export")
-    p.add_argument("--pretrained", required=True, help="port .pt or reference .pth.tar checkpoint")
+    p.add_argument("--pretrained", required=True, help="port .pt, reference .pth.tar or JAX msgpack checkpoint")
     p.add_argument("--model", default=None, help="override model variant")
     p.add_argument("--no_levels", type=int, default=None)
     p.add_argument("--batch", type=int, default=1)
@@ -44,7 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="artifact takes raw uint8 RGB and normalizes on the device (4x smaller uploads)")
     p.add_argument("--device", default="cuda", help="torch device the artifact runs on (default: cuda)")
     p.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
-                   help="compute dtype baked into the artifact; bfloat16 is not ported yet (raises)")
+                   help="backbone compute dtype baked into the artifact (the disparity stays fp32)")
     p.add_argument("--out", required=True)
     return p
 
@@ -78,19 +80,20 @@ def main(argv=None) -> int:
         raise SystemExit("--with_ms_pp needs a float32-input artifact; drop --uint8_input (ms-pp resamples "
                          "the input, which a uint8 artifact hides behind its baked normalization)")
     from fal_net_torch.models.checkpoint import load_checkpoint
-    from fal_net_torch.serve import check_dtype, export_bundle, export_forward, save_exported
+    from fal_net_torch.serve import export_bundle, export_forward, save_exported
 
-    check_dtype(args.dtype)
-    model = load_checkpoint(args.pretrained, variant=args.model, num_levels=args.no_levels, device=args.device)
+    model = load_checkpoint(args.pretrained, variant=args.model, num_levels=args.no_levels, device=args.device,
+                            dtype=args.dtype)
     kw = dict(min_disp=args.min_disp, max_disp=args.max_disp, ret_pan=args.pan, ret_subocc=args.subocc,
-              device=args.device, uint8_input=args.uint8_input, dtype=args.dtype)
+              device=args.device, uint8_input=args.uint8_input)
     shapes = shapes_of(args.sizes, args.with_ms_pp, args.height, args.width)
     if shapes:
         blob = export_bundle(model, shapes, batch=args.batch, **kw)
     else:
         blob = export_forward(model, batch=args.batch, height=args.height, width=args.width, **kw)
     save_exported(args.out, blob)
-    print(f"=> exported {len(blob)} bytes to {args.out} ({shapes or [(args.height, args.width)]}, batch {args.batch})")
+    print(f"=> exported {len(blob)} bytes to {args.out} ({shapes or [(args.height, args.width)]}, batch {args.batch}, "
+          f"{args.dtype})")
     return len(blob)
 
 

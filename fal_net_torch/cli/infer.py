@@ -2,7 +2,7 @@
 fal_net_tpu/cli/infer.py).
 
     python -m fal_net_torch.cli.infer --images /data/frames --out_dir out \\
-        --pretrained ckpt.pt            # a port .pt or a reference .pth.tar
+        --pretrained ckpt.pt            # a port .pt, a reference .pth.tar or a JAX .msgpack
     python -m fal_net_torch.cli.infer --images /data/frames --out_dir out \\
         --artifact falnetB.pt2z         # a serving artifact from cli.export
 
@@ -85,7 +85,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--images", required=True, help="image file or directory")
     p.add_argument("--out_dir", required=True)
     src = p.add_mutually_exclusive_group(required=True)
-    src.add_argument("--pretrained", help="port .pt or reference .pth.tar")
+    src.add_argument("--pretrained", help="port .pt, reference .pth.tar or JAX msgpack checkpoint")
     src.add_argument("--artifact", help="serving artifact or bundle from cli.export")
     p.add_argument("--model", default=None, help="variant override")
     p.add_argument("--no_levels", type=int, default=None)

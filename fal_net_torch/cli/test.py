@@ -7,14 +7,17 @@ Test_KITTI.py).
     python -m fal_net_torch.cli.test --data_root /data/KITTI \\
         --lists_dir /data/lists --artifact bundle.pt2z     # a serving artifact
 
-``--pretrained`` takes a port ``.pt`` or a reference ``.pth.tar``;
-``--artifact`` a serving artifact from ``cli.export``, evaluated exactly as
-it is deployed (the checkpoint-mode flags it bakes in are refused, as JAX
-refuses them).  Runs on the GPU unless ``--device cpu`` is given (an
-artifact runs on the device type it was exported for).  Writes
-``errors.txt`` and ``metrics.json`` under ``--save_path``
-(eval/evaluate.py).  ``--num_devices`` above 1 and ``--dtype bfloat16`` are
-parsed so that giving one raises and names the ROADMAP item that brings it.
+``--pretrained`` takes a port ``.pt``, a reference ``.pth.tar`` or a JAX
+msgpack checkpoint (or its run directory); ``--artifact`` a serving
+artifact from ``cli.export``, evaluated exactly as it is deployed (the
+checkpoint-mode flags it bakes in are refused, ``--num_devices`` among
+them, as JAX refuses them).  Runs on the GPU unless ``--device cpu`` is
+given (an artifact runs on the device type it was exported for).
+``--dtype bfloat16`` runs the backbone in bf16 (the MED head stays fp32);
+``--num_devices N`` splits each batch over N cards, one model replica each
+(N CPU replicas with ``--device cpu``), and ``--batch_size`` must divide by
+it.  Writes ``errors.txt`` and ``metrics.json`` under ``--save_path``
+(eval/evaluate.py).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from fal_net_torch.data.datasets import (
 )
 from fal_net_torch.eval.evaluate import EvalConfig, Evaluator
 from fal_net_torch.models.checkpoint import load_checkpoint
-from fal_net_torch.train.trainer import not_ported
+from fal_net_torch.parallel.mesh import make_mesh
 
 # checkpoint-mode flags an artifact bakes in (or fixes); giving one with --artifact is refused
 ARTIFACT_FIXED = ("model", "no_levels", "max_disp", "min_disp", "rel_baseline", "dtype", "maskr_quirk",
@@ -49,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_root", required=True)
     p.add_argument("--lists_dir", default=None)
     src = p.add_mutually_exclusive_group(required=True)
-    src.add_argument("--pretrained", help="port .pt or reference .pth.tar checkpoint")
+    src.add_argument("--pretrained", help="port .pt, reference .pth.tar or JAX msgpack checkpoint")
     src.add_argument("--artifact", help="serving artifact or bundle from cli.export")
     p.add_argument("--model", default=None, help="override model variant")
     p.add_argument("--no_levels", type=int, default=None)
@@ -94,7 +97,9 @@ def build_parser() -> argparse.ArgumentParser:
         help="skip the gate that holds the MED kernel against the plain head at each new evaluation shape "
         "(on by default; a disagreement raises)",
     )
-    p.add_argument("--num_devices", type=int, default=None, help="multi-GPU evaluation (not ported yet)")
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="split each evaluation batch over this many cards, one model replica each (batch_size "
+                   "must be divisible by it)")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     return p
 
@@ -103,7 +108,7 @@ def main(argv=None) -> dict:
     """Returns the metrics the Evaluator wrote to metrics.json."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    fwd = model = None
+    fwd = model = mesh = None
     if args.artifact:
         fixed = [name for name in ARTIFACT_FIXED if getattr(args, name) != parser.get_default(name)]
         if fixed:
@@ -118,12 +123,12 @@ def main(argv=None) -> dict:
               f"shapes {shapes}, batch {fwd.meta['batch']}, {fwd.meta['input']} input)")
     else:
         if args.num_devices and args.num_devices > 1:
-            raise not_ported("--num_devices > 1 (multi-GPU evaluation)", "item 12")
-        if args.dtype != "float32":
-            raise not_ported(f"--dtype {args.dtype}", "item 10")
+            mesh = make_mesh(args.num_devices, device=args.device)
         model = load_checkpoint(args.pretrained, variant=args.model, num_levels=args.no_levels,
-                                device=args.device, a_maskr_quirk=args.maskr_quirk)
-        print(f"=> loaded {model.spec.torch_name} (N={model.num_levels}) from {args.pretrained}")
+                                device=mesh.devices[0] if mesh else args.device, a_maskr_quirk=args.maskr_quirk,
+                                dtype=args.dtype)
+        print(f"=> loaded {model.spec.torch_name} (N={model.num_levels}, {args.dtype}) from {args.pretrained}"
+              + (f" on {[str(d) for d in mesh.devices]}" if mesh else ""))
 
     factory = EVAL_DATASETS[args.tdataName]
     _, dataset = factory(args.data_root, split=0, lists_dir=args.lists_dir)
@@ -151,7 +156,7 @@ def main(argv=None) -> dict:
         save_path=args.save_path,
         med_selfcheck=not args.no_med_selfcheck,
     )
-    evaluator = Evaluator(model, cfg) if fwd is None else Evaluator.from_artifact(fwd, cfg)
+    evaluator = Evaluator(model, cfg, mesh=mesh) if fwd is None else Evaluator.from_artifact(fwd, cfg)
     metrics = evaluator.run(dataset)
     print({k: round(v, 4) for k, v in metrics.items()})
     return metrics

@@ -5,22 +5,34 @@
     python -m fal_net_torch.cli.train --stage 1 --slow ...     # stage 1 slow
     python -m fal_net_torch.cli.train --stage 2 --fix_model STAGE1.pt ...
     python -m fal_net_torch.cli.train --resume RUN_DIR/checkpoint.pt ...
+    python -m fal_net_torch.cli.train --dtype bfloat16 --num_devices 4 ...  # bf16, 4 cards
 
 Runs on the GPU unless ``--device cpu`` is given.  ``--val_root`` validates
 on KITTI 2015 every epoch and picks ``model_best`` by the view-synthesis
 RMSE; ``--resume`` restores the full training state and continues its run's
-directory.  The flags of later slices (bf16, multi-GPU) are parsed so that
-giving one raises and names the ROADMAP item that brings it; none is
-ignored.
+directory.  ``--pretrained`` and ``--fix_model`` take a port ``.pt``, a
+reference ``.pth.tar`` or a JAX msgpack checkpoint (or its run directory).
+``--dtype bfloat16`` runs the backbones in bf16 (parameters, Adam and the
+checkpoints stay fp32).  ``--num_devices N`` trains one process per card
+(rank *r* on ``cuda:r``, NCCL) under DistributedDataParallel, or N gloo
+processes with ``--device cpu``; ``--batch_size`` stays the global batch.
+Without it, the run takes the largest number of visible cards that divides
+the batch, as JAX does; one runs in this process, with no process group.
+``--spatial`` above 1 raises: row sharding (fal_net_tpu/parallel/spatial.py)
+is not ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import time
 
 from fal_net_torch.data.datasets import REGISTRY as DATASETS, kitti2015
+from fal_net_torch.parallel import ddp
+from fal_net_torch.parallel.mesh import make_mesh, make_mesh_for_batch
 from fal_net_torch.train.config import Stage1Config, Stage2Config
-from fal_net_torch.train.trainer import Trainer, not_ported
+from fal_net_torch.train.trainer import Trainer
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -95,18 +107,31 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--grad_accum", type=int, default=1,
                    help="microbatches per step (same update, 1/N activations)")
-    p.add_argument("--num_devices", type=int, default=None)
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="data-parallel ranks, one process per card (default: the most visible cards that divide "
+                   "the batch)")
+    p.add_argument("--spatial", type=int, default=1, help="row sharding; only 1 (not ported)")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     return p
+
+
+def _val_dataset(val_root):
+    # the _10 pair and its disparity ground truth (load_t1=False: no t+1 decode)
+    return kitti2015(val_root, split=0, disp=True, load_t1=False)[1] if val_root else None
+
+
+def _rank_main(rank: int, world: int, cfg, stage: str, device: str, val_root) -> dict:
+    """One rank of ``--num_devices``: its trainer on its device."""
+    trainer = Trainer(cfg, stage=stage, device=ddp.rank_device(device, rank), val_dataset=_val_dataset(val_root))
+    return trainer.fit()
 
 
 def main(argv=None) -> dict:
     """Returns the trainer's ``fit`` result (history, best, save_path)."""
     args = build_parser().parse_args(argv)
-    if args.dtype != "float32":
-        raise not_ported(f"--dtype {args.dtype}", "item 10")
-    if args.num_devices is not None:
-        raise not_ported("--num_devices (multi-GPU)", "item 12")
+    if args.spatial != 1:
+        raise NotImplementedError(f"--spatial {args.spatial}: row sharding (fal_net_tpu/parallel/spatial.py) is not "
+                                  "ported; ROADMAP.md lists it under \"Leave behind\"")
     if args.stage == 2 and args.slow:
         raise ValueError("--slow is a stage-1 variant; it does not apply to --stage 2")
     if args.stage == 1 and (args.fix_model is not None or args.a_mr is not None):
@@ -139,6 +164,7 @@ def main(argv=None) -> dict:
         med_selfcheck=not args.no_med_selfcheck,
         weight_decay=args.weight_decay,
         bias_decay=args.bias_decay,
+        compute_dtype=args.dtype,
     )
     if args.stage == 2:
         cfg.fix_model = args.fix_model
@@ -154,11 +180,20 @@ def main(argv=None) -> dict:
         if v is not None:
             setattr(cfg, name, v)
     stage = "stage2" if args.stage == 2 else ("stage1_slow" if args.slow else "stage1")
-    val_dataset = None
-    if args.val_root:
-        # the _10 pair and its disparity ground truth (load_t1=False: no t+1 decode)
-        _, val_dataset = kitti2015(args.val_root, split=0, disp=True, load_t1=False)
-    result = Trainer(cfg, stage=stage, device=args.device, val_dataset=val_dataset).fit()
+    if args.num_devices is not None:
+        world = make_mesh(args.num_devices, device=args.device).size
+    else:
+        world = make_mesh_for_batch(cfg.batch_size, device=args.device).size
+    if world == 1:
+        result = Trainer(cfg, stage=stage, device=args.device, val_dataset=_val_dataset(args.val_root)).fit()
+    else:
+        if cfg.batch_size % world:
+            raise ValueError(f"batch_size {cfg.batch_size} is not divisible by --num_devices {world}")
+        os.makedirs(cfg.save_path, exist_ok=True)
+        store = os.path.join(os.path.abspath(cfg.save_path), f".rendezvous-{os.getpid()}-{time.time_ns()}")
+        print(f"=> {world} ranks ({ddp.default_backend(args.device)}), {cfg.batch_size // world} samples each")
+        result = ddp.launch(_rank_main, world, (cfg, stage, args.device, args.val_root), store_path=store,
+                            device=args.device)[0]
     print(f"best {result['best_metric']}:", result["best_value"])
     return result
 

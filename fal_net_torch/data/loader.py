@@ -36,8 +36,17 @@ def _collate(samples) -> Dict[str, Any]:
 
 
 class DataLoader:
-    """Iterates a dataset (``len`` + ``get(index, rng)``) in full batches of
-    numpy arrays; a ragged tail is dropped, as the reference's loader does."""
+    """Iterates a dataset (``len`` + ``get(index, rng)``) in batches of numpy
+    arrays; with ``drop_last`` (the default) a ragged tail is dropped, as the
+    reference's loader does, else it comes last and short.
+
+    ``shard_id`` / ``num_shards``: data parallelism over ranks, as JAX's
+    loader (fal_net_tpu/data/loader.py:45-100): every shard draws the same
+    permutation of the epoch and shard *r* takes ``order[r::num_shards]``
+    (cut to ``len(dataset) // num_shards``), in batches of ``batch_size``,
+    the per-rank batch.  Since each item's rng is (seed, epoch, index), the
+    shards' batch *k* together are the samples of a one-shard loader's
+    batch *k* at ``num_shards * batch_size``."""
 
     def __init__(
         self,
@@ -46,24 +55,38 @@ class DataLoader:
         shuffle: bool = True,
         num_workers: int = 4,
         seed: int = 0,
+        drop_last: bool = True,
+        shard_id: int = 0,
+        num_shards: int = 1,
     ):
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard_id {shard_id} is not in [0, {num_shards})")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = num_workers
         self.seed = seed
+        self.drop_last = drop_last
+        self.shard_id = shard_id
+        self.num_shards = num_shards
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
+    def _shard_len(self) -> int:
+        return len(self.dataset) // self.num_shards
+
     def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size
+        n = self._shard_len()
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng((self.seed, self.epoch)).shuffle(order)
+        if self.num_shards > 1:
+            order = order[self.shard_id::self.num_shards][: self._shard_len()]
         n = len(order)
 
         def fetch(i: int):
@@ -78,7 +101,7 @@ class DataLoader:
                 while idx < hi:
                     pending.append(pool.submit(fetch, order[idx]))
                     idx += 1
-                yield _collate([pending.popleft().result() for _ in range(self.batch_size)])
+                yield _collate([pending.popleft().result() for _ in range(min(self.batch_size, n - b * self.batch_size))])
 
 
 def to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:

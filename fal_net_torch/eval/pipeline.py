@@ -5,7 +5,11 @@ Packs an image stream into fixed batches, pads the ragged tail with zeros,
 and yields per-image disparities in order.  On CUDA, a batch is uploaded
 from pinned memory with ``non_blocking=True`` and its disparities come back
 into pinned memory behind a CUDA event, so the device runs batch k while the
-host hands out batch k-1: one batch of latency for the overlap.
+host hands out batch k-1: one batch of latency for the overlap.  With a
+``mesh`` (parallel/mesh.py, the counterpart of JAX's ``mesh``), each batch is
+split into equal contiguous parts, one per device and model replica, every
+part's forward is launched from this thread, and the parts come back in
+order.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 
 from fal_net_torch.data.transforms import normalize_device
 from fal_net_torch.eval.postprocess import ms_post_process
+from fal_net_torch.parallel.mesh import as_mesh, check_divides, launch, replicate
 
 UINT16_MAX_DISP = 65535 / 256.0
 
@@ -50,6 +55,7 @@ class DisparityPipeline:
         ms_post_process: bool = False,
         quantize_uint16: bool = False,
         device_normalize: bool = False,
+        mesh=None,
     ):
         """``model``: a :class:`fal_net_torch.models.FalNet`; the pipeline
         runs on the device its parameters are on.
@@ -64,7 +70,15 @@ class DisparityPipeline:
 
         ``ms_post_process``: the reference's multi-scale post-process
         (eval/postprocess.py), a second forward at 2/3 scale on the flipped
-        batch, in the same device call."""
+        batch, in the same device call.
+
+        ``mesh``: a :class:`~fal_net_torch.parallel.mesh.Mesh` or a list of
+        devices (repeats allowed): one replica of ``model`` per device, each
+        batch split over them; ``batch_size`` must be divisible by its
+        size (ValueError, as in JAX)."""
+        self.mesh = None if mesh is None else as_mesh(mesh)
+        if self.mesh is not None:
+            check_divides(batch_size, self.mesh)
         if quantize_uint16 and max_disp > UINT16_MAX_DISP:
             import warnings
 
@@ -77,6 +91,7 @@ class DisparityPipeline:
             )
         self.model = model.eval()
         self.device = next(model.parameters()).device
+        self.replicas = [self.model] if self.mesh is None else replicate(self.model, self.mesh)
         self.batch_size = batch_size
         self.min_disp = min_disp
         self.max_disp = max_disp
@@ -84,18 +99,18 @@ class DisparityPipeline:
         self.quantize_uint16 = quantize_uint16
         self.device_normalize = device_normalize
 
-    def _disp(self, x: torch.Tensor) -> torch.Tensor:
-        return self.model(x.contiguous(), self.min_disp, self.max_disp, ret_disp=True).disp
-
     @torch.inference_mode()
-    def _forward(self, images: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, C) batch on the device -> (B, H, W) disparities, fp32 or
-        in :func:`to_fixed_point`'s int16."""
+    def _forward(self, images: torch.Tensor, model=None) -> torch.Tensor:
+        """(B, H, W, C) batch on ``model``'s device (the pipeline's model if
+        None) -> (B, H, W) disparities, fp32 or in :func:`to_fixed_point`'s
+        int16."""
+        model = model or self.model
+        disp_fn = lambda x: model(x.contiguous(), self.min_disp, self.max_disp, ret_disp=True).disp
         x = images.permute(0, 3, 1, 2)
         x = normalize_device(x) if self.device_normalize else x.to(torch.float32)
-        disp = self._disp(x)
+        disp = disp_fn(x)
         if self.ms_post_process:
-            disp = ms_post_process(x, self._disp, disp)
+            disp = ms_post_process(x, disp_fn, disp)
         disp = disp[:, 0]
         return to_fixed_point(disp) if self.quantize_uint16 else disp
 
@@ -120,21 +135,14 @@ class DisparityPipeline:
             yield names, np.stack(imgs + [np.zeros_like(imgs[0])] * pad)
 
     def _dispatch(self, host: np.ndarray):
-        """Upload, run and start the fetch of one batch; returns (host
-        tensor the result lands in, event that says it has landed)."""
-        batch = torch.from_numpy(host)
-        if self.device.type != "cuda":
-            return self._forward(batch.to(self.device)), None
-        images = batch.pin_memory().to(self.device, non_blocking=True)
-        out = self._forward(images).to("cpu", non_blocking=True)  # pinned
-        done = torch.cuda.Event()
-        done.record()
-        return out, done
+        """Upload, run and start the fetch of one batch (each part on its
+        device, parallel/mesh.py::launch)."""
+        return launch(torch.from_numpy(host), self.replicas, self.mesh, self.device,
+                      lambda model, images: [self._forward(images, model)])
 
-    def _fetch(self, names, out: torch.Tensor, done):
-        if done is not None:
-            done.synchronize()
-        disp = out.numpy()
+    def _fetch(self, names, launched):
+        (disp,) = launched.fetch()
+        disp = disp.numpy()
         if self.quantize_uint16:
             disp = from_fixed_point(disp)
         for i, name in enumerate(names):
@@ -148,9 +156,9 @@ class DisparityPipeline:
         for names, host in self._batches(items):
             # Dispatch this batch before waiting on the previous one's fetch,
             # so that the device and the host work at the same time.
-            out, done = self._dispatch(host)
+            launched = self._dispatch(host)
             if pending is not None:
                 yield from self._fetch(*pending)
-            pending = (names, out, done)
+            pending = (names, launched)
         if pending is not None:
             yield from self._fetch(*pending)

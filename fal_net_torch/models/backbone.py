@@ -9,7 +9,9 @@
 
 conv0 is 3->32 stride 1; a 1-channel "flow" plane is concatenated before
 conv1; each encoder conv is followed by a residual block.  The final iconv1
-is a bias-free 3x3 conv emitting ``num_out`` plane logits.
+is a bias-free 3x3 conv emitting ``num_out`` plane logits.  The backbone
+computes in its image's dtype (models/layers.py); the flow plane takes that
+dtype before conv1, as in JAX (backbone.py:256).
 """
 
 from __future__ import annotations
@@ -121,6 +123,10 @@ class FalNetBackbone(nn.Module):
             )
 
     def forward(self, image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+        return self.iconv1(self.features(image, flow))
+
+    def features(self, image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+        """iconv1's input: concat(deconv1's output, x0), in the image's dtype."""
         x0 = self.conv0_1(self.conv0(image))
         x = self.conv1_1(self.conv1(torch.cat([x0, flow.to(x0.dtype)], dim=1)))
         skips = [x0, x]
@@ -134,4 +140,4 @@ class FalNetBackbone(nn.Module):
             d = getattr(self, f"deconv{j}")(y, skip.shape[-2:])
             y = getattr(self, f"iconv{j}")(torch.cat([d, skip], dim=1))
         d1 = self.deconv1(y, x0.shape[-2:])
-        return self.iconv1(torch.cat([d1, x0], dim=1))
+        return torch.cat([d1, x0], dim=1)

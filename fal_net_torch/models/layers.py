@@ -1,7 +1,13 @@
 """Building blocks of the FAL-net variants (counterpart of
 fal_net_tpu/models/layers.py, plain domain only).
 
-NCHW, OIHW weights.  Attribute names follow the reference's torch modules
+NCHW, OIHW weights.  Every conv computes in its input's dtype: fp32 as
+``nn.Conv2d`` does, or bf16 with bf16 weights and a bf16 output and the bias
+added in bf16 after the conv, as JAX's ``ConvOp`` does with a bf16 compute
+dtype (fal_net_tpu/models/layers.py:240-243,283-285); the parameters stay
+fp32.  ELU, adds, concats and nearest upsamples keep their input's dtype,
+so a backbone whose image is cast to bf16 runs in bf16 throughout.
+Attribute names follow the reference's torch modules
 so that ``state_dict`` keys are the reference's (``conv0.0.weight`` for a
 conv_elu, ``conv0_1.conv1.weight`` for a residual block,
 ``deconvJ.conv1.weight`` for a deconv).  Init is kaiming-normal with fan-in
@@ -23,9 +29,19 @@ def init_conv(conv: nn.Conv2d, generator: Optional[torch.Generator]) -> None:
         nn.init.zeros_(conv.bias)
 
 
-def conv(cin: int, cout: int, kernel=3, stride: int = 1, bias: bool = True) -> nn.Conv2d:
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype (see the module docstring)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, self.padding)
+        return y if self.bias is None else y + self.bias.to(x.dtype)[:, None, None]
+
+
+def conv(cin: int, cout: int, kernel=3, stride: int = 1, bias: bool = True) -> Conv2d:
     kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
-    return nn.Conv2d(cin, cout, (kh, kw), stride, padding=(kh // 2, kw // 2), bias=bias)
+    return Conv2d(cin, cout, (kh, kw), stride, padding=(kh // 2, kw // 2), bias=bias)
 
 
 class ConvElu(nn.Sequential):

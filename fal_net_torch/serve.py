@@ -25,7 +25,10 @@ or another is asked for, and never moves an artifact to the CPU.  Loading
 needs ``fal_net_torch.ops`` (the op's schema and kernels) and this module,
 not ``fal_net_torch.models``.
 
-bfloat16 artifacts wait for bf16 MED kernels (ROADMAP.md queue 1, item 10).
+An artifact computes in its model's dtype (``meta["dtype"]``, as JAX's
+serve.py:110-113 records it): a bfloat16 artifact runs the backbone in bf16
+and its MED head, K1 on the card, in fp32 on fp32 logits, as the live model
+does; its outputs are fp32 either way.
 """
 
 from __future__ import annotations
@@ -83,7 +86,7 @@ def export_forward(model, *, batch: int = 1, height: int = 384, width: int = 128
     and ``ret_subocc`` (False), ``device`` (``"cuda"``: the card unless the
     caller asks for the CPU), ``uint8_input`` (False: the artifact takes
     raw uint8 RGB and normalizes on the device, ``input: "uint8"`` in its
-    meta, when True) and ``dtype`` (``"float32"``)."""
+    meta, when True).  The artifact computes in ``model.dtype``."""
     return _archive([_export(model, batch=batch, height=height, width=width, **kw)])
 
 
@@ -94,18 +97,8 @@ def export_bundle(model, shapes: Sequence[Tuple[int, int]], *, batch: int = 1, *
     return _archive(exports, {"shapes": [list(s) for s in shapes], "batch": batch, "count": len(exports)})
 
 
-def check_dtype(dtype: str) -> None:
-    """Only float32 artifacts exist yet."""
-    if dtype != "float32":
-        raise NotImplementedError(
-            f"dtype {dtype!r}: bfloat16 artifacts need bf16 MED kernels, not ported yet (ROADMAP.md queue 1, "
-            "item 10)"
-        )
-
-
 def _export(model, *, batch, height, width, min_disp=2.0, max_disp=300.0, ret_pan=False, ret_subocc=False,
-            device="cuda", uint8_input=False, dtype="float32"):
-    check_dtype(dtype)
+            device="cuda", uint8_input=False):
     device = resolve_device(device)
     _build.ensure_loaded(device)
     if next(model.parameters()).device != device:
@@ -129,7 +122,7 @@ def _export(model, *, batch, height, width, min_disp=2.0, max_disp=300.0, ret_pa
         "variant": model.spec.name,
         "num_levels": model.num_levels,
         "input": "uint8" if uint8_input else "float32_normalized",
-        "dtype": dtype,
+        "dtype": str(model.dtype).removeprefix("torch."),
         "n_params": sum(p.numel() for p in model.parameters()),
     }
     return meta, buf.getvalue()

@@ -42,7 +42,8 @@ class TrainConfig:
     print_freq: int = 100
     val_freq: int = 1
     val_batch_size: int = 4
-    compute_dtype: str = "float32"
+    compute_dtype: str = "float32"  # or "bfloat16": the backbone's compute dtype;
+    #                                   parameters, Adam and checkpoints stay fp32
     grad_accum: int = 1  # microbatch count: split each batch into this many
     #                      sequential backward passes and apply their mean,
     #                      the same update as the full batch (up to fp

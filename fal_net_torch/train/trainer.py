@@ -20,6 +20,25 @@ the JAX package validates through its plain head instead).  ``model_best``
 is the epoch of lowest RMSE, or of lowest train loss without validation.
 Checkpoints hold the full state (model, Adam, schedule, step), and
 ``resume`` restores it and continues the run in its directory.
+
+``cfg.compute_dtype`` ``"bfloat16"`` runs the student's and the teacher's
+backbones in bf16 (models/falnet.py); parameters, Adam's state and the
+checkpoints stay fp32, the MED head and the VGG19 perceptual net fp32.
+
+Inside a process group (parallel/ddp.py: one process per card, as
+``cli.train --num_devices`` starts them) the trainer is one rank of a
+data-parallel run: the student is wrapped in DistributedDataParallel (the
+teacher and VGG19 are not), each rank takes ``batch_size / world`` samples
+of every global batch from the sharded loader (shard *r* of one
+permutation), ``no_sync`` skips the all-reduce on every microbatch of
+``grad_accum`` but the last, and the logged losses are all-reduced.  Rank 0
+alone writes the checkpoints (no ``module.`` prefix), ``metrics.jsonl``,
+``settings.txt`` and the images, and validates with the unwrapped student;
+its metrics and the ``model_best`` choice reach every rank.  Every rank
+reads ``resume`` and ``pretrained``.  A global batch's update equals the
+one-process step's up to fp32 reduction order: every stage loss is a mean
+over equal slices and DDP averages the gradients.  Outside a process group
+nothing of this runs.
 """
 
 from __future__ import annotations
@@ -46,6 +65,8 @@ from fal_net_torch.losses.epe import real_epe, real_epe_np
 from fal_net_torch.losses.vgg import build_vgg
 from fal_net_torch.models import create_model
 from fal_net_torch.models.checkpoint import load_model_any, read_state_dict
+from fal_net_torch.models.falnet import compute_dtype
+from fal_net_torch.parallel import ddp
 from fal_net_torch.train.checkpoint import CKPT_NAME, load_checkpoint, save_checkpoint
 from fal_net_torch.train.config import Stage2Config, TrainConfig
 from fal_net_torch.train.stages import stage1_loss, stage1_slow_loss, stage2_loss
@@ -54,12 +75,6 @@ from fal_net_torch.utils.device import resolve_device
 from fal_net_torch.utils.logging import MetricsLogger, dump_settings
 from fal_net_torch.utils.meters import AverageMeter, MultiAverageMeter
 from fal_net_torch.utils.viz import disp2rgb
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to fal_net_torch yet (ROADMAP.md queue 1, {item})"
-    )
 
 
 STAGES = ("stage1", "stage1_slow", "stage2")
@@ -77,17 +92,21 @@ class Trainer:
                  val_dataset=None):
         if stage not in STAGES:
             raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
-        if cfg.compute_dtype != "float32":
-            raise not_ported(f"compute_dtype={cfg.compute_dtype!r}", "item 10")
-        if cfg.batch_size % cfg.grad_accum:
-            raise ValueError(f"batch_size {cfg.batch_size} is not divisible by grad_accum {cfg.grad_accum}")
+        self.dtype = compute_dtype(cfg.compute_dtype)
+        self.world, self.rank = ddp.world_size(), ddp.rank()
+        if cfg.batch_size % self.world:
+            raise ValueError(f"batch_size {cfg.batch_size} is not divisible by the {self.world} ranks")
+        self.rank_batch = cfg.batch_size // self.world  # this rank's share of every global batch
+        if self.rank_batch % cfg.grad_accum:
+            raise ValueError(f"the per-rank batch {self.rank_batch} is not divisible by grad_accum {cfg.grad_accum}")
         self.cfg = cfg
         self.stage = stage
         self.device = resolve_device(device)
         self.model = create_model(
-            cfg.model, cfg.num_levels, device=self.device,
+            cfg.model, cfg.num_levels, device=self.device, dtype=self.dtype,
             generator=torch.Generator().manual_seed(cfg.seed),
         )
+        self.train_model = self.model  # the DDP wrapper inside a process group (setup)
         self._external_train = train_dataset
         self.val_dataset = val_dataset
         self.logger: Optional[MetricsLogger] = None
@@ -108,7 +127,7 @@ class Trainer:
             if not (isinstance(cfg, Stage2Config) and cfg.fix_model):
                 raise ValueError("stage 2 needs a Stage2Config with fix_model: the frozen stage-1 teacher "
                                  "checkpoint (--fix_model)")
-            self.teacher, variant, levels = load_model_any(cfg.fix_model, device=self.device)
+            self.teacher, variant, levels = load_model_any(cfg.fix_model, device=self.device, dtype=self.dtype)
             self.teacher.requires_grad_(False).eval()
             print(f"=> frozen teacher: variant {variant}, N={levels}, from {cfg.fix_model}")
 
@@ -149,8 +168,8 @@ class Trainer:
             train_ds, _ = factory(cfg.data_root, split=1, co_transform=default_train_transform(cfg.crop_size),
                                   max_pix=cfg.max_disp, fix=cfg.fix_order, lists_dir=cfg.lists_dir)
         self.train_loader = DataLoader(
-            train_ds, batch_size=cfg.batch_size, shuffle=True,
-            num_workers=cfg.workers, seed=cfg.seed,
+            train_ds, batch_size=self.rank_batch, shuffle=True,
+            num_workers=cfg.workers, seed=cfg.seed, shard_id=self.rank, num_shards=self.world,
         )
         steps_per_epoch = len(self.train_loader)
         if cfg.epoch_size:
@@ -178,27 +197,47 @@ class Trainer:
             if self.resume_meta.get("epoch") is not None:
                 cfg.start_epoch = int(self.resume_meta["epoch"]) + 1
             print(f"=> resumed {cfg.resume}: step {self.step}, next epoch {cfg.start_epoch}")
+        if ddp.active():
+            self.train_model = self._wrap_ddp()
         self._setup_done = True
+
+    def _wrap_ddp(self):
+        """The student under DistributedDataParallel.  The parameters that
+        forward never uses (FAL_netA/B's declared amask head) are left out
+        of the all-reduce: their gradients stay None on every rank, so
+        Adam's state and the checkpoint equal a one-process run's."""
+        from torch.nn.parallel import DistributedDataParallel
+
+        prefix = f"{self.model.spec.torch_backbone_key}.amask_conv."
+        unused = [n for n, _ in self.model.named_parameters() if n.startswith(prefix)]
+        DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(self.model, unused)
+        ids = [self.device.index] if self.device.type == "cuda" else None
+        return DistributedDataParallel(self.model, device_ids=ids, output_device=self.device.index if ids else None)
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
         """Loss, backward and one Adam update on a device batch ('left',
-        'right' NCHW, optional per-sample 'max_disp').  With grad_accum,
-        the batch splits into that many microbatches whose mean gradient is
-        applied: the full batch's update at 1/grad_accum the activations."""
+        'right' NCHW, optional per-sample 'max_disp'): this rank's share of
+        the global batch inside a process group.  With grad_accum, the batch
+        splits into that many microbatches whose mean gradient is applied:
+        the full batch's update at 1/grad_accum the activations; under DDP
+        only the last microbatch's backward all-reduces.  Returns the aux
+        losses, averaged over the ranks."""
         cfg = self.cfg
         accum = cfg.grad_accum
         self.optimizer.zero_grad(set_to_none=True)
         aux_sum: Dict[str, torch.Tensor] = {}
         for micro in range(accum):
             part = {k: v.chunk(accum)[micro] for k, v in batch.items()}
-            loss, aux = self._loss(part)
-            (loss / accum).backward()
+            sync = micro == accum - 1 or self.train_model is self.model
+            with contextlib.nullcontext() if sync else self.train_model.no_sync():
+                loss, aux = self._loss(part)
+                (loss / accum).backward()
             for k, v in aux.items():
                 aux_sum[k] = aux_sum.get(k, 0.0) + v.detach()
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1
-        return {k: float(v) / accum for k, v in aux_sum.items()}
+        return ddp.all_reduce_mean({k: float(v) / accum for k, v in aux_sum.items()}, self.device)
 
     def _loss(self, batch: Dict[str, torch.Tensor]):
         """The stage's loss and aux on one (micro)batch (counterpart of
@@ -206,10 +245,10 @@ class Trainer:
         cfg = self.cfg
         kw = dict(min_disp=cfg.min_disp, max_disp=cfg.max_disp, a_p=cfg.a_p, a_sm=cfg.a_sm, vgg_fn=self.vgg)
         if self.stage == "stage1":
-            return stage1_loss(self.model, batch, **kw)
+            return stage1_loss(self.train_model, batch, **kw)
         if self.stage == "stage1_slow":
-            return stage1_slow_loss(self.model, batch, **kw)
-        return stage2_loss(self.model, batch, self.teacher, a_mr=cfg.a_mr, **kw)
+            return stage1_slow_loss(self.train_model, batch, **kw)
+        return stage2_loss(self.train_model, batch, self.teacher, a_mr=cfg.a_mr, **kw)
 
     def _meta(self, epoch: int) -> Dict[str, Any]:
         return {
@@ -220,7 +259,10 @@ class Trainer:
             "stage": self.stage,
         }
 
-    def _save(self, save_path: str, meta: Dict[str, Any], is_best: bool = False) -> str:
+    def _save(self, save_path: str, meta: Dict[str, Any], is_best: bool = False) -> Optional[str]:
+        """Rank 0 writes the checkpoint (the unwrapped model's keys)."""
+        if self.rank != 0:
+            return None
         return save_checkpoint(save_path, self.model, meta, is_best=is_best, optimizer=self.optimizer,
                                scheduler=self.scheduler)
 
@@ -236,7 +278,7 @@ class Trainer:
         # <save_path>/profile; a profiler that cannot start only warns, as in
         # the JAX package (no device path is switched by it)
         window = None
-        if cfg.profile_steps > 0 and epoch == cfg.start_epoch and save_path:
+        if cfg.profile_steps > 0 and epoch == cfg.start_epoch and save_path and self.rank == 0:
             window = (1, 1 + cfg.profile_steps)
         prof = None
 
@@ -282,7 +324,7 @@ class Trainer:
                 rec_losses.update(aux["rec_loss"], cfg.batch_size)
                 batch_time.update(time.time() - end)
                 end = time.time()
-                if i % cfg.print_freq == 0:
+                if i % cfg.print_freq == 0 and self.rank == 0:
                     print(
                         f"Epoch: [{epoch}][{i}/{self.steps_per_epoch}] "
                         f"Time {batch_time} Data {data_time} "
@@ -407,9 +449,10 @@ class Trainer:
         if not self._setup_done:
             self.setup()
         cfg = self.cfg
-        save_path = self._run_dir()
-        dump_settings(save_path, cfg)
-        self.logger = MetricsLogger(save_path)
+        save_path = ddp.broadcast_object(self._run_dir() if self.rank == 0 else None)
+        if self.rank == 0:
+            dump_settings(save_path, cfg)
+            self.logger = MetricsLogger(save_path)
         best_metric = "rmse" if self.val_dataset is not None else "train_loss"
         best_value = -1.0
         if self.resume_meta.get("best_metric") == best_metric:
@@ -420,8 +463,10 @@ class Trainer:
                 train_metrics = self.train_epoch(epoch, save_path)
                 val_metrics: Dict[str, float] = {}
                 if self.val_dataset is not None and epoch % cfg.val_freq == 0:
-                    val_metrics = self.validate(self.val_dataset, epoch)
-                    self.logger.scalars(epoch, val_metrics, prefix="val/")
+                    if self.rank == 0:  # the unwrapped student: a one-process run's metrics
+                        val_metrics = self.validate(self.val_dataset, epoch)
+                        self.logger.scalars(epoch, val_metrics, prefix="val/")
+                    val_metrics = ddp.broadcast_object(val_metrics)
                 candidate = val_metrics.get("rmse") if best_metric == "rmse" else train_metrics["loss"]
                 is_best = candidate is not None and (best_value < 0 or candidate < best_value)
                 if is_best:
@@ -432,7 +477,8 @@ class Trainer:
                 self._save(save_path, meta, is_best=is_best)
                 history.append({"epoch": epoch, **train_metrics, **val_metrics})
         finally:
-            self.logger.close()
+            if self.logger is not None:
+                self.logger.close()
         return {
             "best_metric": best_metric,
             "best_value": best_value,

@@ -46,10 +46,13 @@ model = create_model("tiny", 5, generator=torch.Generator().manual_seed(0), devi
 with torch.no_grad():
     out = model(torch.zeros(1, 3, 32, 64), 2.0, 30.0, ret_disp=True, ret_pan=True, ret_subocc=True)
 assert torch.isfinite(out.disp).all()
+with torch.no_grad():
+    out16 = model.with_dtype("bfloat16")(torch.zeros(1, 3, 32, 64), 2.0, 30.0, ret_disp=True)
+assert torch.isfinite(out16.disp).all() and out16.disp.dtype == torch.float32
 batch = {"left": torch.zeros(1, 3, 32, 64), "right": torch.zeros(1, 3, 32, 64)}
 loss, _ = stage1_loss(model, batch, min_disp=2.0, max_disp=30.0, a_p=0.0, a_sm=0.1)
 loss.backward()
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "fal_net_tpu"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "fal_net_tpu"))
 print("IMPORTED", bad)
 assert not bad, bad
 """
@@ -60,17 +63,20 @@ assert not bad, bad
 
 def test_no_jax_in_the_port_sources():
     """A grep of every source of the port (python, CUDA and the native C++
-    decoder) and of chip_smoke.py: no import of jax, jaxlib, flax or
-    fal_net_tpu, and no C++ include from fal_net_tpu."""
+    decoder) and of chip_smoke.py: no import of jax, jaxlib, flax, msgpack
+    or fal_net_tpu, and no C++ include from fal_net_tpu.  The port reads
+    JAX's msgpack checkpoints with its own decoder (models/msgpack.py)."""
     import glob
     import re
 
-    pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|fal_net_tpu)\b|#\s*include\s+[<\"][^>\"]*fal_net_tpu",
-                         re.M)
+    pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|msgpack|fal_net_tpu)\b"
+                         r"|#\s*include\s+[<\"][^>\"]*fal_net_tpu", re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
     for ext in ("py", "cu", "cuh", "cpp"):
         files += glob.glob(os.path.join(REPO, "fal_net_torch", "**", f"*.{ext}"), recursive=True)
     assert any(f.endswith(os.path.join("native", "io_native.cpp")) for f in files)
+    assert any(f.endswith(os.path.join("parallel", "ddp.py")) for f in files)
+    assert any(f.endswith(os.path.join("models", "msgpack.py")) for f in files)
     for f in files:
         with open(f) as fh:
             hits = pattern.findall(fh.read())

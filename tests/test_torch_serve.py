@@ -146,8 +146,12 @@ def test_exported_graph_calls_the_med_op(tmp_path, models):
         program = torch.export.load(io.BytesIO(z.read("program_0.pt2")))
     targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
     assert targets.count("fal_net_torch.med_fwd.default") == 1, targets
-    with pytest.raises(NotImplementedError, match="item 10"):
-        serve.export_forward(models[2], height=H, width=W, device="cpu", dtype="bfloat16")
+    bf16 = serve.export_forward(models[2].with_dtype("bfloat16"), height=H, width=W, device="cpu")
+    with zipfile.ZipFile(io.BytesIO(bf16)) as z:
+        assert json.loads(z.read("meta.json"))["programs"][0]["dtype"] == "bfloat16"
+        program = torch.export.load(io.BytesIO(z.read("program_0.pt2")))
+    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    assert targets.count("fal_net_torch.med_fwd.default") == 1, targets
 
 
 def test_fresh_interpreter_loads_without_models_or_jax(tmp_path, models):
@@ -360,8 +364,9 @@ def test_cli_export_bundle_and_refusals(tmp_path, models):
     assert fwd.meta["outputs"] == ["disp", "pan", "maskL", "maskR"] and fwd.meta["variant"] == "tiny"
     with pytest.raises(SystemExit, match="float32-input"):
         cli_export.main(["--pretrained", ckpt, "--with_ms_pp", "--uint8_input", "--device", "cpu", "--out", out])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli_export.main(["--pretrained", ckpt, "--dtype", "bfloat16", "--device", "cpu", "--out", out])
+    cli_export.main(["--pretrained", ckpt, "--dtype", "bfloat16", "--height", "32", "--width", "64", "--device",
+                     "cpu", "--out", out])
+    assert serve.load_exported(out, device="cpu").meta["dtype"] == "bfloat16"
 
 
 def test_cli_convert_matches_jax(tmp_path):

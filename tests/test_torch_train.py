@@ -274,18 +274,6 @@ def test_grad_accum_gives_the_full_batch_gradient(tmp_path):
         torch.testing.assert_close(grads[1][k], g, rtol=1e-4, atol=1e-6 * float(g.abs().max()), msg=k)
 
 
-@pytest.mark.parametrize(
-    "flags,item",
-    [
-        (["--dtype", "bfloat16"], "item 10"),
-        (["--num_devices", "2"], "item 12"),
-    ],
-)
-def test_later_slice_flags_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train_cli.main(["--data_root", "/nonexistent", "--device", "cpu", *flags])
-
-
 def test_perceptual_term_needs_weights(tmp_path):
     """a_p > 0 without --vgg_weights raises, as in JAX (trainer.py:114-130)."""
     root = _write_tree(tmp_path, n_pairs=2)
