@@ -49,14 +49,18 @@ Phases, each reported on its own line; any failure exits nonzero:
      perceptual term (a_p 0.01, seeded random VGG19); peak device memory of
      each step; validation's forward at batch 4, 375x1242, and K1
      disp+pan+subocc alone there; each MED kernel's bytes moved (from its
-     staging plan) beside its bound;
+     staging plan) beside its bound; ``phase_deconv`` (the decoder's 2x
+     deconvs as one transposed conv) against the plain deconvs on the same
+     weights, in turns with peak memory: the disp forward at 384x1280, B=8
+     and B=1, fp32 (TF32 convolutions) and bf16, the stage-1 step at B=8,
+     and the two models' disparities with TF32 off (printed);
   6. only with ``--profile DIR``: ``torch.profiler`` over the disp-only
      forward at batch 8 and 1 and over the stage-1 training step (device
      window, busy share, kernel time by kind; the per-kernel tables go to
      DIR), and the forward with TF32 convolutions off;
-  7. the training slice: a synthetic KITTI-raw tree (32 smooth 375x1242 stereo
+  7. the training slice: a synthetic KITTI-raw tree (16 smooth 375x1242 stereo
      pairs, right = left shifted by 20 px) trains FAL_netB N=49 through
-     ``fal_net_torch.cli.train --stage 1`` at batch 8, 192x640, for 4 steps;
+     ``fal_net_torch.cli.train --stage 1`` at batch 8, 192x640, for 2 steps;
      K1 and K2 launch once per step (and once each in the setup gate), every
      loss is finite, the checkpoint serves two frames through cli.infer; then
      one step with per-sample bound tensors (fix_order=False), and K2 against
@@ -64,28 +68,38 @@ Phases, each reported on its own line; any failure exits nonzero:
      the native decoder (where it built) and by PIL, beside the run's Data
      meter;
   7d. ``cli.train --stage 2`` on the same tree, FAL_netB N=49, 192x640, batch
-     4 (double batch 8), a_p 0, 4 steps, with phase 7a's checkpoint as the
+     4 (double batch 8), a_p 0, 2 steps, with phase 7a's checkpoint as the
      frozen teacher (``--fix_model``): the reference's stage-1 -> stage-2
      chain.  Every loss finite; the setup gate launches K1 twice (the
      student's subocc mode, the teacher's disp-only mode) and K2 once, each
      step K1 twice (teacher, student) and K2 once; the teacher's parameters
      bit-identical afterwards; K2 against the plain VJP on the student's own
      logits after a subocc forward, with the stage-2 loss's cotangents;
-  7e. ``cli.train --stage 1 --slow``, the same, 4 steps: one K1 and one K2
+  7e. ``cli.train --stage 1 --slow``, the same, 2 steps: one K1 and one K2
      launch a step on the double batch (and one each in the gate);
-  7f. the reference's default run: a synthetic KITTI 2015 tree (8 frames at
+  7f. the reference's default run: a synthetic KITTI 2015 tree (4 frames at
      375x1242, 2 at 370x1224, sparse uint16 disparity and 16-bit RGB flow
      PNGs) read back by ``kitti2015(of=True)`` exactly; ``cli.train --stage
      1 --a_p 0.01 --vgg_weights`` (seeded random VGG19 saved with
      torchvision's keys) ``--val_root --tbatch_size 4 --profile_steps 2``
      for 2 epochs of 2 steps, ``--resume`` for a third epoch (step, Adam's
-     moments and the learning rate as saved, start_epoch 2, the metrics log
-     growing), and ``--stage 2 --fix_model <model_best> --a_p 0.01``; K1's
+     moments and the learning rate as saved, start_epoch 2; as JAX's, a new
+     run directory whose model_best is the resumed epoch, the first run's
+     metrics.jsonl and settings.txt byte for byte as before), and ``--stage 2 --fix_model <model_best> --a_p 0.01``; K1's
      launches counted by (mode, shape): the validation gate once per frame
      shape and trainer, then one launch per validation batch; model_best is
      the epoch of lowest RMSE; validation on K1 equals validation on the
      plain head (phase 10's tolerances); K2 against the plain VJP with the
      perceptual term's cotangents; the decoder that served is printed;
+  7g. ``remat``: ``cli.train --remat`` on the same tree, 2 steps (K1 twice a
+     step: the forward and its recompute; K2 once; the gate once each;
+     settings.txt says remat: True); the stage-1 loss at 192x640, B=8, and
+     the stage-2 loss at B=4 (double batch 8; K1 3: the teacher's, the
+     student's and its recompute) with remat, their launches counted, and
+     without it from the same weights and batch (cuDNN deterministic): the
+     loss and every parameter gradient bit-identical; each step timed in
+     turns with the step without it (CUDA events, median of 20) with its
+     peak device memory;
   8. convergence (scripts/verify_train_tpu.py on the card): the tiny model,
      N=9 over 2..18 px, 64x128, batch 4, Adam 5e-4 (beta1 0.5), 400 stage-1
      steps through K1 and K2 on smooth stereo shifted by 6 px; the median
@@ -101,7 +115,7 @@ Phases, each reported on its own line; any failure exits nonzero:
      checkpoint go through ``fal_net_torch.cli.test`` at batch 8 with the
      multi-scale post-process (K1 disp at the bucket shape and at its 2/3
      shape), with ``--f_post_process`` (K1 disp twice a batch), and with
-     ``--save --save_pan --save_pc`` on 8 frames (K1 disp+pan+subocc and
+     ``--save --save_pan --save_pc`` on 2 frames (K1 disp+pan+subocc and
      the 2/3 disp pass); K1's launches are counted by mode, the gate's
      included (one per mode and shape); errors.txt and metrics.json hold
      finite numbers; the kernel path's disparities and metrics equal an
@@ -134,10 +148,11 @@ Phases, each reported on its own line; any failure exits nonzero:
      (disparities within 5e-3 px + 1e-4 relative, each metric within 1e-3;
      K1 counted by mode, the gate's included); the artifact's forward timed
      against the live model's at batch 8 and 1, in turns; and
-     ``python -m fal_net_torch.cli.selfcheck --full``, which must exit 0.
+     ``python -m fal_net_torch.cli.selfcheck --full``, in its own process
+     beside the fresh interpreter, which must exit 0.
   12. bf16 compute (FAL_netB N=49, the backbone in bf16, its parameters, the
      MED head and the logits fp32): ``cli.train --dtype bfloat16`` on phase
-     7a's tree for 4 steps (K1, K2 per step; the checkpoint's parameters
+     7a's tree for 2 steps (K1, K2 per step; the checkpoint's parameters
      and Adam's state fp32); K1 inside the bf16 model against the plain head
      on its fp32 logits in every mode at phase 3's tolerances; the bf16
      drift against fp32 with TF32 off (printed, not bounded); the disp
@@ -148,7 +163,13 @@ Phases, each reported on its own line; any failure exits nonzero:
      phase 10's tree (finite metrics, K1 by mode); ``cli.export --dtype
      bfloat16`` of phase 4's checkpoint (meta dtype bfloat16, K1 inside it,
      its output equal to the live bf16 model's at phase 10's tolerances);
-  13. multi-GPU: ``dryrun_multigpu(2)``, two ranks on cuda:0 over gloo (NCCL
+  13. multi-GPU: first a diagnosis of the drift between a rank's passes
+     over one slice, while this process holds its cache: two gloo ranks on
+     cuda:0, cuDNN's API and frontend logs on, three passes a rank over its
+     slice (two alone, one under DDP); which of the logits, K1's and K2's
+     outputs and the gradients differ bitwise, the algorithm and engine
+     lines each pass logged, and the all-reduced gradients against the
+     ranks' own (printed, not a gate); then ``dryrun_multigpu(2)``, two ranks on cuda:0 over gloo (NCCL
      refuses two ranks on one card), one DDP stage-1 step of FAL_netB at
      global batch 8 with TF32 off: the ranks' all-reduced gradients held
      against the average of each rank's own gradients on its slice [r::2]
@@ -162,6 +183,7 @@ Phases, each reported on its own line; any failure exits nonzero:
      two parts of 4) against one device at batch 4 and, with TF32 off,
      against phase 10's TF32-off run, at phase 10's tolerances (with TF32
      on against phase 10's batch 8: printed).
+After the phases a line gives the seconds each took on the host clock.
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -169,6 +191,7 @@ The line before the last is a JSON record of the kernels; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -242,10 +265,10 @@ GRAD_MODES = {
     "disp": (True, False, False),
     "pan+g_img": (False, True, True),
 }
-TRAIN_H, TRAIN_W, TRAIN_STEPS, KITTI_H, KITTI_W, KITTI_PAIRS, KITTI_DISP = 192, 640, 4, 375, 1242, 32, 20
+TRAIN_H, TRAIN_W, TRAIN_STEPS, KITTI_H, KITTI_W, KITTI_PAIRS, KITTI_DISP = 192, 640, 2, 375, 1242, 16, 20
 A_P = 0.01  # the reference's perceptual weight (Train_Stage1_K.py:43)
 # phase 7f's KITTI 2015 validation tree: frames per shape
-VAL_SHAPES = {(375, 1242): 8, (370, 1224): 2}
+VAL_SHAPES = {(375, 1242): 4, (370, 1224): 2}
 VAL_BATCH = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores, NVIDIA data sheet
@@ -257,6 +280,18 @@ CONV_TIMED = (8, 64, 192, 640, 64)  # the conv case whose times go into the kern
 # training mode, C=3 (statistics sweep 23 with two exp2, gradient sweep 39
 # with three)
 OPS_PER_LOGIT = {"med_fwd": 6, "med_bwd": 62}
+
+
+PHASE_S: dict = {}  # seconds each phase took, by phase
+
+
+def timed(label: str, fn, *args):
+    """``fn(*args)``, its seconds on the host clock kept in PHASE_S[label]."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_S[label] = round(time.perf_counter() - t0, 1)
 
 
 def line(msg: str) -> None:
@@ -483,7 +518,7 @@ def phase_slice(rng, dev, seed: int, workdir: str):
     img_dir, out_dir = os.path.join(workdir, "images"), os.path.join(workdir, "out")
     os.makedirs(img_dir)
     for i in range(N_IMAGES):
-        Image.fromarray(synthetic_image(rng)).save(os.path.join(img_dir, f"frame{i:02d}.png"))
+        Image.fromarray(synthetic_image(rng)).save(os.path.join(img_dir, f"frame{i:02d}.png"), compress_level=1)
     lefts = {
         b: torch.from_numpy(
             np.stack([normalize(synthetic_image(rng)) for _ in range(b)]).transpose(0, 3, 1, 2).copy()
@@ -587,7 +622,7 @@ def write_kitti_tree(rng, root: str) -> None:
         for cam, img in (("image_02", wide[:, :KITTI_W]), ("image_03", wide[:, KITTI_DISP:])):
             d = os.path.join(root, stem, cam, "data")
             os.makedirs(d, exist_ok=True)
-            Image.fromarray(np.ascontiguousarray(img)).save(os.path.join(d, f"{i:010d}.png"))
+            Image.fromarray(np.ascontiguousarray(img)).save(os.path.join(d, f"{i:010d}.png"), compress_level=1)
         lines.append(f"{stem}/image_02/data/{i:010d}.png {stem}/image_03/data/{i:010d}.png")
     with open(os.path.join(root, "kitti_eigen_train.txt"), "w") as f:
         f.write("\n".join(lines) + "\n")
@@ -625,7 +660,7 @@ def phase_train(rng, dev, workdir: str):
     frames, out_dir = os.path.join(workdir, "frames"), os.path.join(workdir, "frames_out")
     os.makedirs(frames)
     for i in range(2):
-        Image.fromarray(smooth_frame(rng, KITTI_H, KITTI_W)).save(os.path.join(frames, f"f{i}.png"))
+        Image.fromarray(smooth_frame(rng, KITTI_H, KITTI_W)).save(os.path.join(frames, f"f{i}.png"), compress_level=1)
     _build.reset_launch_counts()
     written = infer.main(["--pretrained", ckpt, "--images", frames, "--out_dir", out_dir, "--batch_size", "2"])
     torch.cuda.synchronize()
@@ -782,9 +817,9 @@ def write_kitti2015_tree(rng, root: str) -> dict:
                 wide = smooth_frame(rng, h, w + KITTI_DISP)
                 for cam, img in (("image_2", wide[:, :w]), ("image_3", wide[:, KITTI_DISP:])):
                     Image.fromarray(np.ascontiguousarray(img)).save(
-                        os.path.join(root, "training", cam, f"{i:06d}_{fr}.png"))
+                        os.path.join(root, "training", cam, f"{i:06d}_{fr}.png"), compress_level=1)
             gt = np.where(rng.random((h, w)) < 0.3, KITTI_DISP * 256, 0).astype(np.uint16)
-            Image.fromarray(gt).save(os.path.join(root, "training", "disp_occ_0", f"{i:06d}_10.png"))
+            Image.fromarray(gt).save(os.path.join(root, "training", "disp_occ_0", f"{i:06d}_10.png"), compress_level=1)
             flow = rng.integers(0, 65536, (h, w, 3)).astype(np.uint16)
             flow[..., 2] = rng.random((h, w)) < 0.5
             native_io.imwrite_png16(os.path.join(root, "training", "flow_occ", f"{i:06d}_10.png"), flow)
@@ -851,9 +886,10 @@ def phase_default_run(rng, dev, kitti_root: str, workdir: str, card: str, seed: 
 
     weights = os.path.join(workdir, "vgg19.pth")
     torch.save(init_vgg19(full=True, seed=seed).state_dict(), weights)  # torchvision's features.{i} keys
+    root_7f = os.path.join(workdir, "runs_7f")
     common = ["--model", "B", "--no_levels", "49", "--a_p", str(A_P), "--vgg_weights", weights, "--val_root", val_root,
               "--tbatch_size", str(VAL_BATCH), "--epoch_size", "2", "--print_freq", "1", "--data_root", kitti_root,
-              "--lists_dir", kitti_root, "--save_path", os.path.join(workdir, "runs_7f")]
+              "--lists_dir", kitti_root, "--save_path", root_7f]
     # K1 per validation pass: the batches of each shape, and the gate once per shape and trainer
     val_batches = Counter({("disp+pan+subocc", (VAL_BATCH, 49, h, w)): -(-n // VAL_BATCH)
                            for (h, w), n in VAL_SHAPES.items()})
@@ -892,6 +928,7 @@ def phase_default_run(rng, dev, kitti_root: str, workdir: str, card: str, seed: 
     traces = os.listdir(os.path.join(run_dir, "profile"))
     log_path = os.path.join(run_dir, "metrics.jsonl")
     log_lines = sum(1 for _ in open(log_path))
+    first_files = {name: open(os.path.join(run_dir, name), "rb").read() for name in ("metrics.jsonl", "settings.txt")}
     worst = gate_err(trainer)
     line(f"phase 7f cli.train --stage 1 --a_p {A_P} --vgg_weights <random VGG19, torchvision keys> --val_root "
          f"--tbatch_size {VAL_BATCH} --profile_steps 2, FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B={BATCH}, 2 epochs x 2 "
@@ -902,7 +939,7 @@ def phase_default_run(rng, dev, kitti_root: str, workdir: str, card: str, seed: 
     k1_total, k2_total = sum(got.values()), 1 + steps
     kernel_trainer = trainer
 
-    # 2: --resume for a third epoch
+    # 2: --resume for a third epoch, in a new run directory whose best starts at -1 (as JAX's)
     ckpt = first["checkpoint"]
     saved = torch.load(ckpt, weights_only=True)
     want = Counter({("disp+pan", (1, *train_shape)): 1, ("disp+pan", (BATCH, *train_shape)): 2}) + val_gate + val_batches
@@ -910,18 +947,26 @@ def phase_default_run(rng, dev, kitti_root: str, workdir: str, card: str, seed: 
                                              "7f --resume")
     adam_equal = all(torch.equal(record["adam"][i][k], v[k]) for i, v in saved["optimizer"]["state"].items()
                      for k in ("exp_avg", "exp_avg_sq", "step"))
+    new_dir = second["save_path"]
     if not (record["step"] == saved["step"] and record["start_epoch"] == 2 and adam_equal
-            and record["lr"] == saved["scheduler"]["_last_lr"] and second["save_path"] == run_dir):
+            and record["lr"] == saved["scheduler"]["_last_lr"] and new_dir != run_dir):
         raise AssertionError(f"--resume restored step {record['step']} (saved {saved['step']}), start_epoch "
                              f"{record['start_epoch']}, Adam equal {adam_equal}, lr {record['lr']} (saved "
-                             f"{saved['scheduler']['_last_lr']}), run dir {second['save_path']}")
-    grown = sum(1 for _ in open(log_path))
-    if grown <= log_lines:
-        raise AssertionError(f"metrics.jsonl did not grow across the resume: {log_lines} -> {grown} lines")
+                             f"{saved['scheduler']['_last_lr']}), run dir {new_dir} (the first run's {run_dir})")
+    untouched = [name for name, data in first_files.items() if open(os.path.join(run_dir, name), "rb").read() != data]
+    resumed_best = torch.load(os.path.join(new_dir, BEST_NAME), weights_only=True)
+    (epoch2,) = second["history"]
+    if untouched or (resumed_best["epoch"], resumed_best["best_value"]) != (2, epoch2["rmse"]) or \
+            second["best_value"] != epoch2["rmse"]:
+        raise AssertionError(f"--resume: the first run's {untouched} changed; the resumed run's model_best epoch "
+                             f"{resumed_best['epoch']} rmse {resumed_best['best_value']} (its epoch 2: {epoch2['rmse']})")
+    new_lines = sum(1 for _ in open(os.path.join(new_dir, "metrics.jsonl")))
     line(f"phase 7f cli.train --resume <epoch 1's checkpoint> --epochs 3 in {secs:.2f} s: step {record['step']}, "
          f"start_epoch {record['start_epoch']}, Adam exp_avg/exp_avg_sq/step and lr {record['lr']} equal the saved "
-         f"ones; {epochs_line(second)}; best {second['best_metric']} {second['best_value']:.4f}; metrics.jsonl "
-         f"{log_lines} -> {grown} lines")
+         f"ones; {epochs_line(second)}; a new run directory {os.path.relpath(new_dir, root_7f)!r} "
+         f"beside the first's {os.path.relpath(run_dir, root_7f)!r}; its model_best epoch 2 (best starts at -1: rmse {second['best_value']:.4f}, the first "
+         f"run's best {best['best_value']:.4f}); the first run's metrics.jsonl ({log_lines} lines) and settings.txt "
+         f"byte for byte as before; the resumed run's metrics.jsonl {new_lines} lines")
     k1_total, k2_total = k1_total + sum(got.values()), k2_total + 3
     worst = max(worst, gate_err(trainer))
 
@@ -1144,13 +1189,14 @@ def phase_converge_stage2(dev, teacher, batch):
          f"{spacing / 2:.4f}); K1 {launches[0]}, K2 {launches[1]} launches; teacher unchanged")
 
 
-def train_setup(dev, seed: int, batch_size: int = BATCH):
+def train_setup(dev, seed: int, batch_size: int = BATCH, phase_deconv: bool = False):
     """FAL_netB N=49, its Adam and a seeded 192x640 batch: the training
     step that phase 5 times (stage 1 at batch 8; stage 1 slow and stage 2 at
     their batch 4, a double batch of 8) and phase 6 profiles."""
     from fal_net_torch.train.state import create_optimizer
 
-    model = create_model("B", 49, generator=torch.Generator().manual_seed(seed), device=dev)
+    model = create_model("B", 49, generator=torch.Generator().manual_seed(seed), device=dev,
+                         phase_deconv=phase_deconv)
     opt, sched = create_optimizer(
         model, lr=1e-4, beta1=0.5, beta2=0.999, milestones=(30, 40), lr_gamma=0.5, steps_per_epoch=1000,
     )
@@ -1162,6 +1208,32 @@ def train_setup(dev, seed: int, batch_size: int = BATCH):
         for k in ("left", "right")
     }
     return model, opt, sched, batch
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside the block."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def loss_and_grads(step_model, model, batch, loss_fn=None) -> dict:
+    """The stage loss of ``step_model`` (``model`` or a wrapper of it) as a
+    training step computes it, and every gradient of ``model``'s parameters,
+    by name; no optimizer step."""
+    from fal_net_torch.train.stages import stage1_loss
+
+    model.zero_grad(set_to_none=True)
+    loss, _ = (loss_fn or stage1_loss)(step_model, batch, min_disp=2.0, max_disp=300.0, a_p=0.0, a_sm=0.2 * 2 / 512)
+    loss.backward()
+    grads = {"loss": loss.detach().clone(),
+             **{n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}}
+    model.zero_grad(set_to_none=True)
+    return grads
 
 
 def train_step_fn(model, opt, sched, batch, loss_fn=None, a_p=0.0, **extra):
@@ -1271,7 +1343,116 @@ def phase_times(model, lefts, card: str, dev, seed: int):
     del tmodel, opt, sched, batch
     times.update(later_stage_times(dev, seed, card, vgg))
     times.update(validation_times(dev, seed, card))
+    times.update(timed("5 phase_deconv", phase_deconv_times, lefts, card, dev, seed))
     return times
+
+
+def phase_deconv_times(lefts, card: str, dev, seed: int) -> dict:
+    """Phase 5's phase_deconv rows: the decoder's exactly-2x deconvs as one
+    transposed conv (phase) against the upsample and 3x3 conv (plain), on
+    the same weights, in turns (plain, phase, phase, plain; CUDA events,
+    median of 20) with each one's peak device memory: the disp forward at
+    384x1280, B=8 and B=1, in fp32 (TF32 convolutions) and bf16, and the
+    stage-1 step at 192x640, B=8; then the phase model's disparities
+    against the plain model's with TF32 off (printed, not bounded)."""
+    plain = create_model("B", 49, generator=torch.Generator().manual_seed(seed), device=dev).eval()
+    phase = create_model("B", 49, device=dev, phase_deconv=True).eval()
+    phase.load_state_dict(plain.state_dict())
+    times = {}
+    with torch.inference_mode():
+        for dtype in ("float32", "bfloat16"):
+            a, b_ = plain.with_dtype(dtype), phase.with_dtype(dtype)
+            for b in (BATCH, 1):
+                x = lefts[b]
+                got = in_turns({"plain": lambda: a(x, 2.0, 300.0, ret_disp=True),
+                                "phase": lambda: b_(x, 2.0, 300.0, ret_disp=True)})
+                times[f"phase_fwd_{dtype}_b{b}"] = got
+                line(f"phase 5 phase_deconv forward FAL_netB N=49 {SERVE_H}x{SERVE_W} disp B={b} {dtype} (in turns "
+                     f"plain, phase, phase, plain): plain {got['plain'][0]:.3f}, {got['plain'][1]:.3f} ms, peak "
+                     f"{got['plain'][2]:.2f} GB; phase {got['phase'][0]:.3f}, {got['phase'][1]:.3f} ms, peak "
+                     f"{got['phase'][2]:.2f} GB [{card}]")
+        with tf32(False):
+            d_plain = plain(lefts[BATCH], 2.0, 300.0, ret_disp=True).disp
+            d_phase = phase(lefts[BATCH], 2.0, 300.0, ret_disp=True).disp
+            diff = (d_phase - d_plain).abs()
+    line(f"phase 5 phase_deconv vs plain deconv, FAL_netB N=49 {SERVE_H}x{SERVE_W} B={BATCH} disp, TF32 off, random "
+         f"weights: max |d disp| {float(diff.max()):.3e} px, mean {float(diff.mean()):.3e} px")
+    del plain, phase, d_plain, d_phase, diff
+    steps = {}
+    for name, on in (("plain", False), ("phase", True)):
+        steps[name] = train_step_fn(*train_setup(dev, seed, phase_deconv=on))
+    got = in_turns(steps)
+    times["phase_step"] = got
+    line(f"phase 5 phase_deconv stage-1 step FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B={BATCH} (forward, backward, Adam; "
+         f"in turns): plain {got['plain'][0]:.3f}, {got['plain'][1]:.3f} ms, peak {got['plain'][2]:.2f} GB; phase "
+         f"{got['phase'][0]:.3f}, {got['phase'][1]:.3f} ms, peak {got['phase'][2]:.2f} GB [{card}]")
+    return times
+
+
+def phase_remat(dev, root: str, workdir: str, card: str, seed: int) -> dict:
+    """Phase 7g: ``remat`` (train/trainer.py::Remat) on the card: ``cli.train
+    --remat`` on phase 7a's tree (K1 twice a step: the forward and the
+    recompute; K2 once; the gate once each), then the stage-1 loss at
+    192x640, B=8, and the stage-2 loss at B=4 (double batch 8, the teacher
+    outside the recompute): with remat (its launches counted) and without
+    it, from the same weights and batch with cuDNN's deterministic
+    algorithms, the loss and every parameter gradient must be bit-identical
+    (the CUDA K1 runs again in the recompute); then each step is timed in
+    turns with the step without remat (CUDA events, median of 20) with its
+    peak device memory."""
+    from fal_net_torch.train.stages import stage2_loss
+    from fal_net_torch.train.trainer import Remat
+
+    result, trainer, _, k1, k2, secs = run_cli_train(["--stage", "1", "--remat"], root, workdir)
+    (epoch,) = result["history"]
+    want = (1 + 2 * TRAIN_STEPS, 1 + TRAIN_STEPS)
+    if (k1, k2) != want or not isinstance(trainer.train_model, Remat) or not np.isfinite(epoch["loss"]):
+        raise AssertionError(f"cli.train --remat: K1 {k1}, K2 {k2} launches (want {want}), student "
+                             f"{type(trainer.train_model).__name__}, loss {epoch['loss']}")
+    with open(os.path.join(result["save_path"], "settings.txt")) as f:
+        if "remat: True" not in f.read():
+            raise AssertionError("cli.train --remat: settings.txt does not say remat: True")
+    line(f"phase 7g cli.train --remat FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B={BATCH}: {TRAIN_STEPS} steps in "
+         f"{secs:.2f} s, epoch loss {epoch['loss']:.6f}; K1 {k1} launches (1 in the gate, 2 a step: forward and "
+         f"recompute), K2 {k2}; settings.txt remat: True")
+    k1_total, k2_total = k1, k2
+    del trainer
+
+    times = {}
+    model, opt, sched, batch = train_setup(dev, seed)
+    s_model, s_opt, s_sched, s_batch = train_setup(dev, seed, batch_size=BATCH // 2)
+    teacher = create_model("B", 49, generator=torch.Generator().manual_seed(seed + 1), device=dev)
+    teacher.requires_grad_(False).eval()
+    stage2 = dict(loss_fn=lambda *a, **k: stage2_loss(a[0], a[1], teacher, a_mr=1.0, **k))
+    for label, m, b_, extra, want in (("stage-1 step", model, batch, {}, (2, 1)),
+                                      ("stage-2 step", s_model, s_batch, stage2, (3, 1))):
+        _build.reset_launch_counts()
+        with cudnn_deterministic():
+            got = loss_and_grads(Remat(m), m, b_, **extra)
+            torch.cuda.synchronize()
+            if (MedForward.launches, MedForward.bwd_launches) != want:
+                raise AssertionError(f"remat {label}: K1 {MedForward.launches}, K2 {MedForward.bwd_launches} "
+                                     f"(want {want})")
+            ref = loss_and_grads(m, m, b_, **extra)
+        differ = {n: float((g - ref[n]).abs().max()) for n, g in got.items() if not torch.equal(g, ref[n])}
+        if differ:
+            raise AssertionError(f"remat {label}: {len(differ)} of {len(got)} items not bit-identical to the step "
+                                 f"without remat: {dict(list(differ.items())[:6])}")
+        line(f"phase 7g {label} with remat vs without, same weights and batch, cuDNN deterministic: the loss and "
+             f"{len(got) - 1} parameter gradients bit-identical")
+        k1_total, k2_total = k1_total + want[0], k2_total + want[1]
+        opt_, sched_ = (opt, sched) if m is model else (s_opt, s_sched)
+        got = in_turns({"plain": train_step_fn(m, opt_, sched_, b_, **extra),
+                        "remat": train_step_fn(Remat(m), opt_, sched_, b_, **extra)})
+        times[label] = got
+        b = BATCH if label.startswith("stage-1") else BATCH // 2
+        line(f"phase 7g {label} FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B={b}{' (double batch 8)' if b < BATCH else ''} "
+             f"with remat: K1 {want[0]}, K2 {want[1]} launches; in turns without it (plain, remat, remat, plain): "
+             f"plain {got['plain'][0]:.3f}, {got['plain'][1]:.3f} ms, peak {got['plain'][2]:.2f} GB; remat "
+             f"{got['remat'][0]:.3f}, {got['remat'][1]:.3f} ms, peak {got['remat'][2]:.2f} GB [{card}]")
+    if not all(torch.isfinite(p).all() for m in (model, s_model) for p in m.parameters()):
+        raise AssertionError("remat steps left non-finite parameters")
+    return {"k1": k1_total, "k2": k2_total, "times": times}
 
 
 def perceptual_net(dev, seed: int):
@@ -1435,7 +1616,7 @@ def phase_profile(model, lefts, card: str, out_dir: str, dev, seed: int, reps: i
 # phase 10: KITTI raw's native sizes, 8 frames each, in two drives
 EVAL_SHAPES = {"2011_09_26/2011_09_26_drive_0002_sync": (375, 1242),
                "2011_09_28/2011_09_28_drive_0001_sync": (370, 1224)}
-EVAL_FRAMES, EVAL_REPEAT = 8, 3
+EVAL_FRAMES, EVAL_REPEAT, EVAL_SAVED = 8, 3, 2
 # the kernel path vs the plain head, same convolutions: disparities within
 # 5e-3 px + 1e-4 relative (K1 = plain head within 1e-4 in each of the two
 # passes, blended by a percentile of the first), metrics within 1e-3
@@ -1446,7 +1627,7 @@ def write_eigen_tree(rng, root: str) -> dict:
     """The Kitti_eigen_test_improved layout: per frame the stereo pair and
     sparse uint16 groundtruth and velodyne depth PNGs (depth * 256, about 5%
     of the pixels set, as projected lidar); list directories "all" (the 16
-    frames), "save" (the first 8) and "timed" (the 16 listed EVAL_REPEAT
+    frames), "save" (the first EVAL_SAVED) and "timed" (the 16 listed EVAL_REPEAT
     times)."""
     from PIL import Image
 
@@ -1457,16 +1638,16 @@ def write_eigen_tree(rng, root: str) -> dict:
             for cam in ("image_02", "image_03"):
                 d = os.path.join(root, drive, cam, "data")
                 os.makedirs(d, exist_ok=True)
-                Image.fromarray(smooth_frame(rng, h, w)).save(os.path.join(d, frame))
+                Image.fromarray(smooth_frame(rng, h, w)).save(os.path.join(d, frame), compress_level=1)
             for kind in ("groundtruth", "velodyne_raw"):
                 d = os.path.join(root, drive, "proj_depth", kind, "image_02")
                 os.makedirs(d, exist_ok=True)
                 depth = (rng.uniform(2, 80, (h, w)) * 256).astype(np.uint16)
                 depth[rng.random((h, w)) > 0.05] = 0
-                Image.fromarray(depth).save(os.path.join(d, frame))
+                Image.fromarray(depth).save(os.path.join(d, frame), compress_level=1)
             lines.append(f"{drive}/image_02/data/{frame} {drive}/image_03/data/{frame}")
     lists = {}
-    for name, lst in (("all", lines), ("save", lines[:EVAL_FRAMES]), ("timed", lines * EVAL_REPEAT)):
+    for name, lst in (("all", lines), ("save", lines[:EVAL_SAVED]), ("timed", lines * EVAL_REPEAT)):
         lists[name] = os.path.join(root, "lists", name)
         os.makedirs(lists[name])
         with open(os.path.join(lists[name], "kitti_eigen_test_improved.txt"), "w") as f:
@@ -1569,7 +1750,7 @@ def phase_eval(rng, dev, seed: int, card: str, workdir: str) -> dict:
     for name, (flags, lst, per_batch, gate_keys) in plan.items():
         metrics, (ev,), disps, by_mode, secs = recorded_eval(cli(flags, lst, f"eval_{name}"))
         check_eval_outputs(os.path.join(workdir, f"eval_{name}"), metrics, name)
-        n = n_all if lst == "all" else EVAL_FRAMES
+        n = n_all if lst == "all" else EVAL_SAVED
         want = dict(per_batch)
         for mode, _, _ in gate_keys:
             want[mode] += 1
@@ -1584,7 +1765,7 @@ def phase_eval(rng, dev, seed: int, card: str, workdir: str) -> dict:
              f"{secs:.2f} s; K1 launches {by_mode}; gate {gate}; abs_rel {metrics['abs_rel']:.6f} a1 "
              f"{metrics['a1']:.6f} [{card}]")
     if not all(os.path.isfile(os.path.join(workdir, "eval_save", sub, f"{i:010d}.{ext}"))
-               for i in range(EVAL_FRAMES) for sub, ext in (("disp", "png"), ("pan", "png"), ("pc", "ply"))):
+               for i in range(EVAL_SAVED) for sub, ext in (("disp", "png"), ("pan", "png"), ("pc", "ply"))):
         raise AssertionError("cli.test --save --save_pan --save_pc: missing exports")
 
     def in_process(med_impl, out):
@@ -1703,10 +1884,21 @@ def phase_artifact(dev, card: str, serve_dir: str, evaluation: dict, workdir: st
     frames = [os.path.join(img_dir, f) for f in sorted(os.listdir(img_dir))][:BATCH]
     npz = os.path.join(workdir, "artifact_outputs.npz")
     child = {k: art[k] for k in ("b8", "b1", "full")}
+    # the health gate in its own process, started beside the fresh interpreter: both spend most of their
+    # time starting up on the host, and the gate's throughput phase comes last
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", ARTIFACT_CHILD, json.dumps([child, frames, npz])], cwd=root,
-                          capture_output=True, text=True, timeout=600)
-    child_s = time.perf_counter() - t0
+    gate = subprocess.Popen([sys.executable, "-m", "fal_net_torch.cli.selfcheck", "--full", "--timeout", "300"],
+                            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        proc = subprocess.run([sys.executable, "-c", ARTIFACT_CHILD, json.dumps([child, frames, npz])], cwd=root,
+                              capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        gate_out, gate_err = gate.communicate(timeout=900)
+        gate_s = time.perf_counter() - t0
+    finally:
+        if gate.poll() is None:
+            gate.kill()
+            gate.wait()
     if proc.returncode != 0:
         raise AssertionError(f"the artifacts in a fresh interpreter failed:\n{proc.stdout}\n{proc.stderr[-4000:]}")
     report = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -1789,15 +1981,11 @@ def phase_artifact(dev, card: str, serve_dir: str, evaluation: dict, workdir: st
             line(f"phase 11 forward FAL_netB N=49 {SERVE_H}x{SERVE_W} disp B={b}: live model "
                  f"{live_ms[0]:.3f}, {live_ms[1]:.3f} ms; artifact {art_ms[0]:.3f}, {art_ms[1]:.3f} ms (in turns) [{card}]")
 
-    # the health gate, in its own process
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "fal_net_torch.cli.selfcheck", "--full", "--timeout", "300"],
-                          cwd=root, capture_output=True, text=True, timeout=900)
-    for ln in proc.stdout.strip().splitlines():
+    for ln in gate_out.strip().splitlines():
         line(f"phase 11 cli.selfcheck --full: {ln.strip()}")
-    if proc.returncode != 0:
-        raise AssertionError(f"cli.selfcheck --full exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-    line(f"phase 11 cli.selfcheck --full exit 0 in {time.perf_counter() - t0:.2f} s")
+    if gate.returncode != 0:
+        raise AssertionError(f"cli.selfcheck --full exited {gate.returncode}:\n{gate_err[-4000:]}")
+    line(f"phase 11 cli.selfcheck --full (beside the fresh interpreter) exit 0 in {gate_s:.2f} s")
     return {"k1": sum(report["k1"].values()) + sum(k1_infer.values()) + sum(by_mode.values())}
 
 
@@ -1821,7 +2009,7 @@ def in_turns(fns: dict, reps: int = 20) -> dict:
 
 
 def phase_bf16_train(root: str, workdir: str) -> dict:
-    """Phase 12a: cli.train --dtype bfloat16 on phase 7a's tree, 4 steps;
+    """Phase 12a: cli.train --dtype bfloat16 on phase 7a's tree, TRAIN_STEPS steps;
     the checkpoint's parameters and Adam's state stay fp32."""
     result, trainer, _, k1, k2, secs = run_cli_train(["--stage", "1", "--dtype", "bfloat16"], root, workdir)
     (epoch,) = result["history"]
@@ -1984,6 +2172,160 @@ def phase_bf16(rng, dev, card: str, seed: int, serve_dir: str, evaluation: dict,
     return {"k1": k1_total, "k2": k2_total, "worst": worst, "times": times}
 
 
+# cuDNN's API log (one file a process) and its frontend's log, for the drift diagnosis of phase 13
+CUDNN_LOG_ENV = {"CUDNN_LOGLEVEL_DBG": "3", "CUDNN_LOGINFO_DBG": "1", "CUDNN_FRONTEND_LOG_INFO": "1"}
+# the algorithm (legacy API) or execution plan (the frontend's tag: operation, engine, knobs) a convolution ran
+CUDNN_CHOICE = r"(CUDNN_CONVOLUTION_\w*ALGO_\w+|Conv\w*?_eng\d+[^,\s]*)"
+
+
+def drift_rank(rank: int, world: int, cfg, device: str, dataset, whole, workdir: str) -> dict:
+    """One rank of phase 13's drift diagnosis (spawned, in a process group):
+    three passes over this rank's slice ``whole[rank::world]`` of the global
+    batch with the same parameters, TF32 off and cuDNN deterministic: A and B
+    alone (``no_sync``), C under DDP's all-reduce.  Records each pass's
+    logits, K1's outputs and K2's (the gradient of the logits), every
+    parameter's gradient, the device memory free before it, and where each
+    pass's cuDNN log lines start, and when (wall clock) the function began,
+    the trainer was set up and each pass ended."""
+    import contextlib
+
+    stamps = {"entered": time.time()}
+
+    from fal_net_torch.data.loader import to_device
+    from fal_net_torch.ops import med_kernel
+    from fal_net_torch.parallel.dryrun import STEP_KEYS
+    from fal_net_torch.train.trainer import Trainer
+
+    logs = [os.path.join(workdir, f"cudnn_{os.getpid()}.log"), os.path.join(workdir, f"cudnn_frontend_{rank}.log")]
+    os.environ.update({"CUDNN_LOGDEST_DBG": logs[0], "CUDNN_FRONTEND_LOG_FILE": logs[1]})
+    sizes = lambda: [os.path.getsize(f) if os.path.isfile(f) else 0 for f in logs]
+    records, op = [], med_kernel.med_outputs_op
+
+    def record(logits, image, min_disp, max_disp, **kw):
+        out = op(logits, image, min_disp, max_disp, **kw)
+        entry = {"logits": logits.detach().clone(), "k1": [t.detach().clone() for t in out if t is not None]}
+        if logits.requires_grad:
+            logits.register_hook(lambda g: entry.__setitem__("k2", g.detach().clone()))
+        records.append(entry)
+        return out
+
+    dev = torch.device(device)
+    med_kernel.med_outputs_op = record
+    try:
+        with tf32(False), cudnn_deterministic():
+            trainer = Trainer(cfg, stage="stage1", device=dev, train_dataset=dataset)
+            trainer.setup()
+            stamps["set up"] = time.time()
+            part = to_device({k: whole[k][rank::world] for k in STEP_KEYS if k in whole}, dev)
+            passes, marks = {}, [sizes()]
+            for name in ("A", "B", "C"):
+                records.clear()
+                trainer.optimizer.zero_grad(set_to_none=True)
+                free = torch.cuda.mem_get_info(dev)[0] / 2**30
+                with trainer.train_model.no_sync() if name != "C" else contextlib.nullcontext():
+                    loss, _ = trainer._loss(part)
+                    loss.backward()
+                torch.cuda.synchronize(dev)
+                stamps[f"pass {name}"] = time.time()
+                marks.append(sizes())
+                (rec,) = records
+                passes[name] = {"free_gib": free, **rec,
+                                "grads": {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()
+                                          if p.grad is not None}}
+    finally:
+        med_kernel.med_outputs_op = op
+
+    def differ(x, y):
+        """The items of two passes that are not bit-identical, with their max abs difference."""
+        items = {"logits": (x["logits"], y["logits"]), "K2 g_logits": (x["k2"], y["k2"]),
+                 **{f"K1 out {i}": ab for i, ab in enumerate(zip(x["k1"], y["k1"]))}}
+        if x is not passes["C"] and y is not passes["C"]:  # C's gradients are all-reduced
+            items.update({f"grad {n}": (g, y["grads"][n]) for n, g in x["grads"].items()})
+        return {k: float((a - b).abs().max()) for k, (a, b) in items.items() if not torch.equal(a, b)}
+
+    to_np = lambda p: {"grads": {n: t.cpu().numpy() for n, t in p["grads"].items()}}
+    return {"rank": rank, "logs": logs, "marks": marks, "stamps": stamps, "free_gib": [passes[n]["free_gib"] for n in "ABC"],
+            "A_vs_B": differ(passes["A"], passes["B"]), "A_vs_C": differ(passes["A"], passes["C"]),
+            "A": to_np(passes["A"]), "C": to_np(passes["C"])}
+
+
+def drift_diagnosis(card: str, workdir: str) -> None:
+    """Phase 13's diagnosis of the drift between a rank's passes over one
+    slice (ROADMAP queue 3, open item 2): two gloo ranks on cuda:0 while
+    this process holds its cache (as when the drift was seen), cuDNN's API
+    and frontend logs on, three passes a rank (:func:`drift_rank`).  Prints,
+    per rank, which of the logits, K1's outputs, K2's output and the
+    gradients differ bitwise between the passes, the cuDNN execution plans
+    each pass logged, and the all-reduced gradients against the ranks' own
+    average in dryrun's tolerance units.  A diagnosis, not a gate."""
+    import contextlib
+    import re
+    from collections import Counter
+
+    from fal_net_torch.data.loader import DataLoader
+    from fal_net_torch.parallel import ddp
+    from fal_net_torch.parallel.dryrun import SAME_SPLIT, SyntheticStereo
+    from fal_net_torch.train.config import Stage1Config
+
+    cfg = Stage1Config(model="B", num_levels=49, crop_size=(TRAIN_H, TRAIN_W), batch_size=BATCH, a_p=0.0, workers=2)
+    dataset = SyntheticStereo(BATCH, TRAIN_H, TRAIN_W, 0)
+    with contextlib.closing(iter(DataLoader(dataset, batch_size=BATCH, seed=0, num_workers=2))) as it:
+        whole = next(it)
+    cached = torch.cuda.memory_reserved(0) / 2**30
+    # the ranks inherit these; each also names its own files before its first convolution
+    env = {**CUDNN_LOG_ENV, "CUDNN_LOGDEST_DBG": os.path.join(workdir, "cudnn_%i.log"),
+           "CUDNN_FRONTEND_LOG_FILE": os.path.join(workdir, "cudnn_frontend.log")}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    t0, wall0 = time.perf_counter(), time.time()
+    try:
+        ranks = ddp.launch(drift_rank, 2, (cfg, "cuda:0", dataset, whole, workdir),
+                           store_path=os.path.join(workdir, "drift_store"), backend="gloo", device="cuda:0",
+                           timeout=300, join_timeout=600)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    secs = time.perf_counter() - t0
+    at = {f"rank {r['rank']}": {k: round(v - wall0, 1) for k, v in r["stamps"].items()} for r in ranks}
+    # rank 0's all-reduced gradients (C) against the average of the ranks' own (A), in step_error's units
+    # (not step_error itself: its loss check would raise, and this is no gate)
+    units = lambda h, g: float((np.abs(h - g) / (1e-6 * np.abs(g).max() + 1e-4 * np.abs(g) + 1e-30)).max())
+    mean_a = {n: sum(r["A"]["grads"][n] for r in ranks) / len(ranks) for n in ranks[0]["A"]["grads"]}
+    worst = max(units(ranks[0]["C"]["grads"][n], g) for n, g in mean_a.items())
+    logs = sorted(f for f in os.listdir(workdir) if f.startswith("cudnn"))
+    line(f"phase 13 drift diagnosis: two gloo ranks on cuda:0 while this process holds {cached:.2f} GiB of cache, "
+         f"FAL_netB N=49 {TRAIN_H}x{TRAIN_W}, {BATCH // 2} a rank, TF32 off, cuDNN deterministic, in {secs:.1f} s; "
+         f"cuDNN logs written: {[(f, os.path.getsize(os.path.join(workdir, f))) for f in logs]}; seconds after "
+         f"the launch at which each rank entered, was set up and ended each pass: {at}")
+    for r in ranks:
+        per_pass = {}
+        for i, name in enumerate("ABC"):
+            picked = Counter()
+            for j, path in enumerate(r["logs"]):
+                if not os.path.isfile(path):
+                    continue
+                with open(path, "rb") as f:
+                    f.seek(r["marks"][i][j])
+                    text = f.read(r["marks"][i + 1][j] - r["marks"][i][j]).decode(errors="replace")
+                picked.update(m.group(0) for m in re.finditer(CUDNN_CHOICE, text, re.I))
+            per_pass[name] = picked
+        line(f"phase 13 drift diagnosis rank {r['rank']}: free GiB before passes A, B, C "
+             f"{[round(v, 2) for v in r['free_gib']]}; A vs B (both alone) not bit-identical: "
+             f"{dict(list(r['A_vs_B'].items())[:6]) or 'none'} ({len(r['A_vs_B'])} items); A vs C (alone vs under "
+             f"DDP) not bit-identical: {dict(list(r['A_vs_C'].items())[:6]) or 'none'} ({len(r['A_vs_C'])} items); "
+             f"cuDNN execution plans logged by pass (a pass that reuses cached plans logs none): "
+             f"{ {n: dict(c.most_common(12)) for n, c in per_pass.items()} }")
+    recurred = worst > 1.0 or any(r["A_vs_B"] or r["A_vs_C"] for r in ranks)
+    line(f"phase 13 drift diagnosis finding: the all-reduced gradients against the average of the ranks' own on "
+         f"their slices: {worst:.3f} tolerance units (SAME_SPLIT {SAME_SPLIT}); "
+         + ("the drift recurred: see the items above" if recurred else
+            "the drift did not recur: every rank's passes are bit-identical in logits, K1, K2 and gradients")
+         + f" [{card}]")
+
+
 def phase_multi(dev, card: str, evaluation: dict, workdir: str) -> dict:
     """Phase 13: multi-GPU (see the module docstring)."""
     from fal_net_torch.cli import test as cli_test
@@ -1999,6 +2341,7 @@ def phase_multi(dev, card: str, evaluation: dict, workdir: str) -> dict:
         raise AssertionError(f"make_mesh({n_cards + 1}) took {n_cards} visible cards")
     except ValueError as e:
         line(f"phase 13 make_mesh({n_cards + 1}) with {n_cards} visible: ValueError: {e}")
+    timed("13 drift", drift_diagnosis, card, workdir)  # first: while this process still holds its cache
     k1_total = k2_total = 0
     runs = [(2, "cuda:0", "gloo", "two ranks on cuda:0")]
     if torch.cuda.device_count() >= 2:
@@ -2147,31 +2490,35 @@ def main() -> None:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", metavar="DIR", help="also run phase 6, writing its tables to DIR")
     args = parser.parse_args()
-    name, card = phase_device()
+    t_start = time.perf_counter()
+    name, card = timed("1", phase_device)
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
-    phase_build()
-    worst3 = phase_kernel_vs_plain(rng, dev)
-    worst3b = phase_bwd_vs_plain(rng, dev)
+    timed("2", phase_build)
+    worst3 = timed("3", phase_kernel_vs_plain, rng, dev)
+    worst3b = timed("3b", phase_bwd_vs_plain, rng, dev)
     with tempfile.TemporaryDirectory() as serve_dir, tempfile.TemporaryDirectory() as eval_dir:
-        model, lefts, serve_launches, worst4 = phase_slice(rng, dev, args.seed, serve_dir)
-        times = phase_times(model, lefts, card, dev, args.seed)
+        model, lefts, serve_launches, worst4 = timed("4", phase_slice, rng, dev, args.seed, serve_dir)
+        times = timed("5", phase_times, model, lefts, card, dev, args.seed)
         if args.profile:
-            phase_profile(model, lefts, card, args.profile, dev, args.seed)
+            timed("6", phase_profile, model, lefts, card, args.profile, dev, args.seed)
         del model, lefts
         with tempfile.TemporaryDirectory() as workdir:
-            train = phase_train(rng, dev, workdir)
-            later = phase_later_stages(dev, train["root"], train["ckpt"], workdir)
-            default = phase_default_run(rng, dev, train["root"], workdir, card, args.seed)
-            bf16_train = phase_bf16_train(train["root"], workdir)
-        phase_converge_stage2(dev, *phase_converge(dev))
-        evaluation = phase_eval(rng, dev, args.seed, card, eval_dir)
-        script_kernels = phase_scripts(card)
+            train = timed("7a-7c", phase_train, rng, dev, workdir)
+            later = timed("7d-7e", phase_later_stages, dev, train["root"], train["ckpt"], workdir)
+            default = timed("7f", phase_default_run, rng, dev, train["root"], workdir, card, args.seed)
+            remat = timed("7g", phase_remat, dev, train["root"], workdir, card, args.seed)
+            bf16_train = timed("12 cli.train", phase_bf16_train, train["root"], workdir)
+        timed("8", lambda: phase_converge_stage2(dev, *phase_converge(dev)))
+        evaluation = timed("10", phase_eval, rng, dev, args.seed, card, eval_dir)
+        script_kernels = timed("9", phase_scripts, card)
         with tempfile.TemporaryDirectory() as workdir:
-            artifact = phase_artifact(dev, card, serve_dir, evaluation, workdir)
+            artifact = timed("11", phase_artifact, dev, card, serve_dir, evaluation, workdir)
         with tempfile.TemporaryDirectory() as workdir:
-            bf16 = phase_bf16(rng, dev, card, args.seed, serve_dir, evaluation, workdir)
-            multi = phase_multi(dev, card, evaluation, workdir)
+            bf16 = timed("12", phase_bf16, rng, dev, card, args.seed, serve_dir, evaluation, workdir)
+            multi = timed("13", phase_multi, dev, card, evaluation, workdir)
+    line(f"phase seconds (host clock): {PHASE_S}; {time.perf_counter() - t_start:.1f} s in all, the interpreter's "
+         f"start and imports apart")
     k1_bound, k1_by = bound(times["disp"][2], OPS_PER_LOGIT["med_fwd"] * times["disp_logits"])
     k2_bound, k2_by = bound(times["k2_bytes"], OPS_PER_LOGIT["med_bwd"] * times["k2_logits"])
     print(json.dumps({"kernels": [
@@ -2181,10 +2528,10 @@ def main() -> None:
             "source": "fal_net_torch/csrc/med_fwd.cu",
             "replaces": "fal_net_tpu/ops/med_pallas.py:116",
             # serving (phase 4), training (phase 7a-c, 7d stage 2, 7e stage 1 slow, 7f the default run with
-            # validation), evaluation (phase 10), the serving artifacts (phase 11), bf16 (phase 12) and the
-            # DDP ranks and evaluation replicas (phase 13)
-            "launches": serve_launches + train["k1"] + later["k1"] + default["k1"] + evaluation["k1"] + artifact["k1"]
-            + bf16_train["k1"] + bf16["k1"] + multi["k1"],
+            # validation, 7g remat), evaluation (phase 10), the serving artifacts (phase 11), bf16 (phase 12) and
+            # the DDP ranks and evaluation replicas (phase 13)
+            "launches": serve_launches + train["k1"] + later["k1"] + default["k1"] + remat["k1"] + evaluation["k1"]
+            + artifact["k1"] + bf16_train["k1"] + bf16["k1"] + multi["k1"],
             "max_abs_err": max(worst3, worst4, default["worst"], evaluation["worst"], bf16["worst"]),
             "ms": times["disp"][0],  # disp-only at (8, 49, 384, 1280)
             "plain_ms": times["disp"][1],
@@ -2197,8 +2544,9 @@ def main() -> None:
             "route": "cuda",
             "source": "fal_net_torch/csrc/med_bwd.cu",
             "replaces": "fal_net_tpu/ops/med_pallas.py:253",
-            # training paths (phase 7a-c, 7d, 7e, 7f, the bf16 steps of phase 12, the DDP ranks of phase 13)
-            "launches": train["k2"] + later["k2"] + default["k2"] + bf16_train["k2"] + bf16["k2"] + multi["k2"],
+            # training paths (phase 7a-c, 7d, 7e, 7f, 7g, the bf16 steps of phase 12, the DDP ranks of phase 13)
+            "launches": train["k2"] + later["k2"] + default["k2"] + remat["k2"] + bf16_train["k2"] + bf16["k2"]
+            + multi["k2"],
             "max_abs_err": max(worst3b, train["worst"], later["worst"], default["k2_worst"]),
             "ms": times["k2"][0],  # disp+pan cotangents, no g_img, at (8, 49, 192, 640)
             "plain_ms": times["k2"][1],

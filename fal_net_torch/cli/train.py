@@ -9,9 +9,13 @@
 
 Runs on the GPU unless ``--device cpu`` is given.  ``--val_root`` validates
 on KITTI 2015 every epoch and picks ``model_best`` by the view-synthesis
-RMSE; ``--resume`` restores the full training state and continues its run's
-directory.  ``--pretrained`` and ``--fix_model`` take a port ``.pt``, a
+RMSE; ``--resume`` restores the full training state (parameters, Adam's
+moments, the schedule, the step and the next epoch) and, as JAX's, writes a
+new run directory whose ``model_best`` is the best of the resumed epochs.
+``--pretrained`` and ``--fix_model`` take a port ``.pt``, a
 reference ``.pth.tar`` or a JAX msgpack checkpoint (or its run directory).
+``--remat`` recomputes the student's forward in the backward instead of
+keeping its activations (the same gradients, one more forward a step).
 ``--dtype bfloat16`` runs the backbones in bf16 (parameters, Adam and the
 checkpoints stay fp32).  ``--num_devices N`` trains one process per card
 (rank *r* on ``cuda:r``, NCCL) under DistributedDataParallel, or N gloo
@@ -90,7 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="params-only warm start (port .pt or reference .pth.tar)")
     p.add_argument("--resume", default=None,
                    help="full-state resume: params, Adam moments, schedule and step (a checkpoint.pt or "
-                   "its run directory); the run continues in that directory")
+                   "its run directory); the resumed run writes a new run directory")
     p.add_argument("--save_every_steps", type=int, default=0,
                    help="also checkpoint mid-epoch every N steps")
     p.add_argument("--profile_steps", type=int, default=0,
@@ -105,6 +109,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="skip the setup-time gate that holds the MED kernels against "
         "their plain versions at this run's shape (a disagreement raises)",
     )
+    p.add_argument("--remat", action="store_true", help="recompute fwd in bwd")
     p.add_argument("--grad_accum", type=int, default=1,
                    help="microbatches per step (same update, 1/N activations)")
     p.add_argument("--num_devices", type=int, default=None,
@@ -160,6 +165,7 @@ def main(argv=None) -> dict:
         profile_steps=args.profile_steps,
         vgg_weights=args.vgg_weights,
         allow_random_vgg=args.allow_random_vgg,
+        remat=args.remat,
         grad_accum=args.grad_accum,
         med_selfcheck=not args.no_med_selfcheck,
         weight_decay=args.weight_decay,

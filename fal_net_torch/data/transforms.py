@@ -31,6 +31,11 @@ def normalize(image: np.ndarray) -> np.ndarray:
     return (np.asarray(image, np.float32) / 255.0) - RGB_MEAN
 
 
+def denormalize(image: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`normalize`: float32 in 0..255, clipped."""
+    return np.clip((np.asarray(image, np.float32) + RGB_MEAN) * 255.0, 0, 255)
+
+
 def normalize_device(image: torch.Tensor) -> torch.Tensor:
     """uint8 NCHW tensor -> normalized float32 NCHW on the tensor's device:
     the same recipe as :func:`normalize`, so a raw uint8 upload (4x fewer

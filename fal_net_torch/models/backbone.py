@@ -90,9 +90,11 @@ VARIANTS = {
 
 
 class FalNetBackbone(nn.Module):
-    """Encoder-decoder emitting ``num_out`` disparity-plane logits (NCHW)."""
+    """Encoder-decoder emitting ``num_out`` disparity-plane logits (NCHW).
+    ``phase_deconv``: the decoder's exactly-2x deconvs as one transposed conv
+    each (models/layers.py::Deconv)."""
 
-    def __init__(self, spec: VariantSpec, num_out: int):
+    def __init__(self, spec: VariantSpec, num_out: int, phase_deconv: bool = False):
         super().__init__()
         self.spec = spec
         rb = lambda ch: ResidualBlock(ch, separable=spec.separable_residual)
@@ -107,10 +109,10 @@ class FalNetBackbone(nn.Module):
         y_ch = spec.enc[5]
         for j in range(6, 1, -1):  # deconv6..deconv2 fuse with skips 5..1
             d_ch = spec.deconv[6 - j]
-            setattr(self, f"deconv{j}", Deconv(y_ch, d_ch))
+            setattr(self, f"deconv{j}", Deconv(y_ch, d_ch, phase=phase_deconv))
             y_ch = spec.iconv[6 - j]
             setattr(self, f"iconv{j}", ConvElu(d_ch + skip_ch[j - 1], y_ch))
-        self.deconv1 = Deconv(y_ch, spec.deconv[5])
+        self.deconv1 = Deconv(y_ch, spec.deconv[5], phase=phase_deconv)
         self.iconv1 = conv(spec.deconv[5] + 32, num_out, 3, bias=False)
         if spec.has_amask:
             # The reference builds an occlusion-mask head that forward() never

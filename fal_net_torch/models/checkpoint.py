@@ -4,7 +4,8 @@ package's flax msgpack.
 The port's ``.pt`` and the reference's ``.pth.tar`` are ``{"m_model":
 <reference factory name>, "state_dict": ...}`` (reference
 Train_Stage1_K.py:202-207); the port's modules carry the reference's key
-layout, so one loader reads both.  The variant comes from the backbone key
+layout, so one loader reads both.  A port ``.pt`` also records the model's
+``phase_deconv``, which :func:`load_checkpoint` rebuilds.  The variant comes from the backbone key
 (``BackBone`` / ``backbone`` / ``synth``, as
 fal_net_tpu/models/torch_import.py detects it) and the plane count from
 ``conv0.weight.shape[0]``.
@@ -77,7 +78,8 @@ def _detect_jax_variant(params: Mapping[str, Any]) -> VariantSpec:
 
 
 def save_checkpoint(path: str, model: FalNet) -> None:
-    torch.save({"m_model": model.spec.torch_name, "state_dict": model.state_dict()}, path)
+    torch.save({"m_model": model.spec.torch_name, "phase_deconv": model.phase_deconv,
+                "state_dict": model.state_dict()}, path)
 
 
 def _as_variables(node: Any) -> Optional[Dict[str, Any]]:
@@ -122,20 +124,27 @@ def _is_torch(path: str) -> bool:
     return path.endswith(TORCH_SUFFIXES)
 
 
+def _read(path: str) -> Tuple[Dict[str, Any], Optional[str], Optional[int], Dict[str, Any]]:
+    """:func:`read_checkpoint`'s triple and the model options a port ``.pt``
+    records (``phase_deconv``; {} for any other file)."""
+    if not _is_torch(path):
+        params, name, num_levels = read_jax_checkpoint(path)
+        spec = resolve_variant(name) if name else _detect_jax_variant(params)
+        sd = {k: torch.from_numpy(np.array(v, np.float32)) for k, v in state_dict_from_jax(params, spec.name).items()}
+        return sd, name, num_levels, {}
+    if os.path.isdir(path):
+        path = os.path.join(path, TORCH_CKPT_NAME)
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    options = {"phase_deconv": data["phase_deconv"]} if "phase_deconv" in data else {}
+    return strip_data_parallel(data["state_dict"] if "state_dict" in data else data), None, None, options
+
+
 def read_checkpoint(path: str) -> Tuple[Dict[str, Any], Optional[str], Optional[int]]:
     """``(state_dict, model_name, num_levels)`` of any checkpoint this module
     reads (a file or a run directory); the name and plane count are what a
     JAX sidecar says, else None.  The state_dict is on the CPU, in the
     reference's layout, ``module.`` prefixes stripped."""
-    if not _is_torch(path):
-        params, name, num_levels = read_jax_checkpoint(path)
-        spec = resolve_variant(name) if name else _detect_jax_variant(params)
-        sd = {k: torch.from_numpy(np.array(v, np.float32)) for k, v in state_dict_from_jax(params, spec.name).items()}
-        return sd, name, num_levels
-    if os.path.isdir(path):
-        path = os.path.join(path, TORCH_CKPT_NAME)
-    data = torch.load(path, map_location="cpu", weights_only=True)
-    return strip_data_parallel(data["state_dict"] if "state_dict" in data else data), None, None
+    return _read(path)[:3]
 
 
 def read_state_dict(path: str) -> Dict[str, Any]:
@@ -156,11 +165,12 @@ def load_checkpoint(
     """Build the model a checkpoint holds on ``device`` (the GPU unless the
     caller asks for the CPU) in the compute ``dtype`` and load its weights;
     ``variant`` / ``num_levels`` override what the checkpoint says;
-    ``model_kw`` go to :func:`create_model` (``med_impl``, ``a_maskr_quirk``)."""
-    sd, name, levels = read_checkpoint(path)
+    ``model_kw`` go to :func:`create_model` (``med_impl``, ``a_maskr_quirk``);
+    ``phase_deconv`` is what a port ``.pt`` records, else off."""
+    sd, name, levels, options = _read(path)
     spec = resolve_variant(variant or name) if (variant or name) else detect_variant(sd)
     model = create_model(spec.name, num_levels or levels or sd["conv0.weight"].shape[0], device=device,
-                         dtype=dtype, **model_kw)
+                         dtype=dtype, **options, **model_kw)
     model.load_state_dict(sd)
     return model
 

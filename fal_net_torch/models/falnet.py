@@ -22,6 +22,13 @@ fal_net_tpu/models/falnet.py).
     convolved over the bf16 concat with fp32 accumulation and an fp32
     result; the 1x1's fp32 bias is added after.
 
+``phase_deconv`` (off by default): the decoder's exactly-2x deconvs run as
+one transposed conv with a composed 4x4 kernel (ops/phase_deconv.py), 2.25x
+fewer multiply-adds, the same sums up to fp32 rounding; JAX's default
+(fal_net_tpu/models/falnet.py:73).  The port keeps the upsample and 3x3 conv
+by default until its time on the card is measured against them.  A shallow
+copy (``with_dtype``) keeps it: the deconv modules are shared.
+
 ``med_impl``:
   * ``"reference"``: the plain head (:func:`fal_net_torch.ops.med.med_outputs`);
   * ``"fused"``: the CUDA kernel; CPU tensors raise;
@@ -92,7 +99,7 @@ def composed_logits(x: torch.Tensor, iconv1_weight: torch.Tensor, conv1x1: nn.Co
 
 class FalNet(nn.Module):
     def __init__(self, spec: VariantSpec, num_levels: int, med_impl: str = "auto", a_maskr_quirk: bool = False,
-                 dtype: DType = torch.float32):
+                 dtype: DType = torch.float32, phase_deconv: bool = False):
         super().__init__()
         if med_impl not in MED_IMPLS:
             raise ValueError(f"med_impl must be one of {MED_IMPLS}, got {med_impl!r}")
@@ -103,8 +110,13 @@ class FalNet(nn.Module):
         self.dtype = compute_dtype(dtype)
         # Attribute names give the reference's state_dict keys: the backbone
         # under BackBone / backbone / synth, the logits 1x1 conv as conv0.
-        self.add_module(spec.torch_backbone_key, FalNetBackbone(spec, num_levels))
+        self.add_module(spec.torch_backbone_key, FalNetBackbone(spec, num_levels, phase_deconv=phase_deconv))
         self.conv0 = conv(num_levels, num_levels, 1, bias=True)
+
+    @property
+    def phase_deconv(self) -> bool:
+        """Whether the decoder's exactly-2x deconvs run as one transposed conv."""
+        return self.get_submodule(self.spec.torch_backbone_key).deconv1.phase
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Kaiming-normal (fan-in) weights from ``generator``, zero biases."""
@@ -174,17 +186,18 @@ def create_model(
     generator: Optional[torch.Generator] = None,
     a_maskr_quirk: bool = False,
     dtype: DType = torch.float32,
+    phase_deconv: bool = False,
 ) -> FalNet:
     """Build a FAL-net variant with weights drawn from ``generator`` (a CPU
     ``torch.Generator``; the global one if None) on ``device``: the GPU
     unless the caller asks for the CPU.  Without a card, "cuda" raises; with
     one, the kernels are built (once) and loaded before the first forward.
-    ``a_maskr_quirk`` and ``dtype`` (the compute dtype, ``"float32"`` or
-    ``"bfloat16"``): see the module docstring."""
+    ``a_maskr_quirk``, ``dtype`` (the compute dtype, ``"float32"`` or
+    ``"bfloat16"``) and ``phase_deconv``: see the module docstring."""
     device = resolve_device(device)
     ensure_loaded(device)
     spec = resolve_variant(variant)
     model = FalNet(spec, num_levels or spec.default_levels, med_impl=med_impl, a_maskr_quirk=a_maskr_quirk,
-                   dtype=dtype)
+                   dtype=dtype, phase_deconv=phase_deconv)
     model.reset_parameters(generator)
     return model.to(device)

@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fal_net_torch.ops.phase_deconv import conv3x3_on_up2
+
 
 def init_conv(conv: nn.Conv2d, generator: Optional[torch.Generator]) -> None:
     nn.init.kaiming_normal_(conv.weight, mode="fan_in", nonlinearity="relu", generator=generator)
@@ -71,12 +73,21 @@ class Deconv(nn.Module):
     """Nearest upsample to the skip tensor's exact size, bias-free 3x3 conv,
     ELU (reference ``deconv``, FAL_netB.py:51-60).  Torch's own "nearest"
     is the semantics fal_net_tpu/ops/resize.py::resize_nearest_torch
-    reproduces, including the non-2x sizes of odd KITTI heights."""
+    reproduces, including the non-2x sizes of odd KITTI heights.
 
-    def __init__(self, cin: int, cout: int):
+    ``phase``: where the skip size is exactly 2x the input, the upsample and
+    the conv run as one transposed conv with the composed 4x4 kernel
+    (ops/phase_deconv.py), as JAX's ``Deconv(phase=True)`` does
+    (fal_net_tpu/models/layers.py:402-423); other sizes take the plain path.
+    The parameter is ``conv1.weight`` either way."""
+
+    def __init__(self, cin: int, cout: int, phase: bool = False):
         super().__init__()
         self.conv1 = conv(cin, cout, 3, bias=False)
+        self.phase = phase
 
     def forward(self, x: torch.Tensor, skip_hw: Tuple[int, int]) -> torch.Tensor:
+        if self.phase and tuple(skip_hw) == (2 * x.shape[-2], 2 * x.shape[-1]):
+            return F.elu(conv3x3_on_up2(x, self.conv1.weight.to(x.dtype)))
         x = F.interpolate(x, size=tuple(skip_hw), mode="nearest")
         return F.elu(self.conv1(x))

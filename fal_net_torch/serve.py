@@ -123,6 +123,7 @@ def _export(model, *, batch, height, width, min_disp=2.0, max_disp=300.0, ret_pa
         "num_levels": model.num_levels,
         "input": "uint8" if uint8_input else "float32_normalized",
         "dtype": str(model.dtype).removeprefix("torch."),
+        "phase_deconv": model.phase_deconv,
         "n_params": sum(p.numel() for p in model.parameters()),
     }
     return meta, buf.getvalue()

@@ -32,7 +32,7 @@ def save_checkpoint(save_dir: str, model, meta: Dict[str, Any], is_best: bool = 
                     scheduler=None) -> str:
     os.makedirs(save_dir, exist_ok=True)
     path = os.path.join(save_dir, CKPT_NAME)
-    data = {**meta, "m_model": model.spec.torch_name,
+    data = {**meta, "m_model": model.spec.torch_name, "phase_deconv": model.phase_deconv,
             "state_dict": {k: v.detach().cpu() for k, v in model.state_dict().items()}}
     if optimizer is not None:  # on the CPU, so that the file loads anywhere
         opt = optimizer.state_dict()

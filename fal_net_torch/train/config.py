@@ -44,6 +44,10 @@ class TrainConfig:
     val_batch_size: int = 4
     compute_dtype: str = "float32"  # or "bfloat16": the backbone's compute dtype;
     #                                   parameters, Adam and checkpoints stay fp32
+    remat: bool = False  # rematerialize the student's forward in the backward
+    #                      pass (torch.utils.checkpoint, non-reentrant): its
+    #                      activations are recomputed, not kept; the same
+    #                      gradients for one more forward (K1 included)
     grad_accum: int = 1  # microbatch count: split each batch into this many
     #                      sequential backward passes and apply their mean,
     #                      the same update as the full batch (up to fp

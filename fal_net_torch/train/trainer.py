@@ -19,7 +19,13 @@ own shapes, each gated once before its first batch (a disagreement raises;
 the JAX package validates through its plain head instead).  ``model_best``
 is the epoch of lowest RMSE, or of lowest train loss without validation.
 Checkpoints hold the full state (model, Adam, schedule, step), and
-``resume`` restores it and continues the run in its directory.
+``resume`` restores it; the resumed run, as JAX's, writes a new run
+directory and picks its ``model_best`` among its own epochs.
+
+``cfg.remat`` runs the student's forward under :class:`Remat`: its
+activations are recomputed in the backward instead of kept, so K1 launches
+twice a student forward (in the forward and in the recompute), K2 once,
+with the same gradients.  The teacher stays outside it, under ``no_grad``.
 
 ``cfg.compute_dtype`` ``"bfloat16"`` runs the student's and the teacher's
 backbones in bf16 (models/falnet.py); parameters, Adam's state and the
@@ -51,6 +57,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fal_net_torch.data.datasets import REGISTRY as DATASETS, TRAIN_FACTORIES
 from fal_net_torch.data.loader import DataLoader, prefetch_to_device
@@ -83,6 +91,24 @@ STUDENT_MODE = {"stage1": "disp+pan", "stage1_slow": "disp+pan", "stage2": "disp
 VAL_MODE = "disp+pan+subocc"  # K1's mode in validation
 
 
+class Remat(nn.Module):
+    """``model`` with its forward rematerialized: run under non-reentrant
+    ``torch.utils.checkpoint``, which keeps only the inputs and recomputes
+    the forward, MED head included, when the backward needs its activations
+    (JAX's ``jax.checkpoint`` of ``model.apply``,
+    fal_net_tpu/train/trainer.py:264-269).  The gradients are the plain
+    forward's; the cost is one more forward a backward.  Non-reentrant:
+    ``MedOutputs`` carries None fields and the forward takes keyword flags,
+    which the reentrant kind refuses."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, *args, **kwargs):
+        return checkpoint(self.model, *args, use_reentrant=False, **kwargs)
+
+
 class Trainer:
     """``train_dataset`` / ``val_dataset`` replace the configured training
     set and supply the validation set (``cli.train --val_root`` passes
@@ -106,11 +132,10 @@ class Trainer:
             cfg.model, cfg.num_levels, device=self.device, dtype=self.dtype,
             generator=torch.Generator().manual_seed(cfg.seed),
         )
-        self.train_model = self.model  # the DDP wrapper inside a process group (setup)
+        self.train_model = self.model  # what the stages call: under Remat and DDP where asked (setup)
         self._external_train = train_dataset
         self.val_dataset = val_dataset
         self.logger: Optional[MetricsLogger] = None
-        self.resume_meta: Dict[str, Any] = {}
         self.val_checked: Dict[Tuple[str, int, int], float] = {}  # K1 gate at validation: (mode, H, W) -> err
         self._setup_done = False
 
@@ -121,7 +146,7 @@ class Trainer:
         # the frozen perceptual net, once, on the trainer's device
         self.vgg = build_vgg(cfg.vgg_weights, cfg.allow_random_vgg, cfg.a_p, cfg.seed, self.device)
 
-        # Stage 2's frozen teacher: any variant and N, never optimized.
+        # Stage 2's frozen teacher: any variant and N (its deconvs as its checkpoint records), never optimized.
         self.teacher = None
         if self.stage == "stage2":
             if not (isinstance(cfg, Stage2Config) and cfg.fix_model):
@@ -193,26 +218,29 @@ class Trainer:
         if cfg.resume:
             # full state: model, Adam moments, schedule, step (the reference
             # restarts Adam's moments on a restart)
-            self.resume_meta = load_checkpoint(cfg.resume, self)
-            if self.resume_meta.get("epoch") is not None:
-                cfg.start_epoch = int(self.resume_meta["epoch"]) + 1
+            meta = load_checkpoint(cfg.resume, self)
+            if meta.get("epoch") is not None:
+                cfg.start_epoch = int(meta["epoch"]) + 1
             print(f"=> resumed {cfg.resume}: step {self.step}, next epoch {cfg.start_epoch}")
-        if ddp.active():
-            self.train_model = self._wrap_ddp()
+        student = Remat(self.model) if cfg.remat else self.model
+        self.train_model = self._wrap_ddp(student) if ddp.active() else student
         self._setup_done = True
 
-    def _wrap_ddp(self):
-        """The student under DistributedDataParallel.  The parameters that
-        forward never uses (FAL_netA/B's declared amask head) are left out
-        of the all-reduce: their gradients stay None on every rank, so
-        Adam's state and the checkpoint equal a one-process run's."""
+    def _wrap_ddp(self, student: nn.Module) -> nn.Module:
+        """``student`` under DistributedDataParallel (a :class:`Remat`
+        student recomputes inside it, so its recompute runs under DDP's
+        reducer hooks).  The parameters that forward never uses (FAL_netA/B's
+        declared amask head) are left out of the all-reduce: their gradients
+        stay None on every rank, so Adam's state and the checkpoint equal a
+        one-process run's."""
         from torch.nn.parallel import DistributedDataParallel
 
         prefix = f"{self.model.spec.torch_backbone_key}.amask_conv."
-        unused = [n for n, _ in self.model.named_parameters() if n.startswith(prefix)]
-        DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(self.model, unused)
+        amask = {id(p) for n, p in self.model.named_parameters() if n.startswith(prefix)}
+        unused = [n for n, p in student.named_parameters() if id(p) in amask]
+        DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(student, unused)
         ids = [self.device.index] if self.device.type == "cuda" else None
-        return DistributedDataParallel(self.model, device_ids=ids, output_device=self.device.index if ids else None)
+        return DistributedDataParallel(student, device_ids=ids, output_device=self.device.index if ids else None)
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
         """Loss, backward and one Adam update on a device batch ('left',
@@ -228,7 +256,7 @@ class Trainer:
         aux_sum: Dict[str, torch.Tensor] = {}
         for micro in range(accum):
             part = {k: v.chunk(accum)[micro] for k, v in batch.items()}
-            sync = micro == accum - 1 or self.train_model is self.model
+            sync = micro == accum - 1 or not ddp.active()
             with contextlib.nullcontext() if sync else self.train_model.no_sync():
                 loss, aux = self._loss(part)
                 (loss / accum).backward()
@@ -419,12 +447,10 @@ class Trainer:
         return metrics
 
     def _run_dir(self) -> str:
-        """A resumed run continues in its checkpoint's directory; a new one
-        gets <save_path>/<dataset>_<stage>/<MM-DD-HH_MM>/<model>,e{E}es{S},b{B},lr{LR}
-        (Train_Stage1_K.py:92-103), -2, -3, ... on a clash in the same minute."""
+        """<save_path>/<dataset>_<stage>/<MM-DD-HH_MM>/<model>,e{E}es{S},b{B},lr{LR}
+        (Train_Stage1_K.py:92-103), -2, -3, ... on a clash in the same minute;
+        a resumed run too gets a new one, as in JAX."""
         cfg = self.cfg
-        if cfg.resume:
-            return cfg.resume if os.path.isdir(cfg.resume) else os.path.dirname(os.path.abspath(cfg.resume))
         stamp = datetime.datetime.now().strftime("%m-%d-%H_%M")
         leaf = (
             f"{cfg.model},e{cfg.epochs}es{cfg.epoch_size if cfg.epoch_size > 0 else ''},"
@@ -438,25 +464,26 @@ class Trainer:
             n += 1
         return save_path
 
-    def fit(self) -> Dict[str, Any]:
-        """Train ``cfg.start_epoch..cfg.epochs``, validate every ``val_freq``
-        epochs and checkpoint each epoch.  ``model_best`` is the epoch of
-        lowest validation RMSE; without a validation set, of lowest train
-        loss, and its meta says which (best_metric; best_rmse only when it
-        is the RMSE).  Epochs whose validation is skipped do not compete.
-        A resumed run keeps its checkpoint's best when the metric is the
-        same, so that it picks what an uninterrupted run picks."""
+    def fit(self, save_path: Optional[str] = None) -> Dict[str, Any]:
+        """Train ``cfg.start_epoch..cfg.epochs`` in ``save_path`` (a new
+        stamped run directory when None, :meth:`_run_dir`), validate every
+        ``val_freq`` epochs and checkpoint each epoch.  ``model_best`` is the
+        epoch of lowest validation RMSE; without a validation set, of lowest
+        train loss, and its meta says which (best_metric; best_rmse only when
+        it is the RMSE).  Epochs whose validation is skipped do not compete.
+        Every run, a resumed one too, starts its best at -1, as JAX's
+        (fal_net_tpu/train/trainer.py:336-372): a resumed run writes its own
+        directory and picks its best among its own epochs."""
         if not self._setup_done:
             self.setup()
         cfg = self.cfg
-        save_path = ddp.broadcast_object(self._run_dir() if self.rank == 0 else None)
+        if save_path is None:
+            save_path = ddp.broadcast_object(self._run_dir() if self.rank == 0 else None)
         if self.rank == 0:
             dump_settings(save_path, cfg)
             self.logger = MetricsLogger(save_path)
         best_metric = "rmse" if self.val_dataset is not None else "train_loss"
         best_value = -1.0
-        if self.resume_meta.get("best_metric") == best_metric:
-            best_value = float(self.resume_meta.get("best_value", -1.0))
         history = []
         try:
             for epoch in range(cfg.start_epoch, cfg.epochs):

@@ -2,9 +2,10 @@
 dump, a JSONL scalar stream and, where it imports, TensorBoard.
 
 ``settings.txt`` is the reference's config dump (Train_Stage1_K.py:73-85).
-The JSONL stream (``metrics.jsonl``) is always written and opened for
-append, so that a resumed run continues it; TensorBoard is used when
-``tensorboardX`` or ``torch.utils.tensorboard`` imports.
+The JSONL stream (``metrics.jsonl``) is always written, opened for append
+as JAX's is (a resumed run writes both files in its own new directory);
+TensorBoard is used when ``tensorboardX`` or ``torch.utils.tensorboard``
+imports.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 schemas, fake impls and autograd formula under ``torch.library.opcheck``,
 their plain CPU kernels against the JAX package (its Pallas MED kernel in
 interpret mode), and, on the card (marked cuda), their CUDA impls against
-the plain versions and the launch counts they keep.
+the plain versions and the launch counts they keep, a remat training step's
+included.
 
 Tolerances are those of tests/test_med_pallas.py: 1e-4 on forward outputs
 (disp 1e-5 relative), rtol 1e-4 and atol 1e-5 on gradients.
@@ -238,3 +239,33 @@ def test_script_ops_match_plain_on_gpu(cuda_device):
     assert torch.equal(roll_probe.roll_window(row, f, 640), roll_probe.roll_window_plain(row, f, 640))
     assert (conv3x3.LAUNCHES["conv3x3"] - counts[0]["conv3x3"],
             roll_probe.LAUNCHES["roll_window"] - counts[1]["roll_window"]) == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["stage1", "stage2"])
+def test_remat_launches_on_gpu(cuda_device, tmp_path, stage):
+    """One Trainer step of the tiny model on the card, with and without
+    remat (train/trainer.py::Remat): K1 twice a student forward (the forward
+    and its recompute) plus the teacher's once in stage 2, K2 once; the
+    setup gate's launches are not in these counts."""
+    from fal_net_torch.models import create_model
+    from fal_net_torch.models.checkpoint import save_checkpoint
+    from fal_net_torch.parallel.dryrun import SyntheticStereo
+    from fal_net_torch.train import Stage1Config, Stage2Config, Trainer
+
+    teacher = str(tmp_path / "teacher.pt")
+    save_checkpoint(teacher, create_model("tiny", 5, device="cpu", generator=torch.Generator().manual_seed(1)))
+    rng = np.random.default_rng(0)
+    batch = {k: (_draw(rng, 4, 3, 32, 64) * 0.3).to(cuda_device) for k in ("left", "right")}
+    counts = {}
+    for remat in (False, True):
+        kw = dict(model="tiny", num_levels=5, crop_size=(32, 64), batch_size=4, a_p=0.0, workers=1, remat=remat)
+        cfg = Stage2Config(fix_model=teacher, **kw) if stage == "stage2" else Stage1Config(**kw)
+        trainer = Trainer(cfg, stage=stage, device=cuda_device, train_dataset=SyntheticStereo(4, 32, 64))
+        trainer.setup()
+        _build.reset_launch_counts()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        counts[remat] = (MedForward.launches, MedForward.bwd_launches)
+    teacher_k1 = int(stage == "stage2")
+    assert counts == {False: (1 + teacher_k1, 1), True: (2 + teacher_k1, 1)}

@@ -1,7 +1,8 @@
 """Multi-device runs of the port on the CPU: the sharded loader against JAX's,
 two gloo ranks under DistributedDataParallel against the one-process step of
 the global batch and against JAX's Trainer on a 2-device mesh (stage 1, and
-stage 2 with a_mr 1 and grad_accum 2), ``cli.train --num_devices 2``, the
+stage 2 with a_mr 1 and grad_accum 2), with ``remat`` against without it
+(exactly), ``cli.train --num_devices 2``, the
 Evaluator and DisparityPipeline on two CPU replicas, and the errors.
 
 Every spawned group rendezvouses through a FileStore under ``tmp_path``
@@ -157,6 +158,30 @@ def test_two_gloo_ranks_stage2_grad_accum(tmp_path):
     jcfg = JaxStage2Config(model="tiny", num_levels=N, crop_size=(H, W), batch_size=4, a_p=0.0, workers=1,
                            grad_accum=2, a_mr=1.0, fix_model=teacher, med_selfcheck=False)
     _check_against_jax(ranks[0], *_jax_step(jcfg, port_sd, _global_batch(cfg, dataset), "stage2"))
+
+
+def test_two_gloo_ranks_remat(tmp_path):
+    """remat under DDP with grad_accum 2: the checkpoint sits inside the
+    module DDP wraps, so each microbatch's recompute runs under DDP's hooks
+    (no_sync on the first); the all-reduced gradients, Adam's moments and
+    the losses equal the same two-rank step without remat exactly."""
+    dataset = dryrun.SyntheticStereo(4, H, W, seed=5)
+    reports = {}
+    for remat in (False, True):
+        cfg = Stage1Config(model="tiny", num_levels=N, crop_size=(H, W), batch_size=4, a_p=0.0, workers=2,
+                           grad_accum=2, remat=remat)
+        ranks = ddp.launch(dryrun.rank_step, 2, (cfg, "stage1", "cpu", dataset),
+                           store_path=str(tmp_path / f"store{int(remat)}"), device="cpu", **GROUP)
+        reports[remat] = ranks[0]
+    plain, remat = reports[False], reports[True]
+    assert remat["aux"] == plain["aux"]
+    for name, g in plain["grads"].items():
+        if g is None:
+            assert remat["grads"][name] is None, name
+            continue
+        np.testing.assert_array_equal(remat["grads"][name], g, err_msg=name)
+        for a, b in zip(remat["adam"][name], plain["adam"][name]):
+            np.testing.assert_array_equal(a, b, err_msg=name)
 
 
 def test_cli_train_two_cpu_ranks(tmp_path, monkeypatch, capsys):

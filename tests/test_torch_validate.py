@@ -156,11 +156,13 @@ def _run(tmp, **kw):
 def test_resume_restores_the_full_state(tmp_path):
     """A resumed second epoch equals an uninterrupted two-epoch run: the
     parameters, Adam's moments, the step and the schedule (its milestone
-    falls at the resume); start_epoch follows the checkpoint's epoch, and
-    the run continues its directory and metrics log."""
+    falls at the resume); start_epoch follows the checkpoint's epoch.  As
+    in JAX, the resumed run writes a new run directory and leaves the first
+    run's settings.txt and metrics.jsonl as they were."""
     full, _ = _run(tmp_path / "full", epochs=2)
     first, r1 = _run(tmp_path / "part", epochs=1, profile_steps=1)
-    lines = open(os.path.join(r1["save_path"], "metrics.jsonl")).read().splitlines()
+    old_files = {name: open(os.path.join(r1["save_path"], name), "rb").read()
+                 for name in ("metrics.jsonl", "settings.txt")}
     ckpt = os.path.join(r1["save_path"], CKPT_NAME)
     resumed = Trainer(Stage1Config(**_cfg(save_path=str(tmp_path / "other"), milestones=(1,), epochs=2,
                                           resume=ckpt)), device="cpu", train_dataset=Synthetic())
@@ -171,7 +173,8 @@ def test_resume_restores_the_full_state(tmp_path):
         for name in ("exp_avg", "exp_avg_sq", "step"):
             torch.testing.assert_close(resumed.optimizer.state_dict()["state"][k][name], v[name], rtol=0, atol=0)
     r2 = resumed.fit()
-    assert r2["save_path"] == r1["save_path"] and [h["epoch"] for h in r2["history"]] == [1]
+    assert r2["save_path"] != r1["save_path"] and [h["epoch"] for h in r2["history"]] == [1]
+    assert r2["save_path"].startswith(str(tmp_path / "other"))
     assert resumed.step == full.step == 4
     assert resumed.scheduler.get_last_lr() == full.scheduler.get_last_lr() == [5e-5, 5e-5]
     for (k, a), b in zip(full.model.state_dict().items(), resumed.model.state_dict().values()):
@@ -179,8 +182,9 @@ def test_resume_restores_the_full_state(tmp_path):
     full_state, res_state = full.optimizer.state_dict()["state"], resumed.optimizer.state_dict()["state"]
     for k in full_state:
         torch.testing.assert_close(res_state[k]["exp_avg_sq"], full_state[k]["exp_avg_sq"], rtol=1e-5, atol=1e-12)
-    after = open(os.path.join(r1["save_path"], "metrics.jsonl")).read().splitlines()
-    assert after[: len(lines)] == lines and len(after) > len(lines)  # the log appends across the resume
+    for name, data in old_files.items():  # the first run's files, byte for byte
+        assert open(os.path.join(r1["save_path"], name), "rb").read() == data, name
+    assert [json.loads(ln)["step"] for ln in open(os.path.join(r2["save_path"], "metrics.jsonl"))] == [3, 4]
     with pytest.raises(ValueError, match="model-only"):  # a model-only file cannot resume
         from fal_net_torch.models.checkpoint import save_checkpoint as save_model_only
 
@@ -209,7 +213,8 @@ def test_default_run_through_the_cli_on_cpu(tmp_path, val_root):
     """cli.train --stage 1 --a_p 0.01 --vgg_weights W.pth --val_root R
     --tbatch_size 2 --profile_steps 1, then --resume for a second epoch, then
     --stage 2 --fix_model <model_best> --a_p 0.01 --val_root R: finite losses
-    and validation metrics, best by RMSE, no flag raises."""
+    and validation metrics, best by RMSE, no flag raises.  The resumed call
+    writes its own run directory, whose model_best is its own epoch's."""
     root = _write_tree(tmp_path / "data", n_pairs=4)
     weights = str(tmp_path / "vgg19.pth")
     torch.save(init_vgg19(seed=1).state_dict(), weights)
@@ -219,14 +224,15 @@ def test_default_run_through_the_cli_on_cpu(tmp_path, val_root):
               "--tbatch_size", "2", "--save_path", str(tmp_path / "runs")]
     first = train_cli.main(["--stage", "1", "--epochs", "1", "--profile_steps", "1", *common])
     second = train_cli.main(["--stage", "1", "--epochs", "2", "--resume", first["checkpoint"], *common])
-    assert second["save_path"] == first["save_path"]
+    assert second["save_path"] != first["save_path"]
     history = first["history"] + second["history"]
     assert [h["epoch"] for h in history] == [0, 1]
     for h in history:
         assert all(np.isfinite(v) for v in h.values()), h
-    assert second["best_metric"] == "rmse" and second["best_value"] == min(h["rmse"] for h in history)
-    best = os.path.join(first["save_path"], BEST_NAME)
+    assert second["best_metric"] == "rmse" and second["best_value"] == second["history"][0]["rmse"]
+    best = os.path.join(second["save_path"], BEST_NAME)
     assert torch.load(best, weights_only=True)["best_metric"] == "rmse"
+    assert torch.load(best, weights_only=True)["epoch"] == 1
     assert os.listdir(os.path.join(first["save_path"], "profile"))
     _, variant, levels = load_model_any(best, device="cpu")
     assert (variant, levels) == ("tiny", N)
