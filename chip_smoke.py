@@ -163,15 +163,9 @@ Phases, each reported on its own line; any failure exits nonzero:
      phase 10's tree (finite metrics, K1 by mode); ``cli.export --dtype
      bfloat16`` of phase 4's checkpoint (meta dtype bfloat16, K1 inside it,
      its output equal to the live bf16 model's at phase 10's tolerances);
-  13. multi-GPU: first a diagnosis of the drift between a rank's passes
-     over one slice, while this process holds its cache: two gloo ranks on
-     cuda:0, cuDNN's API and frontend logs on, three passes a rank over its
-     slice (two alone, one under DDP); which of the logits, K1's and K2's
-     outputs and the gradients differ bitwise, the algorithm and engine
-     lines each pass logged, and the all-reduced gradients against the
-     ranks' own (printed, not a gate); then ``dryrun_multigpu(2)``, two ranks on cuda:0 over gloo (NCCL
+  13. multi-GPU: ``dryrun_multigpu(2)``, two ranks on cuda:0 over gloo (NCCL
      refuses two ranks on one card), one DDP stage-1 step of FAL_netB at
-     global batch 8 with TF32 off: the ranks' all-reduced gradients held
+     global batch 8 with TF32 off (then 5 more timed with TF32 on): the ranks' all-reduced gradients held
      against the average of each rank's own gradients on its slice [r::2]
      of the global batch within 10 units of rtol 1e-4, atol 1e-6 max|g|
      (``dryrun.SAME_SPLIT``), and gradients and
@@ -182,7 +176,21 @@ Phases, each reported on its own line; any failure exits nonzero:
      run, and an Evaluator on the mesh ["cuda:0", "cuda:0"] (each batch as
      two parts of 4) against one device at batch 4 and, with TF32 off,
      against phase 10's TF32-off run, at phase 10's tolerances (with TF32
-     on against phase 10's batch 8: printed).
+     on against phase 10's batch 8: printed);
+  14. row (spatial) partitioning: one spawn of two gloo ranks on cuda:0
+     that split each image's rows (``parallel/spatial.py``), FAL_netB N=49:
+     the disp+pan forward at 384x1280, B=8, and a stage-1 step (192x640,
+     B=8) and a stage-2 step (B=4, double batch 8, a_mr 1, a seeded
+     teacher), each compared with TF32 off and cuDNN deterministic against
+     the same in this process: each rank's rows of disp and pan within
+     phase 10's tolerances, the steps' loss at rtol 1e-5 and gradients and
+     Adam moments within fixed limits in units: stage 1 ``dryrun.ORDER_ONLY``,
+     stage 2 ``dryrun.STAGE2_ORDER`` (the units between the one-process
+     step and the same step as two microbatches, fp32 summation order
+     alone, are printed beside them); K1 and K2 per rank and K1's launch shapes (each rank's
+     rows); which levels each shape splits and keeps whole; each rank's ms
+     (median of 5 more, TF32 on, host clock to a device synchronise) and
+     peak device memory beside one process's.
 After the phases a line gives the seconds each took on the host clock.
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -192,6 +200,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -2172,160 +2181,6 @@ def phase_bf16(rng, dev, card: str, seed: int, serve_dir: str, evaluation: dict,
     return {"k1": k1_total, "k2": k2_total, "worst": worst, "times": times}
 
 
-# cuDNN's API log (one file a process) and its frontend's log, for the drift diagnosis of phase 13
-CUDNN_LOG_ENV = {"CUDNN_LOGLEVEL_DBG": "3", "CUDNN_LOGINFO_DBG": "1", "CUDNN_FRONTEND_LOG_INFO": "1"}
-# the algorithm (legacy API) or execution plan (the frontend's tag: operation, engine, knobs) a convolution ran
-CUDNN_CHOICE = r"(CUDNN_CONVOLUTION_\w*ALGO_\w+|Conv\w*?_eng\d+[^,\s]*)"
-
-
-def drift_rank(rank: int, world: int, cfg, device: str, dataset, whole, workdir: str) -> dict:
-    """One rank of phase 13's drift diagnosis (spawned, in a process group):
-    three passes over this rank's slice ``whole[rank::world]`` of the global
-    batch with the same parameters, TF32 off and cuDNN deterministic: A and B
-    alone (``no_sync``), C under DDP's all-reduce.  Records each pass's
-    logits, K1's outputs and K2's (the gradient of the logits), every
-    parameter's gradient, the device memory free before it, and where each
-    pass's cuDNN log lines start, and when (wall clock) the function began,
-    the trainer was set up and each pass ended."""
-    import contextlib
-
-    stamps = {"entered": time.time()}
-
-    from fal_net_torch.data.loader import to_device
-    from fal_net_torch.ops import med_kernel
-    from fal_net_torch.parallel.dryrun import STEP_KEYS
-    from fal_net_torch.train.trainer import Trainer
-
-    logs = [os.path.join(workdir, f"cudnn_{os.getpid()}.log"), os.path.join(workdir, f"cudnn_frontend_{rank}.log")]
-    os.environ.update({"CUDNN_LOGDEST_DBG": logs[0], "CUDNN_FRONTEND_LOG_FILE": logs[1]})
-    sizes = lambda: [os.path.getsize(f) if os.path.isfile(f) else 0 for f in logs]
-    records, op = [], med_kernel.med_outputs_op
-
-    def record(logits, image, min_disp, max_disp, **kw):
-        out = op(logits, image, min_disp, max_disp, **kw)
-        entry = {"logits": logits.detach().clone(), "k1": [t.detach().clone() for t in out if t is not None]}
-        if logits.requires_grad:
-            logits.register_hook(lambda g: entry.__setitem__("k2", g.detach().clone()))
-        records.append(entry)
-        return out
-
-    dev = torch.device(device)
-    med_kernel.med_outputs_op = record
-    try:
-        with tf32(False), cudnn_deterministic():
-            trainer = Trainer(cfg, stage="stage1", device=dev, train_dataset=dataset)
-            trainer.setup()
-            stamps["set up"] = time.time()
-            part = to_device({k: whole[k][rank::world] for k in STEP_KEYS if k in whole}, dev)
-            passes, marks = {}, [sizes()]
-            for name in ("A", "B", "C"):
-                records.clear()
-                trainer.optimizer.zero_grad(set_to_none=True)
-                free = torch.cuda.mem_get_info(dev)[0] / 2**30
-                with trainer.train_model.no_sync() if name != "C" else contextlib.nullcontext():
-                    loss, _ = trainer._loss(part)
-                    loss.backward()
-                torch.cuda.synchronize(dev)
-                stamps[f"pass {name}"] = time.time()
-                marks.append(sizes())
-                (rec,) = records
-                passes[name] = {"free_gib": free, **rec,
-                                "grads": {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()
-                                          if p.grad is not None}}
-    finally:
-        med_kernel.med_outputs_op = op
-
-    def differ(x, y):
-        """The items of two passes that are not bit-identical, with their max abs difference."""
-        items = {"logits": (x["logits"], y["logits"]), "K2 g_logits": (x["k2"], y["k2"]),
-                 **{f"K1 out {i}": ab for i, ab in enumerate(zip(x["k1"], y["k1"]))}}
-        if x is not passes["C"] and y is not passes["C"]:  # C's gradients are all-reduced
-            items.update({f"grad {n}": (g, y["grads"][n]) for n, g in x["grads"].items()})
-        return {k: float((a - b).abs().max()) for k, (a, b) in items.items() if not torch.equal(a, b)}
-
-    to_np = lambda p: {"grads": {n: t.cpu().numpy() for n, t in p["grads"].items()}}
-    return {"rank": rank, "logs": logs, "marks": marks, "stamps": stamps, "free_gib": [passes[n]["free_gib"] for n in "ABC"],
-            "A_vs_B": differ(passes["A"], passes["B"]), "A_vs_C": differ(passes["A"], passes["C"]),
-            "A": to_np(passes["A"]), "C": to_np(passes["C"])}
-
-
-def drift_diagnosis(card: str, workdir: str) -> None:
-    """Phase 13's diagnosis of the drift between a rank's passes over one
-    slice (ROADMAP queue 3, open item 2): two gloo ranks on cuda:0 while
-    this process holds its cache (as when the drift was seen), cuDNN's API
-    and frontend logs on, three passes a rank (:func:`drift_rank`).  Prints,
-    per rank, which of the logits, K1's outputs, K2's output and the
-    gradients differ bitwise between the passes, the cuDNN execution plans
-    each pass logged, and the all-reduced gradients against the ranks' own
-    average in dryrun's tolerance units.  A diagnosis, not a gate."""
-    import contextlib
-    import re
-    from collections import Counter
-
-    from fal_net_torch.data.loader import DataLoader
-    from fal_net_torch.parallel import ddp
-    from fal_net_torch.parallel.dryrun import SAME_SPLIT, SyntheticStereo
-    from fal_net_torch.train.config import Stage1Config
-
-    cfg = Stage1Config(model="B", num_levels=49, crop_size=(TRAIN_H, TRAIN_W), batch_size=BATCH, a_p=0.0, workers=2)
-    dataset = SyntheticStereo(BATCH, TRAIN_H, TRAIN_W, 0)
-    with contextlib.closing(iter(DataLoader(dataset, batch_size=BATCH, seed=0, num_workers=2))) as it:
-        whole = next(it)
-    cached = torch.cuda.memory_reserved(0) / 2**30
-    # the ranks inherit these; each also names its own files before its first convolution
-    env = {**CUDNN_LOG_ENV, "CUDNN_LOGDEST_DBG": os.path.join(workdir, "cudnn_%i.log"),
-           "CUDNN_FRONTEND_LOG_FILE": os.path.join(workdir, "cudnn_frontend.log")}
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    t0, wall0 = time.perf_counter(), time.time()
-    try:
-        ranks = ddp.launch(drift_rank, 2, (cfg, "cuda:0", dataset, whole, workdir),
-                           store_path=os.path.join(workdir, "drift_store"), backend="gloo", device="cuda:0",
-                           timeout=300, join_timeout=600)
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-    secs = time.perf_counter() - t0
-    at = {f"rank {r['rank']}": {k: round(v - wall0, 1) for k, v in r["stamps"].items()} for r in ranks}
-    # rank 0's all-reduced gradients (C) against the average of the ranks' own (A), in step_error's units
-    # (not step_error itself: its loss check would raise, and this is no gate)
-    units = lambda h, g: float((np.abs(h - g) / (1e-6 * np.abs(g).max() + 1e-4 * np.abs(g) + 1e-30)).max())
-    mean_a = {n: sum(r["A"]["grads"][n] for r in ranks) / len(ranks) for n in ranks[0]["A"]["grads"]}
-    worst = max(units(ranks[0]["C"]["grads"][n], g) for n, g in mean_a.items())
-    logs = sorted(f for f in os.listdir(workdir) if f.startswith("cudnn"))
-    line(f"phase 13 drift diagnosis: two gloo ranks on cuda:0 while this process holds {cached:.2f} GiB of cache, "
-         f"FAL_netB N=49 {TRAIN_H}x{TRAIN_W}, {BATCH // 2} a rank, TF32 off, cuDNN deterministic, in {secs:.1f} s; "
-         f"cuDNN logs written: {[(f, os.path.getsize(os.path.join(workdir, f))) for f in logs]}; seconds after "
-         f"the launch at which each rank entered, was set up and ended each pass: {at}")
-    for r in ranks:
-        per_pass = {}
-        for i, name in enumerate("ABC"):
-            picked = Counter()
-            for j, path in enumerate(r["logs"]):
-                if not os.path.isfile(path):
-                    continue
-                with open(path, "rb") as f:
-                    f.seek(r["marks"][i][j])
-                    text = f.read(r["marks"][i + 1][j] - r["marks"][i][j]).decode(errors="replace")
-                picked.update(m.group(0) for m in re.finditer(CUDNN_CHOICE, text, re.I))
-            per_pass[name] = picked
-        line(f"phase 13 drift diagnosis rank {r['rank']}: free GiB before passes A, B, C "
-             f"{[round(v, 2) for v in r['free_gib']]}; A vs B (both alone) not bit-identical: "
-             f"{dict(list(r['A_vs_B'].items())[:6]) or 'none'} ({len(r['A_vs_B'])} items); A vs C (alone vs under "
-             f"DDP) not bit-identical: {dict(list(r['A_vs_C'].items())[:6]) or 'none'} ({len(r['A_vs_C'])} items); "
-             f"cuDNN execution plans logged by pass (a pass that reuses cached plans logs none): "
-             f"{ {n: dict(c.most_common(12)) for n, c in per_pass.items()} }")
-    recurred = worst > 1.0 or any(r["A_vs_B"] or r["A_vs_C"] for r in ranks)
-    line(f"phase 13 drift diagnosis finding: the all-reduced gradients against the average of the ranks' own on "
-         f"their slices: {worst:.3f} tolerance units (SAME_SPLIT {SAME_SPLIT}); "
-         + ("the drift recurred: see the items above" if recurred else
-            "the drift did not recur: every rank's passes are bit-identical in logits, K1, K2 and gradients")
-         + f" [{card}]")
-
-
 def phase_multi(dev, card: str, evaluation: dict, workdir: str) -> dict:
     """Phase 13: multi-GPU (see the module docstring)."""
     from fal_net_torch.cli import test as cli_test
@@ -2341,7 +2196,6 @@ def phase_multi(dev, card: str, evaluation: dict, workdir: str) -> dict:
         raise AssertionError(f"make_mesh({n_cards + 1}) took {n_cards} visible cards")
     except ValueError as e:
         line(f"phase 13 make_mesh({n_cards + 1}) with {n_cards} visible: ValueError: {e}")
-    timed("13 drift", drift_diagnosis, card, workdir)  # first: while this process still holds its cache
     k1_total = k2_total = 0
     runs = [(2, "cuda:0", "gloo", "two ranks on cuda:0")]
     if torch.cuda.device_count() >= 2:
@@ -2363,7 +2217,7 @@ def phase_multi(dev, card: str, evaluation: dict, workdir: str) -> dict:
              f"the tolerance rtol 1e-4, atol 1e-6 max|g| (limit {ORDER_ONLY}); the all-reduced gradients "
              f"against the average of the ranks' own on the global batch's slices [r::{n}]: "
              f"{rep['mean_worst']:.3f} (limit {SAME_SPLIT}); "
-             f"K1 per rank {rep['k1']}, K2 per rank {rep['k2']}; step after it (median of 5, host "
+             f"K1 per rank {rep['k1']}, K2 per rank {rep['k2']}; step after it (median of 5, TF32 on, host "
              f"clock) per rank {[round(v, 3) for v in rep['step_ms']]} ms, one process "
              f"{rep['one_process_step_ms']:.3f} ms; {secs:.1f} s in all; {cached:.2f} GiB cached here before, "
              f"{rep['free_gib']:.2f} GiB free on the card as the ranks started [{card}]")
@@ -2423,6 +2277,126 @@ def phase_multi(dev, card: str, evaluation: dict, workdir: str) -> dict:
          f"vs one device at B={BATCH // 2} (TF32) max |d disp| {d4:.3e} px, max |d metric| {m4:.3e}; vs phase 10's "
          f"TF32-off Evaluator (TF32 off) {d_o:.3e} px, {m_o:.3e}; vs phase 10's cli.test at B={BATCH} (TF32, not "
          f"bounded) {drift:.4f} px, {m_drift:.3e} [{card}]")
+    return {"k1": k1_total, "k2": k2_total}
+
+
+# phase 14: FAL_netB N=49 on two gloo ranks on cuda:0 that split each image's rows
+SPATIAL_TIMED = 5  # forwards and steps timed after the compared one, per rank and in one process
+
+
+def spatial_rank(rank: int, world: int, calls) -> list:
+    """One of phase 14's ranks (spawned, in a process group): each call of
+    ``calls`` (parallel/dryrun.py's rank_forward and rank_step: the compared
+    forward or step with TF32 off, the timed ones in the port's settings)
+    and the distinct (mode, logits shape) of the K1 launches it made."""
+    from fal_net_torch.parallel.dryrun import rank_calls
+
+    out = []
+    for call in calls:
+        with k1_by_shape() as shapes:
+            (res,) = rank_calls(rank, world, [call])
+        out.append({**res, "k1_shapes": sorted(set(shapes))})
+    return out
+
+
+def phase_spatial(dev, card: str, workdir: str) -> dict:
+    """Phase 14: row (spatial) partitioning (see the module docstring)."""
+    import gc
+
+    from fal_net_torch.data.loader import DataLoader
+    from fal_net_torch.parallel import ddp
+    from fal_net_torch.parallel.dryrun import (ORDER_ONLY, STAGE2_ORDER, SyntheticStereo, rank_forward, rank_step,
+                                               step_units)
+    from fal_net_torch.parallel.spatial import RowShard
+    from fal_net_torch.train.config import Stage1Config, Stage2Config
+
+    seed = 0
+    images = np.random.default_rng(seed).standard_normal((BATCH, SERVE_H, SERVE_W, 3)).astype(np.float32) * 0.3
+    model_kw = dict(variant="B", num_levels=49)
+    teacher = os.path.join(workdir, "spatial_teacher.pt")
+    save_checkpoint(teacher, create_model("B", 49, device=dev, generator=torch.Generator().manual_seed(1)))
+    common = dict(model="B", num_levels=49, crop_size=(TRAIN_H, TRAIN_W), a_p=0.0, workers=2, seed=seed)
+    steps = {"stage1": Stage1Config(batch_size=BATCH, **common),
+             "stage2": Stage2Config(batch_size=BATCH // 2, a_mr=1.0, fix_model=teacher, **common)}
+    data = {k: SyntheticStereo(cfg.batch_size, TRAIN_H, TRAIN_W, seed) for k, cfg in steps.items()}
+    whole = {}
+    for k, cfg in steps.items():
+        with contextlib.closing(iter(DataLoader(data[k], batch_size=cfg.batch_size, seed=seed, num_workers=2))) as it:
+            whole[k] = next(it)
+    fwd_args = (dev, images, 2.0, 300.0, model_kw)
+    calls = [(rank_forward, (2, str(dev), *fwd_args[1:]), dict(timed=SPATIAL_TIMED, ret_pan=True))]
+    calls += [(rank_step, (cfg, k, str(dev), data[k], SPATIAL_TIMED), dict(spatial=2)) for k, cfg in steps.items()]
+    one = spatial_rank(0, 1, [(rank_forward, (1, dev, *fwd_args[1:]), dict(timed=SPATIAL_TIMED, ret_pan=True))]
+                       + [(rank_step, (cfg, k, dev, data[k], SPATIAL_TIMED, whole[k]), {}) for k, cfg in steps.items()])
+    # fp32 summation order alone: the same one-process step as two microbatches of half the batch
+    order = {k: step_units(rank_step(0, 1, dataclasses.replace(cfg, grad_accum=2), k, dev, data[k], batch=whole[k]),
+                           one[i]) for i, (k, cfg) in enumerate(steps.items(), start=1)}
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the ranks share this card
+    t0 = time.perf_counter()
+    ranks = ddp.launch(spatial_rank, 2, (calls,), store_path=os.path.join(workdir, "spatial_store"), backend="gloo",
+                       device=str(dev), timeout=300, join_timeout=600)
+    secs = time.perf_counter() - t0
+    rows = RowShard(2, 0)
+    for h in (SERVE_H, TRAIN_H):
+        line(f"phase 14 levels at {h} rows over 2 ranks: {rows.describe(h)}")
+
+    # the forward: each rank's rows against the one-process forward's, TF32 off in both
+    rtol, atol = EVAL_DISP_TOL
+    errs = {}
+    for r in ranks:
+        lo, hi = rows.bounds(SERVE_H, r[0]["s"])
+        for k in ("disp", "pan"):
+            got, want = r[0]["outputs"][k], one[0]["outputs"][k][:, :, lo:hi]
+            errs[k] = max(errs.get(k, 0.0), float(np.abs(got - want).max()))
+            if not np.allclose(got, want, rtol=rtol, atol=atol):
+                raise AssertionError(f"phase 14 rank {r[0]['s']} {k} rows {lo}:{hi}: max |diff| "
+                                     f"{float(np.abs(got - want).max()):.3e} past {atol} px + {rtol} relative")
+    want_fwd = [("disp+pan", (BATCH, 49, SERVE_H // 2, SERVE_W))]
+    if any(r[0]["k1"] != 1 or r[0]["k1_shapes"] != want_fwd for r in ranks):
+        raise AssertionError(f"phase 14 forward: K1 {[(r[0]['k1'], r[0]['k1_shapes']) for r in ranks]}, want 1 at "
+                             f"{want_fwd} a rank")
+    line(f"phase 14 spatial forward FAL_netB N=49 {SERVE_H}x{SERVE_W} B={BATCH} disp+pan, two gloo ranks on cuda:0, "
+         f"TF32 off: each rank's rows against the one-process forward max |d disp| {errs['disp']:.3e} px, "
+         f"|d pan| {errs['pan']:.3e} (limit {atol} + {rtol} relative); K1 per rank "
+         f"{[r[0]['k1'] for r in ranks]} at {ranks[0][0]['k1_shapes']}; per rank "
+         f"{[round(r[0]['ms'], 3) for r in ranks]} ms (median of {SPATIAL_TIMED}, TF32 on, host clock to a device "
+         f"synchronise) and {[round(r[0]['peak_gb'], 3) for r in ranks]} GB peak, one process {one[0]['ms']:.3f} ms "
+         f"and {one[0]['peak_gb']:.3f} GB [{card}]")
+
+    k1_total = sum(r[0]["k1"] for r in ranks)
+    k2_total = 0
+    local = (BATCH, 49, TRAIN_H // 2, TRAIN_W)
+    for i, (k, cfg) in enumerate(steps.items(), start=1):
+        got = ranks[0][i]
+        units = step_units(got, one[i])
+        worst, noise = max(units.values()), max(order[k].values())
+        limit = STAGE2_ORDER if k == "stage2" else ORDER_ONLY
+        top = lambda u: {n: round(v, 1) for n, v in sorted(u.items(), key=lambda kv: -kv[1])[:3]}
+        local_k = (2 * cfg.batch_size,) + local[1:] if k == "stage2" else local
+        want_k1 = ({("disp", local_k), ("disp+pan+subocc", local_k)} if k == "stage2" else {("disp+pan", local_k)})
+        counts = [(r[i]["k1"], r[i]["k2"]) for r in ranks]
+        if counts != [(len(want_k1), 1)] * 2 or not all(want_k1 <= set(r[i]["k1_shapes"]) for r in ranks):
+            raise AssertionError(f"phase 14 {k}: K1, K2 per rank {counts}; K1 shapes "
+                                 f"{[r[i]['k1_shapes'] for r in ranks]} (want {sorted(want_k1)})")
+        k1_total += sum(c[0] for c in counts)
+        k2_total += sum(c[1] for c in counts)
+        line(f"phase 14 spatial {k} step FAL_netB N=49 {TRAIN_H}x{TRAIN_W} batch {cfg.batch_size}"
+             f"{' (double batch ' + str(2 * cfg.batch_size) + ')' if k == 'stage2' else ''}, rows over two gloo ranks "
+             f"on cuda:0, TF32 off, cuDNN deterministic: loss per rank {[round(r[i]['aux']['loss'], 6) for r in ranks]}"
+             f" vs one process {one[i]['aux']['loss']:.6f}; gradients and Adam moments against the one-process "
+             f"step: worst {worst:.3f} of the tolerance rtol 1e-4, atol 1e-6 max|g| (the worst three {top(units)}; "
+             f"limit {limit}; the one-process step as two microbatches against it, summation order alone: "
+             f"{noise:.3f}, {top(order[k])}); K1, K2 "
+             f"per rank {counts}, K1 at {sorted(want_k1)}; step per rank {[round(r[i]['step_ms'], 3) for r in ranks]}"
+             f" ms (median of {SPATIAL_TIMED}, TF32 on, host clock to a device synchronise), one process "
+             f"{one[i]['step_ms']:.3f} ms; peak per rank {[round(r[i]['peak_gb'], 3) for r in ranks]} GB, one process "
+             f"{one[i]['peak_gb']:.3f} GB [{card}]")
+        if worst > limit:
+            raise AssertionError(f"phase 14 {k}: {worst:.3f} units against the one-process step (limit {limit:.3f})")
+    line(f"phase 14: the two ranks' group ran {secs:.1f} s (spawn, model and trainer set-up, the gates, the compared "
+         f"and timed forwards and steps)")
     return {"k1": k1_total, "k2": k2_total}
 
 
@@ -2517,6 +2491,7 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as workdir:
             bf16 = timed("12", phase_bf16, rng, dev, card, args.seed, serve_dir, evaluation, workdir)
             multi = timed("13", phase_multi, dev, card, evaluation, workdir)
+            spatial = timed("14", phase_spatial, dev, card, workdir)
     line(f"phase seconds (host clock): {PHASE_S}; {time.perf_counter() - t_start:.1f} s in all, the interpreter's "
          f"start and imports apart")
     k1_bound, k1_by = bound(times["disp"][2], OPS_PER_LOGIT["med_fwd"] * times["disp_logits"])
@@ -2529,9 +2504,9 @@ def main() -> None:
             "replaces": "fal_net_tpu/ops/med_pallas.py:116",
             # serving (phase 4), training (phase 7a-c, 7d stage 2, 7e stage 1 slow, 7f the default run with
             # validation, 7g remat), evaluation (phase 10), the serving artifacts (phase 11), bf16 (phase 12) and
-            # the DDP ranks and evaluation replicas (phase 13)
+            # the DDP ranks and evaluation replicas (phase 13) and the ranks that split rows (phase 14)
             "launches": serve_launches + train["k1"] + later["k1"] + default["k1"] + remat["k1"] + evaluation["k1"]
-            + artifact["k1"] + bf16_train["k1"] + bf16["k1"] + multi["k1"],
+            + artifact["k1"] + bf16_train["k1"] + bf16["k1"] + multi["k1"] + spatial["k1"],
             "max_abs_err": max(worst3, worst4, default["worst"], evaluation["worst"], bf16["worst"]),
             "ms": times["disp"][0],  # disp-only at (8, 49, 384, 1280)
             "plain_ms": times["disp"][1],
@@ -2544,9 +2519,10 @@ def main() -> None:
             "route": "cuda",
             "source": "fal_net_torch/csrc/med_bwd.cu",
             "replaces": "fal_net_tpu/ops/med_pallas.py:253",
-            # training paths (phase 7a-c, 7d, 7e, 7f, 7g, the bf16 steps of phase 12, the DDP ranks of phase 13)
+            # training paths (phase 7a-c, 7d, 7e, 7f, 7g, the bf16 steps of phase 12, the DDP ranks of phase 13, the
+            # ranks that split rows in phase 14)
             "launches": train["k2"] + later["k2"] + default["k2"] + remat["k2"] + bf16_train["k2"] + bf16["k2"]
-            + multi["k2"],
+            + multi["k2"] + spatial["k2"],
             "max_abs_err": max(worst3b, train["worst"], later["worst"], default["k2_worst"]),
             "ms": times["k2"][0],  # disp+pan cotangents, no g_img, at (8, 49, 192, 640)
             "plain_ms": times["k2"][1],

@@ -6,6 +6,7 @@
     python -m fal_net_torch.cli.train --stage 2 --fix_model STAGE1.pt ...
     python -m fal_net_torch.cli.train --resume RUN_DIR/checkpoint.pt ...
     python -m fal_net_torch.cli.train --dtype bfloat16 --num_devices 4 ...  # bf16, 4 cards
+    python -m fal_net_torch.cli.train --spatial 2 --num_devices 4 ...  # 2 x 2: rows over 2 cards
 
 Runs on the GPU unless ``--device cpu`` is given.  ``--val_root`` validates
 on KITTI 2015 every epoch and picks ``model_best`` by the view-synthesis
@@ -22,8 +23,10 @@ checkpoints stay fp32).  ``--num_devices N`` trains one process per card
 processes with ``--device cpu``; ``--batch_size`` stays the global batch.
 Without it, the run takes the largest number of visible cards that divides
 the batch, as JAX does; one runs in this process, with no process group.
-``--spatial`` above 1 raises: row sharding (fal_net_tpu/parallel/spatial.py)
-is not ported.
+``--spatial S`` splits every image's rows over S ranks (parallel/spatial.py):
+the ranks, ``--num_devices`` or every visible card (S gloo processes with
+``--device cpu``), form a (ranks / S) x S grid, the batch split over its
+ranks / S data groups; S must divide the ranks, as in JAX.
 """
 
 from __future__ import annotations
@@ -115,7 +118,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_devices", type=int, default=None,
                    help="data-parallel ranks, one process per card (default: the most visible cards that divide "
                    "the batch)")
-    p.add_argument("--spatial", type=int, default=1, help="row sharding; only 1 (not ported)")
+    p.add_argument("--spatial", type=int, default=1,
+                   help="split each image's rows over this many ranks (a data x spatial grid)")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     return p
 
@@ -125,18 +129,16 @@ def _val_dataset(val_root):
     return kitti2015(val_root, split=0, disp=True, load_t1=False)[1] if val_root else None
 
 
-def _rank_main(rank: int, world: int, cfg, stage: str, device: str, val_root) -> dict:
+def _rank_main(rank: int, world: int, cfg, stage: str, device: str, val_root, spatial: int) -> dict:
     """One rank of ``--num_devices``: its trainer on its device."""
-    trainer = Trainer(cfg, stage=stage, device=ddp.rank_device(device, rank), val_dataset=_val_dataset(val_root))
+    trainer = Trainer(cfg, stage=stage, device=ddp.rank_device(device, rank), val_dataset=_val_dataset(val_root),
+                      spatial=spatial)
     return trainer.fit()
 
 
 def main(argv=None) -> dict:
     """Returns the trainer's ``fit`` result (history, best, save_path)."""
     args = build_parser().parse_args(argv)
-    if args.spatial != 1:
-        raise NotImplementedError(f"--spatial {args.spatial}: row sharding (fal_net_tpu/parallel/spatial.py) is not "
-                                  "ported; ROADMAP.md lists it under \"Leave behind\"")
     if args.stage == 2 and args.slow:
         raise ValueError("--slow is a stage-1 variant; it does not apply to --stage 2")
     if args.stage == 1 and (args.fix_model is not None or args.a_mr is not None):
@@ -186,20 +188,29 @@ def main(argv=None) -> dict:
         if v is not None:
             setattr(cfg, name, v)
     stage = "stage2" if args.stage == 2 else ("stage1_slow" if args.slow else "stage1")
-    if args.num_devices is not None:
+    if args.spatial > 1:
+        cpu = args.num_devices is None and args.device == "cpu"
+        world = args.spatial if cpu else make_mesh(args.num_devices, device=args.device).size
+        if world % args.spatial:
+            raise ValueError(f"--spatial {args.spatial} must divide the device count {world}")
+    elif args.num_devices is not None:
         world = make_mesh(args.num_devices, device=args.device).size
     else:
         world = make_mesh_for_batch(cfg.batch_size, device=args.device).size
+    data = world // args.spatial
     if world == 1:
         result = Trainer(cfg, stage=stage, device=args.device, val_dataset=_val_dataset(args.val_root)).fit()
     else:
-        if cfg.batch_size % world:
-            raise ValueError(f"batch_size {cfg.batch_size} is not divisible by --num_devices {world}")
+        if cfg.batch_size % data:
+            what = (f"--num_devices {world}" if args.spatial == 1 else
+                    f"the {data} data groups of --spatial {args.spatial}")
+            raise ValueError(f"batch_size {cfg.batch_size} is not divisible by {what}")
         os.makedirs(cfg.save_path, exist_ok=True)
         store = os.path.join(os.path.abspath(cfg.save_path), f".rendezvous-{os.getpid()}-{time.time_ns()}")
-        print(f"=> {world} ranks ({ddp.default_backend(args.device)}), {cfg.batch_size // world} samples each")
-        result = ddp.launch(_rank_main, world, (cfg, stage, args.device, args.val_root), store_path=store,
-                            device=args.device)[0]
+        grid = f", {data} x {args.spatial}: rows over {args.spatial} ranks" if args.spatial > 1 else ""
+        print(f"=> {world} ranks ({ddp.default_backend(args.device)}), {cfg.batch_size // data} samples each{grid}")
+        result = ddp.launch(_rank_main, world, (cfg, stage, args.device, args.val_root, args.spatial),
+                            store_path=store, device=args.device)[0]
     print(f"best {result['best_metric']}:", result["best_value"])
     return result
 

@@ -46,7 +46,9 @@ class DataLoader:
     (cut to ``len(dataset) // num_shards``), in batches of ``batch_size``,
     the per-rank batch.  Since each item's rng is (seed, epoch, index), the
     shards' batch *k* together are the samples of a one-shard loader's
-    batch *k* at ``num_shards * batch_size``."""
+    batch *k* at ``num_shards * batch_size``.  Ranks that split rows
+    (``--spatial``) shard by their data group alone: the ranks of a group
+    load the same samples with the same augmentation."""
 
     def __init__(
         self,

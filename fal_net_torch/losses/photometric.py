@@ -8,6 +8,8 @@ Reference: ``rec_loss_fnc`` / ``perceptual_loss`` (loss_functions.py:52-67):
 
 The composited image routes gradients only through the occlusion-visible
 region; ``vgg_label`` features are computed once per step by the caller.
+With ``rows`` (a :class:`~fal_net_torch.parallel.spatial.RowShard`), every
+tensor holds this rank's rows and each mean is over every rank's rows.
 """
 
 from __future__ import annotations
@@ -21,12 +23,14 @@ def perceptual_loss(
     out_features: Sequence[torch.Tensor],
     label_features: Sequence[torch.Tensor],
     layer: Optional[int] = None,
+    rows=None,
 ) -> torch.Tensor:
+    mean = torch.mean if rows is None else rows.mean
     if layer is not None:
-        return torch.mean(torch.square(out_features[layer] - label_features[layer]))
+        return mean(torch.square(out_features[layer] - label_features[layer]))
     total = 0.0
     for i in range(3):
-        total = total + torch.mean(torch.square(out_features[i] - label_features[i]))
+        total = total + mean(torch.square(out_features[i] - label_features[i]))
     return total
 
 
@@ -37,6 +41,7 @@ def rec_loss(
     vgg_label: Optional[Sequence[torch.Tensor]],
     a_p: float,
     vgg_apply: Optional[Callable[[torch.Tensor], Sequence[torch.Tensor]]] = None,
+    rows=None,
 ) -> torch.Tensor:
     """Masked L1 + optional perceptual term.
 
@@ -45,8 +50,8 @@ def rec_loss(
     ``vgg_apply`` maps an image to its VGG feature tuple; required when
     ``a_p > 0`` and ``vgg_label`` is given.
     """
-    loss = torch.mean(mask * torch.abs(synth - label))
+    loss = (torch.mean if rows is None else rows.mean)(mask * torch.abs(synth - label))
     if a_p > 0 and vgg_label is not None:
         composited = mask * synth + (1 - mask) * label
-        loss = loss + a_p * perceptual_loss(vgg_apply(composited), vgg_label)
+        loss = loss + a_p * perceptual_loss(vgg_apply(composited), vgg_label, rows=rows)
     return loss

@@ -6,7 +6,10 @@ Reference ``smoothness`` (loss_functions.py:70-109): de-normalize the image
 second derivative plus both first derivatives per axis, weighted by
 exp(-gamma * |image second derivative|).  The 3x3 stencils are axis-aligned
 shift-and-subtract expressions on a zero-padded array, which is what the
-reference's zero-padding conv2d launches compute.
+reference's zero-padding conv2d launches compute.  With ``rows`` (a
+:class:`~fal_net_torch.parallel.spatial.RowShard`), ``img`` and ``disp`` are
+this rank's rows: the row above and below come from the neighbouring ranks
+(zeros at the image's top and bottom) and the mean is over every rank's rows.
 """
 
 from __future__ import annotations
@@ -25,11 +28,13 @@ def _grayscale(img: torch.Tensor) -> torch.Tensor:
     return ((img + mean) * w).sum(dim=1, keepdim=True)
 
 
-def smoothness(img: torch.Tensor, disp: torch.Tensor, gamma: float = 1.0) -> torch.Tensor:
+def smoothness(img: torch.Tensor, disp: torch.Tensor, gamma: float = 1.0, rows=None) -> torch.Tensor:
     """img: (B,3,H,W) normalized; disp: (B,1,H,W). Returns a scalar."""
     h, w = img.shape[-2:]
-    gray = F.pad(_grayscale(img), (1, 1, 1, 1))
-    d = F.pad(disp, (1, 1, 1, 1))
+    if rows is None:
+        gray, d = F.pad(_grayscale(img), (1, 1, 1, 1)), F.pad(disp, (1, 1, 1, 1))
+    else:
+        gray, d = (F.pad(rows.halo(t, 1), (1, 1)) for t in (_grayscale(img), disp))
 
     c = lambda a: a[..., 1 : 1 + h, 1 : 1 + w]
     left = lambda a: a[..., 1 : 1 + h, 0:w]
@@ -47,7 +52,7 @@ def smoothness(img: torch.Tensor, disp: torch.Tensor, gamma: float = 1.0) -> tor
     dy_d = c(d) - down(d)
     dy1_d = c(d) - up(d)
 
-    return torch.mean(
+    return (torch.mean if rows is None else rows.mean)(
         (torch.abs(dx_d) + torch.abs(dx1_d)) * torch.exp(-gamma * torch.abs(dx_img))
         + (torch.abs(dy_d) + torch.abs(dy1_d)) * torch.exp(-gamma * torch.abs(dy_img))
     )

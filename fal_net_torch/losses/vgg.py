@@ -4,7 +4,13 @@ fal_net_tpu/losses/vgg.py), NCHW.
 The reference's ``Vgg19_pc`` (loss_functions.py:7-44): torchvision VGG19
 config-E features sliced after pool1 / pool2 / pool3 (and pool4 with
 ``full=True``), ReLU after every conv, 2x2 max-pool, frozen.  The convs are
-cuDNN ``F.conv2d``, as the backbone's are.
+cuDNN ``F.conv2d``, as the backbone's are.  With ``rows`` (a
+:class:`~fal_net_torch.parallel.spatial.RowShard`) and the image's global
+``height``, the input is this rank's rows: each conv takes a halo row from
+the neighbouring ranks, each 2x2 pool runs on the rank's rows where they are
+an even split into an even number, and from the first level where they are
+not, the rest runs on whole rows gathered from the ranks; every output is
+this rank's rows of its level.
 
 Weights: the reference downloads ImageNet-pretrained torchvision weights
 (``models.vgg19(pretrained=True)``, loss_functions.py:10).  Without network
@@ -59,14 +65,21 @@ class Vgg19Features(nn.Module):
     def train(self, mode: bool = True):  # frozen: always eval
         return super().train(False)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        outs = []
+    def forward(self, x: torch.Tensor, rows=None, height: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+        outs, h, split = [], height, rows is not None
         for stage in range(4 if self.full else 3):
             for idx in STAGE_CONVS[stage]:
                 conv = self.features[str(idx)]
-                x = F.relu(F.conv2d(x, conv.weight, conv.bias, padding=1))
+                if split:
+                    x = F.relu(F.conv2d(rows.halo(x, 1), conv.weight, conv.bias, padding=(0, 1)))
+                else:
+                    x = F.relu(F.conv2d(x, conv.weight, conv.bias, padding=1))
+            if split and not (rows.sharded(h) and h // rows.size % 2 == 0):
+                x, split = rows.gather(x, h), False
             x = F.max_pool2d(x, 2, 2)
-            outs.append(x)
+            if rows is not None:
+                h //= 2
+            outs.append(rows.split(x) if rows is not None and not split else x)
         return tuple(outs)
 
 

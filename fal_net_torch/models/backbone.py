@@ -12,17 +12,27 @@ conv1; each encoder conv is followed by a residual block.  The final iconv1
 is a bias-free 3x3 conv emitting ``num_out`` plane logits.  The backbone
 computes in its image's dtype (models/layers.py); the flow plane takes that
 dtype before conv1, as in JAX (backbone.py:256).
+
+With a :class:`~fal_net_torch.parallel.spatial.RowShard`, ``features`` splits
+the levels' rows over its ranks at JAX's boundaries (fal_net_tpu/models/
+backbone.py:260-281): each residual block's output, each skip, each deconv's
+output and each fuse, split where the level rule says and whole elsewhere.
+An op runs on each rank's rows where its output is split and its rows need
+only its input's rows and their halo (a 3x3 conv, a stride-2 conv between
+two split levels, an exactly 2x deconv); otherwise on whole rows gathered
+from the ranks, its output then split where the rule says.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 from torch import nn
 
 from fal_net_torch.models.layers import ConvElu, Deconv, ResidualBlock, conv
+from fal_net_torch.parallel.spatial import ONE_RANK, Level, RowShard, level_heights
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,21 +135,35 @@ class FalNetBackbone(nn.Module):
             )
 
     def forward(self, image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-        return self.iconv1(self.features(image, flow))
+        return self.iconv1(self.features(image, flow).x)
 
-    def features(self, image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-        """iconv1's input: concat(deconv1's output, x0), in the image's dtype."""
-        x0 = self.conv0_1(self.conv0(image))
-        x = self.conv1_1(self.conv1(torch.cat([x0, flow.to(x0.dtype)], dim=1)))
+    def features(self, image: torch.Tensor, flow: torch.Tensor, rows: RowShard = ONE_RANK) -> Level:
+        """iconv1's input: concat(deconv1's output, x0), in the image's dtype,
+        from the whole ``image`` and ``flow``: a :class:`Level`, this rank's
+        rows where ``rows`` splits the full-resolution level, else all.  One
+        rank (the default) splits no level: every op runs once on whole rows."""
+        hs = level_heights(image.shape[-2])
+
+        def level(fn, inputs, i, row_local=True, h_in=None):
+            split = rows.sharded(hs[i], h_in)
+            return Level(rows.apply(fn, inputs, split, row_local), hs[i], split)
+
+        def deconv(j, w):  # deconv j's output rows are 2x its input's on rows, the skip's when whole
+            return lambda t: getattr(self, f"deconv{j}")(t, (hs[j - 1] * t.shape[-2] // hs[j], w))
+
+        x0 = level(lambda x: self.conv0_1(self.conv0(x)), [Level(image, hs[0], False)], 0)
+        x = level(lambda a, f: self.conv1(torch.cat([a, f.to(a.dtype)], dim=1)), [x0, Level(flow, hs[0], False)], 1,
+                  row_local=x0.split)
+        x = level(self.conv1_1, [x], 1)
         skips = [x0, x]
         for i in range(2, 7):
-            x = getattr(self, f"conv{i}_1")(getattr(self, f"conv{i}")(x))
+            x = level(getattr(self, f"conv{i}"), [x], i, row_local=x.split)
+            x = level(getattr(self, f"conv{i}_1"), [x], i)
             skips.append(x)
-        # skips = [x0, x1, ..., x6]; the bottleneck is x6 at 1/64 resolution.
         y = skips[6]
-        for j in range(6, 1, -1):
+        for j in range(6, 0, -1):  # deconv6..deconv1; the last fuse is the concat before iconv1
             skip = skips[j - 1]
-            d = getattr(self, f"deconv{j}")(y, skip.shape[-2:])
-            y = getattr(self, f"iconv{j}")(torch.cat([d, skip], dim=1))
-        d1 = self.deconv1(y, x0.shape[-2:])
-        return torch.cat([d1, x0], dim=1)
+            d = level(deconv(j, skip.x.shape[-1]), [y], j - 1, row_local=hs[j - 1] == 2 * hs[j], h_in=hs[j])
+            fuse = getattr(self, f"iconv{j}") if j > 1 else (lambda t: t)
+            y = level(lambda a, b, fuse=fuse: fuse(torch.cat([a, b], dim=1)), [d, skip], j - 1)
+        return y

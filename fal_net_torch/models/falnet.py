@@ -48,6 +48,17 @@ head) as ``med_impl`` selects for disp, pan and maskL, and maskR alone goes
 through the plain quirk sampler (:func:`fal_net_torch.ops.med.quirk_mask_r`),
 replacing the kernel's.  It is chosen by the caller, never taken in reaction
 to a failure.
+
+``spatial`` (:meth:`FalNet.with_spatial`): a
+:class:`~fal_net_torch.parallel.spatial.RowShard`.  The forward then takes the
+whole image on every rank of the shard's group and returns this rank's rows
+of every output: the backbone splits its levels' rows over the ranks as JAX's
+rule does (models/backbone.py), the logits conv takes its halo rows, and the
+MED head, whose shifts act along W, runs on this rank's rows of the logits and
+the image; where the full-resolution level is kept whole (its rows not
+divisible by the ranks), the head runs on whole rows and its outputs are split
+after it, as JAX's ``med_outputs_fused_dp`` keeps such rows whole
+(fal_net_tpu/ops/med_pallas.py:613-614).
 """
 
 from __future__ import annotations
@@ -64,6 +75,7 @@ from fal_net_torch.models.layers import conv, init_conv
 from fal_net_torch.ops._build import ensure_loaded
 from fal_net_torch.ops.med import MedOutputs, med_outputs, quirk_mask_r
 from fal_net_torch.ops.med_kernel import med_outputs_fused
+from fal_net_torch.parallel.spatial import ONE_RANK, Level, RowShard, active_rows
 from fal_net_torch.utils.device import resolve_device
 
 Bound = Union[float, torch.Tensor]
@@ -90,10 +102,14 @@ def composed_logits(x: torch.Tensor, iconv1_weight: torch.Tensor, conv1x1: nn.Co
     kernel, rounded to ``x``'s dtype once, convolved over ``x`` with fp32
     accumulation and an fp32 result, plus the 1x1's fp32 bias.  The operands
     are upcast and convolved in fp32: exact for bf16 operands, TF32
-    included (bf16's 8-bit significand fits TF32's 11 bits)."""
+    included (bf16's 8-bit significand fits TF32's 11 bits).  Under an active
+    row shard, on this rank's rows with their halo."""
     k = torch.einsum("om,mihw->oihw", conv1x1.weight[:, :, 0, 0], iconv1_weight)
     k = k.to(x.dtype).float()
     pad = (iconv1_weight.shape[-2] // 2, iconv1_weight.shape[-1] // 2)
+    rows = active_rows()
+    if rows is not None:
+        x, pad = rows.halo(x, pad[0]), (0, pad[1])
     return F.conv2d(x.float(), k, conv1x1.bias, 1, pad)
 
 
@@ -112,6 +128,7 @@ class FalNet(nn.Module):
         # under BackBone / backbone / synth, the logits 1x1 conv as conv0.
         self.add_module(spec.torch_backbone_key, FalNetBackbone(spec, num_levels, phase_deconv=phase_deconv))
         self.conv0 = conv(num_levels, num_levels, 1, bias=True)
+        self.spatial = ONE_RANK
 
     @property
     def phase_deconv(self) -> bool:
@@ -134,16 +151,34 @@ class FalNet(nn.Module):
         other.dtype = dtype
         return other
 
+    def with_spatial(self, rows: Optional[RowShard]) -> "FalNet":
+        """This model with its rows split over ``rows``' ranks (see the
+        module docstring): a shallow copy that shares its modules and
+        parameters; itself for None or one rank."""
+        if rows is None or rows.size == 1:
+            return self
+        other = copy.copy(self)
+        other.spatial = rows
+        return other
+
     def logits(self, left: torch.Tensor, max_disp: Bound) -> torch.Tensor:
-        """Plane logits (B, N, H, W) in fp32 for a normalized NCHW image."""
+        """Plane logits (B, N, H, W) in fp32 for a normalized NCHW image; on
+        a spatial model, this rank's rows where the rule splits the
+        full-resolution level, else all H."""
         b, _, h, w = left.shape
         max_t = torch.as_tensor(max_disp, dtype=torch.float32, device=left.device)
         flow = (max_t / 100.0).reshape(-1, 1, 1, 1).expand(b, 1, h, w)
         backbone = self.get_submodule(self.spec.torch_backbone_key)
+        feats = backbone.features(left.to(self.dtype), flow, self.spatial)
+        return self.spatial.apply(lambda f: self._head(backbone, f), [feats], feats.split)
+
+    def _head(self, backbone: FalNetBackbone, feats: torch.Tensor) -> torch.Tensor:
+        """iconv1 and the logits 1x1 on the backbone's features: composed
+        (:func:`composed_logits`) in bf16, one after the other in fp32."""
         if self.dtype != torch.float32:
-            return composed_logits(backbone.features(left.to(self.dtype), flow), backbone.iconv1.weight, self.conv0)
-        dlog = backbone(left, flow)
-        with torch.autocast(left.device.type, enabled=False):
+            return composed_logits(feats, backbone.iconv1.weight, self.conv0)
+        dlog = backbone.iconv1(feats)
+        with torch.autocast(feats.device.type, enabled=False):
             return self.conv0(dlog.float())
 
     def forward(
@@ -156,10 +191,17 @@ class FalNet(nn.Module):
         ret_pan: bool = False,
         ret_subocc: bool = False,
     ) -> MedOutputs:
-        logits = self.logits(left, max_disp).contiguous()
-        image = left.float().contiguous()
         kw = dict(ret_disp=ret_disp, ret_pan=ret_pan, ret_subocc=ret_subocc)
-        quirk = self.a_maskr_quirk and ret_subocc
+        rows, h = self.spatial, left.shape[-2]
+        logits = Level(self.logits(left, max_disp), h, rows.sharded(h))
+        # on this rank's rows, or on whole rows (split after where there are ranks)
+        return rows.apply(lambda lg, im: self._med(lg, im, min_disp, max_disp, **kw),
+                          [logits, Level(left.float(), h, False)], rows.size > 1, row_local=logits.split)
+
+    def _med(self, logits: torch.Tensor, image: torch.Tensor, min_disp: Bound, max_disp: Bound, **kw) -> MedOutputs:
+        """The MED head on fp32 logits and image, as ``med_impl`` selects."""
+        logits, image = logits.contiguous(), image.contiguous()
+        quirk = self.a_maskr_quirk and kw["ret_subocc"]
         if self.med_impl == "fused" or (self.med_impl == "auto" and logits.is_cuda):
             out = med_outputs_fused(logits, image, min_disp, max_disp, **kw)
             return out._replace(maskR=quirk_mask_r(logits, min_disp, max_disp)) if quirk else out

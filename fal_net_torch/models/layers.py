@@ -7,6 +7,10 @@ added in bf16 after the conv, as JAX's ``ConvOp`` does with a bf16 compute
 dtype (fal_net_tpu/models/layers.py:240-243,283-285); the parameters stay
 fp32.  ELU, adds, concats and nearest upsamples keep their input's dtype,
 so a backbone whose image is cast to bf16 runs in bf16 throughout.
+While a :class:`fal_net_torch.parallel.spatial.RowShard` is active (a level
+whose rows are split over ranks), each conv takes its kh//2 boundary rows
+from the neighbouring ranks and zero-pads only its columns, and an exact 2x
+deconv upsamples this rank's rows alone.
 Attribute names follow the reference's torch modules
 so that ``state_dict`` keys are the reference's (``conv0.0.weight`` for a
 conv_elu, ``conv0_1.conv1.weight`` for a residual block,
@@ -23,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fal_net_torch.ops.phase_deconv import conv3x3_on_up2
+from fal_net_torch.parallel.spatial import active_rows
 
 
 def init_conv(conv: nn.Conv2d, generator: Optional[torch.Generator]) -> None:
@@ -32,12 +37,18 @@ def init_conv(conv: nn.Conv2d, generator: Optional[torch.Generator]) -> None:
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` in its input's dtype (see the module docstring)."""
+    """``nn.Conv2d`` in its input's dtype, on this rank's rows under an active
+    row shard (see the module docstring)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype == self.weight.dtype:
+        rows, pad = active_rows(), self.padding
+        if rows is None and x.dtype == self.weight.dtype:
             return super().forward(x)
-        y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, self.padding)
+        if rows is not None and pad[0]:
+            x, pad = rows.halo(x, pad[0]), (0, pad[1])
+        if x.dtype == self.weight.dtype:
+            return F.conv2d(x, self.weight, self.bias, self.stride, pad)
+        y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, pad)
         return y if self.bias is None else y + self.bias.to(x.dtype)[:, None, None]
 
 
@@ -79,7 +90,11 @@ class Deconv(nn.Module):
     the conv run as one transposed conv with the composed 4x4 kernel
     (ops/phase_deconv.py), as JAX's ``Deconv(phase=True)`` does
     (fal_net_tpu/models/layers.py:402-423); other sizes take the plain path.
-    The parameter is ``conv1.weight`` either way."""
+    The parameter is ``conv1.weight`` either way.  Under an active row shard,
+    ``x`` and ``skip_hw`` are this rank's rows of an exactly 2x upsample
+    (models/backbone.py runs other deconvs on whole rows): the transposed
+    conv reads one halo row of ``x``, the nearest path upsamples the rows
+    and its conv takes its own halo."""
 
     def __init__(self, cin: int, cout: int, phase: bool = False):
         super().__init__()
@@ -88,6 +103,9 @@ class Deconv(nn.Module):
 
     def forward(self, x: torch.Tensor, skip_hw: Tuple[int, int]) -> torch.Tensor:
         if self.phase and tuple(skip_hw) == (2 * x.shape[-2], 2 * x.shape[-1]):
-            return F.elu(conv3x3_on_up2(x, self.conv1.weight.to(x.dtype)))
+            rows = active_rows()
+            if rows is None:
+                return F.elu(conv3x3_on_up2(x, self.conv1.weight.to(x.dtype)))
+            return F.elu(conv3x3_on_up2(rows.halo(x, 1), self.conv1.weight.to(x.dtype), halo=1))
         x = F.interpolate(x, size=tuple(skip_hw), mode="nearest")
         return F.elu(self.conv1(x))

@@ -26,8 +26,11 @@ def composed_kernel(w3: torch.Tensor) -> torch.Tensor:
     return (F.pad(w3, (0, 1, 0, 1)) + F.pad(w3, (1, 0, 0, 1))) + F.pad(w3, (0, 1, 1, 0)) + F.pad(w3, (1, 0, 1, 0))
 
 
-def conv3x3_on_up2(x: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
+def conv3x3_on_up2(x: torch.Tensor, w3: torch.Tensor, halo: int = 0) -> torch.Tensor:
     """``F.conv2d(F.interpolate(x, scale_factor=2, mode="nearest"), w3,
     padding=1)`` without the upsample: x ``(B, Cin, H, W)``, w3 OIHW
-    ``(Cout, Cin, 3, 3)`` -> ``(B, Cout, 2H, 2W)``."""
-    return F.conv_transpose2d(x, composed_kernel(w3).flip(-1, -2).transpose(0, 1), stride=2, padding=1)
+    ``(Cout, Cin, 3, 3)`` -> ``(B, Cout, 2H, 2W)``.  ``halo``: x carries that
+    many extra rows above and below (a rank's rows and its neighbours'), and
+    the output is the 2x upsample of the inner H - 2 * halo rows alone."""
+    k = composed_kernel(w3).flip(-1, -2).transpose(0, 1)
+    return F.conv_transpose2d(x, k, stride=2, padding=(1 + 2 * halo, 1))

@@ -15,6 +15,12 @@ against both (see :func:`dryrun_multigpu`).  Rank *r* runs on
 ``cuda:r`` for ``device="cuda"``; ``backend="gloo"`` puts two ranks on one
 card, which NCCL refuses.  :func:`rank_step` is the step each rank makes; the
 tests drive it for the other stages too.
+
+An even rank count of 4 or more takes the 2-D layout of
+``__graft_entry__.py::dryrun_multichip``: a (n / 2) x 2 grid of data groups
+and ranks that split each image's rows (parallel/spatial.py).
+:func:`rank_forward` is one rank's forward on such a grid, and
+:func:`rank_calls` runs several calls in each rank of one process group.
 """
 
 from __future__ import annotations
@@ -33,7 +39,9 @@ import torch
 from fal_net_torch.data.loader import DataLoader, to_device
 from fal_net_torch.ops import _build
 from fal_net_torch.ops.med_kernel import MedForward
+from fal_net_torch.models import create_model
 from fal_net_torch.parallel import ddp
+from fal_net_torch.parallel.spatial import make_2d_grid
 from fal_net_torch.train.config import Stage1Config
 from fal_net_torch.train.trainer import Trainer
 from fal_net_torch.utils.timing import tf32 as tf32_mode
@@ -61,7 +69,7 @@ STEP_KEYS = ("left", "right", "max_disp")
 
 def rank_step(rank: int, world: int, cfg, stage: str, device, dataset, timed_steps: int = 0,
               batch: Optional[Dict[str, np.ndarray]] = None,
-              reference: Optional[Dict[str, np.ndarray]] = None) -> Dict[str, Any]:
+              reference: Optional[Dict[str, np.ndarray]] = None, spatial: int = 1) -> Dict[str, Any]:
     """This rank's trainer makes one step on its share of the loader's first
     global batch (on ``batch``, a host batch, where given), with TF32 off
     and cuDNN's deterministic algorithms, so that the compared steps differ
@@ -71,14 +79,19 @@ def rank_step(rank: int, world: int, cfg, stage: str, device, dataset, timed_ste
     has no gradient).  ``reference`` (a host global batch, inside a process
     group): before the step, this rank's loss and gradients on its slice
     ``reference[rank::world]`` alone, under ``no_sync`` (``local``).  Then
-    ``timed_steps`` more steps on the same batch, each timed on the host
-    clock up to a device synchronise (``step_ms``, their median)."""
+    ``timed_steps`` more steps on the same batch in this process's own TF32
+    and cuDNN settings (the port's: TF32 convolutions on), each timed on the
+    host clock up to a device synchronise (``step_ms``, their median), with
+    their peak device memory (``peak_gb``, on a card).  ``spatial``: the
+    trainer splits each image's rows over that many ranks (the slice of
+    ``reference`` is then the data group's, ``[d::world / spatial]``, and
+    ``local`` its rows' share of the gradients)."""
     dev = ddp.rank_device(device, rank)
-    to_np = lambda t: None if t is None else t.detach().cpu().numpy()
+    to_np = lambda t: None if t is None else t.detach().cpu().numpy().copy()  # no alias of a live CPU tensor
     deterministic = torch.backends.cudnn.deterministic
     with tf32_mode(False):
         torch.backends.cudnn.deterministic = True
-        trainer = Trainer(cfg, stage=stage, device=dev, train_dataset=dataset)
+        trainer = Trainer(cfg, stage=stage, device=dev, train_dataset=dataset, spatial=spatial)
         trainer.setup()
         if batch is None:
             with contextlib.closing(iter(trainer.train_loader)) as batches:
@@ -87,7 +100,8 @@ def rank_step(rank: int, world: int, cfg, stage: str, device, dataset, timed_ste
         out = {"rank": rank}
         try:
             if reference is not None:
-                part = to_device({k: reference[k][rank::world] for k in STEP_KEYS if k in reference}, dev)
+                d, n = trainer.data_rank, trainer.data_groups
+                part = to_device({k: reference[k][d::n] for k in STEP_KEYS if k in reference}, dev)
                 with trainer.train_model.no_sync():
                     loss, _ = trainer._loss(part)
                     loss.backward()
@@ -105,42 +119,101 @@ def rank_step(rank: int, world: int, cfg, stage: str, device, dataset, timed_ste
             out["grads"] = {n: to_np(p.grad) for n, p in trainer.model.named_parameters()}
             out["adam"] = {n: (to_np(state[p]["exp_avg"]), to_np(state[p]["exp_avg_sq"])) if p in state else None
                            for n, p in trainer.model.named_parameters()}
-        times = []
-        for _ in range(timed_steps):
-            t0 = time.perf_counter()
-            trainer.train_step(batch)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            times.append((time.perf_counter() - t0) * 1e3)
-        out["step_ms"] = float(np.median(times)) if times else None
+    times = []
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(timed_steps):
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"] = float(np.median(times)) if times else None
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" and times else None
     return out
 
 
-def step_error(got: Dict[str, Any], want: Dict[str, Any]) -> float:
-    """The worst difference of ``got``'s gradients (and Adam moments, where
-    both have them) from ``want``'s, in units of the tolerance rtol 1e-4,
-    atol 1e-6 of each tensor's largest magnitude: at most 1 is within it.
-    Raises AssertionError where the losses differ past rtol 1e-5 or a
-    gradient is on one side only."""
+def rank_forward(rank: int, world: int, spatial: int, device, images: np.ndarray, min_disp: float, max_disp: float,
+                 model_kw: Dict[str, Any], seed: int = 0, timed: int = 0, **flags) -> Dict[str, Any]:
+    """This rank's forward on a (world / spatial) x spatial grid: a model of
+    ``create_model(**model_kw)`` with weights from ``seed``, on its data
+    group's share of ``images`` (a host NHWC global batch, split in equal
+    consecutive parts) with its rows split over the group's ranks, with TF32
+    off and cuDNN's deterministic algorithms; returns the rank's place, its
+    rows of each requested output (numpy NCHW), K1's launches, and with
+    ``timed`` the median of that many more forwards in this process's own
+    settings, as :func:`rank_step`'s timed steps (ms, host clock up to a
+    device synchronise), and their peak device memory (GB, on a card).
+    ``flags``: ``ret_pan``, ``ret_subocc``."""
+    dev = ddp.rank_device(device, rank)
+    grid = make_2d_grid(world // spatial, spatial) if spatial > 1 else None
+    (data, d), rows = ((grid.data, grid.d), grid.rows) if grid else ((world, rank), None)
+    model = create_model(**model_kw, device=dev, generator=torch.Generator().manual_seed(seed)).with_spatial(rows)
+    x = torch.from_numpy(np.array_split(images, data)[d]).permute(0, 3, 1, 2).contiguous().to(dev)
+    _build.reset_launch_counts()
+    forward = lambda: model(x, min_disp, max_disp, ret_disp=True, **flags)
+    with torch.inference_mode():
+        deterministic = torch.backends.cudnn.deterministic
+        with tf32_mode(False):
+            torch.backends.cudnn.deterministic = True
+            try:
+                out = forward()
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
+        k1 = MedForward.launches
+        times = []
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            forward()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+    return {"d": d, "s": rows.index if rows else 0, "k1": k1, "levels": rows.describe(images.shape[1]) if rows else "",
+            "outputs": {k: v.cpu().numpy() for k, v in out._asdict().items() if v is not None},
+            "ms": float(np.median(times)) if times else None,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" and timed else None}
+
+
+def rank_calls(rank: int, world: int, calls) -> list:
+    """``fn(rank, world, *args, **kwargs)`` for each ``(fn, args, kwargs)`` of
+    ``calls`` in turn, in this rank of one process group: their results."""
+    return [fn(rank, world, *args, **kwargs) for fn, args, kwargs in calls]
+
+
+def step_units(got: Dict[str, Any], want: Dict[str, Any]) -> Dict[str, float]:
+    """Each parameter's worst difference of ``got``'s gradient (and Adam
+    moments, where both have them) from ``want``'s, in units of the
+    tolerance rtol 1e-4, atol 1e-6 of each tensor's largest magnitude: at
+    most 1 is within it.  Raises AssertionError where the losses differ past
+    rtol 1e-5 or a gradient is on one side only."""
     np.testing.assert_allclose(got["aux"]["loss"], want["aux"]["loss"], rtol=1e-5)
     units = lambda h, g: float((np.abs(h - g) / (1e-6 * np.abs(g).max() + 1e-4 * np.abs(g) + 1e-30)).max())
-    worst = 0.0
+    out = {}
     for name, g in want["grads"].items():
         h = got["grads"][name]
         if (g is None) != (h is None):
             raise AssertionError(f"{name}: a gradient on one side only")
         if g is None:
             continue
-        worst = max(worst, units(h, g))
-        if "adam" in got and "adam" in want:
-            worst = max([worst, *(units(a, b) for a, b in zip(got["adam"][name], want["adam"][name]))])
-    return worst
+        pairs = [(h, g)] + (list(zip(got["adam"][name], want["adam"][name])) if "adam" in got and "adam" in want
+                            else [])
+        out[name] = max(units(a, b) for a, b in pairs)
+    return out
 
 
-def _mean_of(shards) -> Dict[str, Any]:
+def step_error(got: Dict[str, Any], want: Dict[str, Any]) -> float:
+    """The worst of :func:`step_units`."""
+    return max(step_units(got, want).values(), default=0.0)
+
+
+def _mean_of(shards, spatial: int = 1) -> Dict[str, Any]:
     """The average of per-shard gradients and losses: what DDP's all-reduce
-    computes from the ranks' own gradients."""
-    grads = {n: None if shards[0]["grads"][n] is None else sum(s["grads"][n] for s in shards) / len(shards)
+    computes from the ranks' own gradients (summed over the ``spatial``
+    ranks of a data group, averaged over the data groups)."""
+    grads = {n: None if shards[0]["grads"][n] is None else sum(s["grads"][n] for s in shards) * spatial / len(shards)
              for n in shards[0]["grads"]}
     return {"aux": {"loss": float(np.mean([s["aux"]["loss"] for s in shards]))}, "grads": grads}
 
@@ -156,6 +229,12 @@ def _mean_of(shards) -> Dict[str, Any]:
 # sums of a million products, read 81-144 units, which ORDER_ONLY caps.
 SAME_SPLIT = 10.0
 ORDER_ONLY = 200.0
+# Stage 2 (the same model, batch 4, its double batch 8, a_mr 1) sums more
+# terms a gradient: the one-process step against itself as two microbatches,
+# summation order alone, read 296.0 units, its rows over two ranks 243.9
+# (PERF.md, phase 14).  STAGE2_ORDER caps it, 2x above the one and 17x below
+# a fault's 1e4.
+STAGE2_ORDER = 600.0
 
 
 def dryrun_multigpu(n: int = 2, device="cuda", backend: Optional[str] = None, *, variant: str = "B",
@@ -166,26 +245,29 @@ def dryrun_multigpu(n: int = 2, device="cuda", backend: Optional[str] = None, *,
     ranks under DDP, each rank's share from the sharded loader, held against
     the one-process loader's global batch.  ``timed_steps``: more steps
     after the compared one, timed in every rank and in a one-process run
-    (see :func:`rank_step`).
+    (see :func:`rank_step`).  An even ``n`` of 4 or more forms a (n / 2) x 2
+    grid: n / 2 data groups, each image's rows split over 2 ranks.
 
     The errors, in units of the tolerance rtol 1e-4, atol 1e-6 of the
     tensor's largest magnitude (:func:`step_error`): ``mean_worst``, the
     ranks' all-reduced gradients against the average of the ranks' own
     gradients on the global batch's slices ``[r::n]``, which are their
-    shards (``rank_step``'s ``local``): the sharded loader and the
+    shards (``rank_step``'s ``local``; on a grid the data groups' slices,
+    the rows' shares summed): the sharded loader and the
     all-reduce, at most ``SAME_SPLIT``; ``worst``, the ranks' step against
     the step on the whole batch made in this process with no process group:
     fp32 summation order at another batch size, at most ``ORDER_ONLY``.
     The losses agree at rtol 1e-5.  Raises past a limit.  Returns each
     rank's loss, K1 and K2 launches and step time, the errors, the device
-    memory free as the ranks start (GiB, on a card) and rank 0's
-    :func:`rank_step` report."""
+    memory free as the ranks start (GiB, on a card), the grid's ``spatial``
+    and rank 0's :func:`rank_step` report."""
     cfg = Stage1Config(model=variant, num_levels=num_levels, crop_size=(height, width), batch_size=batch, a_p=0.0,
                        workers=2, seed=seed)
     dataset = SyntheticStereo(batch, height, width, seed)
     with contextlib.closing(iter(DataLoader(dataset, batch_size=batch, seed=seed, num_workers=cfg.workers))) as it:
         whole = next(it)
     args = (cfg, "stage1", str(device), dataset)
+    spatial = 2 if n >= 4 and n % 2 == 0 else 1
     free_gib = None
     if torch.device(device).type == "cuda":
         # the ranks share this process's card: hand them the memory it has
@@ -195,18 +277,18 @@ def dryrun_multigpu(n: int = 2, device="cuda", backend: Optional[str] = None, *,
         torch.cuda.empty_cache()
         free_gib = torch.cuda.mem_get_info(ddp.rank_device(device, 0))[0] / 2**30
     with tempfile.TemporaryDirectory(dir=store_dir) as tmp:
-        ranks = ddp.launch(rank_step, n, (*args, timed_steps, None, whole), store_path=os.path.join(tmp, "store"),
-                           backend=backend, device=device, timeout=timeout, join_timeout=join_timeout,
-                           threads=threads)
+        ranks = ddp.launch(rank_step, n, (*args, timed_steps, None, whole, spatial),
+                           store_path=os.path.join(tmp, "store"), backend=backend, device=device, timeout=timeout,
+                           join_timeout=join_timeout, threads=threads)
     one = rank_step(0, 1, *args, timed_steps, batch=whole)
-    mean_worst = step_error(ranks[0], _mean_of([r["local"] for r in ranks]))
+    mean_worst = step_error(ranks[0], _mean_of([r["local"] for r in ranks], spatial))
     worst = step_error(ranks[0], one)
     if mean_worst > SAME_SPLIT or worst > ORDER_ONLY:
         raise AssertionError(f"{n} ranks: {mean_worst:.3f} tolerance units against their own steps on the global "
                              f"batch's slices (limit {SAME_SPLIT}); {worst:.3f} against the one-process step "
                              f"(limit {ORDER_ONLY})")
     return {
-        "ranks": n, "backend": backend or ddp.default_backend(device),
+        "ranks": n, "spatial": spatial, "backend": backend or ddp.default_backend(device),
         "loss": [r["aux"]["loss"] for r in ranks], "one_process_loss": one["aux"]["loss"],
         "k1": [r["k1"] for r in ranks], "k2": [r["k2"] for r in ranks], "rank0": ranks[0],
         "worst": worst, "mean_worst": mean_worst,

@@ -16,11 +16,20 @@ NCHW throughout: every horizontal flip is along the last dim.
 
 Aux contract: every aux value is a per-batch MEAN scalar, so the trainer's
 gradient accumulation may average it across microbatches.
+
+``rows`` (a :class:`~fal_net_torch.parallel.spatial.RowShard`; the model and
+the teacher split rows over its ranks, ``FalNet.with_spatial``): the batch is
+the whole images on every rank of the group, the model returns this rank's
+rows, the labels are sliced to them, and every mean is over all the group's
+rows (``rows.mean``), stage 2's per-image teacher maximum over them too, so
+every rank's loss is the whole batch's and its gradient its own rows' share.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import functools
 
 import torch
 
@@ -66,10 +75,21 @@ def _label_features(vgg_fn, *images):
         return tuple(vgg_fn(im) for im in images)
 
 
-def _two_sided(left, right, ldisp, rdisp, lpan, rpan, rec_masks, a_p, a_sm, vgg_fn):
+def _on_rows(rows, left, right, vgg_fn):
+    """The views' rows that this rank's outputs cover, and ``vgg_fn`` on such
+    rows (the views themselves without ``rows``)."""
+    if rows is None:
+        return left, right, vgg_fn
+    if vgg_fn is not None:
+        vgg_fn = functools.partial(vgg_fn, rows=rows, height=left.shape[-2])
+    return rows.split(left), rows.split(right), vgg_fn
+
+
+def _two_sided(left, right, ldisp, rdisp, lpan, rpan, rec_masks, a_p, a_sm, vgg_fn, rows=None):
     """The reconstruction of both views and the smoothness of both
     disparities, each the mean of its two sides.  ``rec_masks`` is
-    (mask of the left view's loss, mask of the right view's)."""
+    (mask of the left view's loss, mask of the right view's).  With
+    ``rows``, the views, outputs and masks are this rank's rows."""
     w = left.shape[-1]
     x0, x1 = int(0.20 * w), int(0.80 * w)
     if a_p > 0 and vgg_fn is not None:
@@ -78,16 +98,16 @@ def _two_sided(left, right, ldisp, rdisp, lpan, rpan, rec_masks, a_p, a_sm, vgg_
         vgg_right = vgg_left = None
     o_l, o_r = rec_masks
     rec = (
-        rec_loss(o_r, rpan, right, vgg_right, a_p, vgg_fn)
-        + rec_loss(o_l, lpan, left, vgg_left, a_p, vgg_fn)
+        rec_loss(o_r, rpan, right, vgg_right, a_p, vgg_fn, rows=rows)
+        + rec_loss(o_l, lpan, left, vgg_left, a_p, vgg_fn, rows=rows)
     ) / 2.0
     sm = torch.zeros((), device=left.device)
     if a_sm > 0:
         # the left view's left 20% and the right view's right 20% are
         # dis-occluded: no parallax supervision there
         sm = (
-            smoothness(left[..., x0:], ldisp[..., x0:], gamma=2.0)
-            + smoothness(right[..., :x1], rdisp[..., :x1], gamma=2.0)
+            smoothness(left[..., x0:], ldisp[..., x0:], gamma=2.0, rows=rows)
+            + smoothness(right[..., :x1], rdisp[..., :x1], gamma=2.0, rows=rows)
         ) / 2.0
     return rec, sm
 
@@ -101,6 +121,7 @@ def stage1_loss(
     a_p: float,
     a_sm: float,
     vgg_fn: VggFn = None,
+    rows=None,
 ) -> Tuple[torch.Tensor, Aux]:
     """batch: 'left', 'right' (B,3,H,W) normalized, optional 'max_disp' (B,)."""
     left, right = batch["left"], batch["right"]
@@ -108,15 +129,16 @@ def stage1_loss(
     mn, mx = _disp_bounds(batch, min_disp, max_disp)
     out = model(left, mn, mx, ret_disp=True, ret_pan=True)
     rpan, ldisp = out.pan, out.disp
+    left, right, vgg_fn = _on_rows(rows, left, right, vgg_fn)
 
     vgg_right = _label_features(vgg_fn, right)[0] if (a_p > 0 and vgg_fn is not None) else None
-    rec = rec_loss(1.0, rpan, right, vgg_right, a_p, vgg_fn)
+    rec = rec_loss(1.0, rpan, right, vgg_right, a_p, vgg_fn, rows=rows)
 
     sm = torch.zeros((), device=left.device)
     if a_sm > 0:
         # ignore the left 20% dis-occluded columns (no parallax supervision)
         x0 = int(0.20 * w)
-        sm = smoothness(left[..., x0:], ldisp[..., x0:], gamma=2.0)
+        sm = smoothness(left[..., x0:], ldisp[..., x0:], gamma=2.0, rows=rows)
 
     loss = rec + a_sm * sm
     return loss, {"rec_loss": rec, "sm_loss": sm, "loss": loss}
@@ -131,6 +153,7 @@ def stage1_slow_loss(
     a_p: float,
     a_sm: float,
     vgg_fn: VggFn = None,
+    rows=None,
 ) -> Tuple[torch.Tensor, Aux]:
     """Both views through one forward of the double batch; the right view's
     outputs come back un-flipped."""
@@ -140,7 +163,8 @@ def stage1_slow_loss(
     out = model(torch.cat([left, hflip(right)]), mn, mx, ret_disp=True, ret_pan=True)
     rpan, lpan = out.pan[:b], hflip(out.pan[b:])
     ldisp, rdisp = out.disp[:b], hflip(out.disp[b:])
-    rec, sm = _two_sided(left, right, ldisp, rdisp, lpan, rpan, (1.0, 1.0), a_p, a_sm, vgg_fn)
+    left, right, vgg_fn = _on_rows(rows, left, right, vgg_fn)
+    rec, sm = _two_sided(left, right, ldisp, rdisp, lpan, rpan, (1.0, 1.0), a_p, a_sm, vgg_fn, rows)
     loss = rec + a_sm * sm
     return loss, {"rec_loss": rec, "sm_loss": sm, "loss": loss}
 
@@ -156,6 +180,7 @@ def stage2_loss(
     a_sm: float,
     a_mr: float,
     vgg_fn: VggFn = None,
+    rows=None,
 ) -> Tuple[torch.Tensor, Aux]:
     """MOM distillation.  ``teacher`` is the frozen stage-1 model: it runs
     under ``torch.no_grad()`` (JAX's stop_gradient), so autograd keeps none
@@ -178,6 +203,7 @@ def stage2_loss(
     ldisp, rdisp = out.disp[:b], hflip(out.disp[b:])
     lmask, rmask = out.maskL[:b], hflip(out.maskL[b:])
     rlmask, lrmask = out.maskR[:b], hflip(out.maskR[b:])
+    left, right, vgg_fn = _on_rows(rows, left, right, vgg_fn)
 
     if a_mr > 0:
         # occlusion masks with the dis-occluded borders forced visible
@@ -188,16 +214,17 @@ def stage2_loss(
     else:
         o_l = o_r = 1.0  # "just more training" (Train_Stage2_K.py:300-302)
 
-    rec, sm = _two_sided(left, right, ldisp, rdisp, lpan, rpan, (o_l, o_r), a_p, a_sm, vgg_fn)
+    rec, sm = _two_sided(left, right, ldisp, rdisp, lpan, rpan, (o_l, o_r), a_p, a_sm, vgg_fn, rows)
 
     mirror = torch.zeros((), device=left.device)
     if a_mr > 0:
         # normalized by each image's largest teacher disparity
-        nmaxl = 1.0 / torch.amax(mldisp, dim=(1, 2, 3), keepdim=True)
-        nmaxr = 1.0 / torch.amax(mrdisp, dim=(1, 2, 3), keepdim=True)
+        amax = functools.partial(torch.amax, dim=(1, 2, 3), keepdim=True) if rows is None else rows.amax
+        mean = torch.mean if rows is None else rows.mean
+        nmaxl, nmaxr = 1.0 / amax(mldisp), 1.0 / amax(mrdisp)
         mirror = (
-            torch.mean(nmaxl * (1.0 - o_l)[..., x0:] * torch.abs(ldisp - mldisp)[..., x0:])
-            + torch.mean(nmaxr * (1.0 - o_r)[..., :x1] * torch.abs(rdisp - mrdisp)[..., :x1])
+            mean(nmaxl * (1.0 - o_l)[..., x0:] * torch.abs(ldisp - mldisp)[..., x0:])
+            + mean(nmaxr * (1.0 - o_r)[..., :x1] * torch.abs(rdisp - mrdisp)[..., :x1])
         ) / 2.0
 
     loss = rec + a_sm * sm + a_mr * mirror

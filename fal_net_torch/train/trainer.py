@@ -45,6 +45,18 @@ reads ``resume`` and ``pretrained``.  A global batch's update equals the
 one-process step's up to fp32 reduction order: every stage loss is a mean
 over equal slices and DDP averages the gradients.  Outside a process group
 nothing of this runs.
+
+``spatial`` S > 1 (``cli.train --spatial``, JAX's ``make_2d_mesh``): the
+process group's ranks form a (world / S) x S grid (parallel/spatial.py).  The
+S ranks of a row take the same samples from the loader, sharded by the row
+(the data group), and split every image's rows: the student and the teacher
+run ``with_spatial`` (each rank's rows of the levels the rule splits, whole
+rows elsewhere, K1 and K2 on its rows of the MED head), the stage loss takes
+its rows of the views and its means over the row's ranks, and DDP's
+all-reduce (:func:`~fal_net_torch.parallel.spatial.mean_over_data`) sums the
+gradients over the spatial ranks and averages them over the data groups: the
+global batch's gradient, as JAX's on the same grid.  The MED gate runs at the
+rows K1 launches on.  Validation and checkpoints are rank 0's, on whole rows.
 """
 
 from __future__ import annotations
@@ -74,7 +86,7 @@ from fal_net_torch.losses.vgg import build_vgg
 from fal_net_torch.models import create_model
 from fal_net_torch.models.checkpoint import load_model_any, read_state_dict
 from fal_net_torch.models.falnet import compute_dtype
-from fal_net_torch.parallel import ddp
+from fal_net_torch.parallel import ddp, spatial as row_split
 from fal_net_torch.train.checkpoint import CKPT_NAME, load_checkpoint, save_checkpoint
 from fal_net_torch.train.config import Stage2Config, TrainConfig
 from fal_net_torch.train.stages import stage1_loss, stage1_slow_loss, stage2_loss
@@ -115,14 +127,19 @@ class Trainer:
     KITTI 2015's); without a validation set, nothing is validated."""
 
     def __init__(self, cfg: TrainConfig, stage: str = "stage1", device="cuda", train_dataset=None,
-                 val_dataset=None):
+                 val_dataset=None, spatial: int = 1):
         if stage not in STAGES:
             raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
         self.dtype = compute_dtype(cfg.compute_dtype)
         self.world, self.rank = ddp.world_size(), ddp.rank()
-        if cfg.batch_size % self.world:
-            raise ValueError(f"batch_size {cfg.batch_size} is not divisible by the {self.world} ranks")
-        self.rank_batch = cfg.batch_size // self.world  # this rank's share of every global batch
+        if self.world % spatial:
+            raise ValueError(f"--spatial {spatial} must divide the device count {self.world}")
+        self.grid = row_split.make_2d_grid(self.world // spatial, spatial) if spatial > 1 else None
+        self.rows = self.grid.rows if self.grid else None
+        self.data_groups, self.data_rank = (self.grid.data, self.grid.d) if self.grid else (self.world, self.rank)
+        if cfg.batch_size % self.data_groups:
+            raise ValueError(f"batch_size {cfg.batch_size} is not divisible by the {self.data_groups} data groups")
+        self.rank_batch = cfg.batch_size // self.data_groups  # this rank's samples of every global batch
         if self.rank_batch % cfg.grad_accum:
             raise ValueError(f"the per-rank batch {self.rank_batch} is not divisible by grad_accum {cfg.grad_accum}")
         self.cfg = cfg
@@ -155,8 +172,11 @@ class Trainer:
             self.teacher, variant, levels = load_model_any(cfg.fix_model, device=self.device, dtype=self.dtype)
             self.teacher.requires_grad_(False).eval()
             print(f"=> frozen teacher: variant {variant}, N={levels}, from {cfg.fix_model}")
+        if self.rows is not None and self.rank == 0:
+            print(f"=> rows over {self.rows.size} ranks, {self.grid.data} data groups at {cfg.crop_size}: "
+                  f"{self.rows.describe(cfg.crop_size[0])}")
 
-        # The MED kernel gate, at this run's exact shape and bounds (number
+        # The MED kernel gate, at the rows K1 launches on and this run's bounds (number
         # bounds with fix_order, else per-sample tensors of both signs,
         # repeated for the double batch) in every mode the run launches, at
         # the student's and the teacher's plane counts.
@@ -174,14 +194,17 @@ class Trainer:
             if self.teacher is not None and cfg.a_mr > 0:
                 checks.setdefault(self.teacher.num_levels, ([], False))[0].append("disp")
             self.med_selfcheck_err = 0.0
+            h = cfg.crop_size[0]
+            if self.rows is not None and self.rows.sharded(h):
+                h //= self.rows.size
             for n, (modes, backward) in sorted(checks.items()):
                 err = med_selfcheck(
-                    cfg.crop_size[0], cfg.crop_size[1], n, mn, mx, self.device,
+                    h, cfg.crop_size[1], n, mn, mx, self.device,
                     seed=cfg.seed, modes=modes, backward=backward,
                 )
                 self.med_selfcheck_err = max(self.med_selfcheck_err, err)
                 print(f"=> MED kernels ({', '.join(modes)}{', K2' if backward else ''}) agree with their "
-                      f"plain versions at {cfg.crop_size}, N={n}: max abs err {err:.3e}")
+                      f"plain versions at {(h, cfg.crop_size[1])}, N={n}: max abs err {err:.3e}")
 
         train_ds = self._external_train
         if train_ds is None:
@@ -194,7 +217,7 @@ class Trainer:
                                   max_pix=cfg.max_disp, fix=cfg.fix_order, lists_dir=cfg.lists_dir)
         self.train_loader = DataLoader(
             train_ds, batch_size=self.rank_batch, shuffle=True,
-            num_workers=cfg.workers, seed=cfg.seed, shard_id=self.rank, num_shards=self.world,
+            num_workers=cfg.workers, seed=cfg.seed, shard_id=self.data_rank, num_shards=self.data_groups,
         )
         steps_per_epoch = len(self.train_loader)
         if cfg.epoch_size:
@@ -222,7 +245,10 @@ class Trainer:
             if meta.get("epoch") is not None:
                 cfg.start_epoch = int(meta["epoch"]) + 1
             print(f"=> resumed {cfg.resume}: step {self.step}, next epoch {cfg.start_epoch}")
-        student = Remat(self.model) if cfg.remat else self.model
+        student = self.model.with_spatial(self.rows)
+        if self.teacher is not None:
+            self.teacher = self.teacher.with_spatial(self.rows)
+        student = Remat(student) if cfg.remat else student
         self.train_model = self._wrap_ddp(student) if ddp.active() else student
         self._setup_done = True
 
@@ -240,7 +266,10 @@ class Trainer:
         unused = [n for n, p in student.named_parameters() if id(p) in amask]
         DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(student, unused)
         ids = [self.device.index] if self.device.type == "cuda" else None
-        return DistributedDataParallel(student, device_ids=ids, output_device=self.device.index if ids else None)
+        wrapped = DistributedDataParallel(student, device_ids=ids, output_device=self.device.index if ids else None)
+        if self.grid is not None:
+            wrapped.register_comm_hook(self.grid.data, row_split.mean_over_data)
+        return wrapped
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
         """Loss, backward and one Adam update on a device batch ('left',
@@ -271,7 +300,8 @@ class Trainer:
         """The stage's loss and aux on one (micro)batch (counterpart of
         fal_net_tpu's ``Trainer._loss_fn``)."""
         cfg = self.cfg
-        kw = dict(min_disp=cfg.min_disp, max_disp=cfg.max_disp, a_p=cfg.a_p, a_sm=cfg.a_sm, vgg_fn=self.vgg)
+        kw = dict(min_disp=cfg.min_disp, max_disp=cfg.max_disp, a_p=cfg.a_p, a_sm=cfg.a_sm, vgg_fn=self.vgg,
+                  rows=self.rows)
         if self.stage == "stage1":
             return stage1_loss(self.train_model, batch, **kw)
         if self.stage == "stage1_slow":

@@ -270,8 +270,8 @@ def test_errors(tiny, tmp_path):
         Evaluator(tiny, EvalConfig(batch_size=3), mesh=["cpu", "cpu"])
     with pytest.raises(ValueError, match="batch_size 3 is not divisible"):
         DisparityPipeline(tiny, batch_size=3, mesh=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="Leave behind"):
-        train_cli.main(["--data_root", "/nonexistent", "--device", "cpu", "--spatial", "2"])
+    with pytest.raises(ValueError, match="--spatial 2 must divide the device count 3"):  # JAX's message
+        train_cli.main(["--data_root", "/nonexistent", "--device", "cpu", "--num_devices", "3", "--spatial", "2"])
     with pytest.raises(ValueError, match="batch_size 4 is not divisible by --num_devices 3"):
         train_cli.main(["--data_root", "/nonexistent", "--device", "cpu", "--num_devices", "3", "--batch_size", "4"])
     with pytest.raises(SystemExit, match="--num_devices"):  # an artifact refuses it, as JAX's cli.test does
