@@ -151,18 +151,29 @@ Phases, each reported on its own line; any failure exits nonzero:
      ``python -m fal_net_torch.cli.selfcheck --full``, in its own process
      beside the fresh interpreter, which must exit 0.
   12. bf16 compute (FAL_netB N=49, the backbone in bf16, its parameters, the
-     MED head and the logits fp32): ``cli.train --dtype bfloat16`` on phase
-     7a's tree for 2 steps (K1, K2 per step; the checkpoint's parameters
-     and Adam's state fp32); K1 inside the bf16 model against the plain head
-     on its fp32 logits in every mode at phase 3's tolerances; the bf16
+     MED head and the logits fp32; the logits conv is L1,
+     ``csrc/logits_conv.cu``: bf16 operands, fp32 sums and output):
+     ``cli.train --dtype bfloat16`` on phase 7a's tree for 2 steps (K1, K2
+     per step, L1 once a step; the checkpoint's parameters and Adam's state
+     fp32); L1 against its plain version (TF32 off) at rtol 1e-5, atol 1e-5
+     max|plain| (the same products summed in another order) at
+     (8, 96, 384, 1280), (1, 96, 384, 1280), (8, 96, 192, 640) and
+     (4, 96, 375, 1242) -> 49, and on halo'd rows (8, 96, 98, 640) with
+     pad_h 0 (a --spatial rank's), each timed in turns (medians of 20)
+     beside its bound, the plain path the port ran before (an fp32 copy,
+     then cuDNN with TF32) and cuDNN's bf16 conv (bf16 out, the nearest
+     library call); K1 inside the bf16 model against the plain head on its
+     fp32 logits in every mode at phase 3's tolerances (L1 twice); the bf16
      drift against fp32 with TF32 off (printed, not bounded); the disp
      forward at 384x1280, B=8 and B=1, and the stage-1 step at 192x640, B=8,
-     fp32 and bf16 in turns (CUDA events, median of 20) with peak memory;
-     one stage-2 step with a bf16 student and teacher (K1 twice, K2 once),
-     timed in turns with the fp32 student; ``cli.test --dtype bfloat16`` on
-     phase 10's tree (finite metrics, K1 by mode); ``cli.export --dtype
-     bfloat16`` of phase 4's checkpoint (meta dtype bfloat16, K1 inside it,
-     its output equal to the live bf16 model's at phase 10's tolerances);
+     fp32 and bf16 in turns (CUDA events, median of 20) with peak memory,
+     the bf16 forward's peak at B=8 below fp32's; one stage-2 step with a
+     bf16 student and teacher (K1 twice, K2 once, L1 twice), timed in turns
+     with the fp32 student; ``cli.test --dtype bfloat16`` on phase 10's tree
+     (finite metrics, K1 by mode, L1 twice a batch); ``cli.export --dtype
+     bfloat16`` of phase 4's checkpoint (meta dtype bfloat16, K1 and L1
+     inside it, its output equal to the live bf16 model's at phase 10's
+     tolerances);
   13. multi-GPU: ``dryrun_multigpu(2)``, two ranks on cuda:0 over gloo (NCCL
      refuses two ranks on one card), one DDP stage-1 step of FAL_netB at
      global batch 8 with TF32 off (then 5 more timed with TF32 on): the ranks' all-reduced gradients held
@@ -216,6 +227,8 @@ from fal_net_torch.data.transforms import normalize
 from fal_net_torch.models import create_model
 from fal_net_torch.models.checkpoint import save_checkpoint
 from fal_net_torch.ops import _build
+from fal_net_torch.ops.logits_conv import LAUNCHES as L1_LAUNCHES
+from fal_net_torch.ops.logits_conv import logits_conv, logits_conv_plain
 from fal_net_torch.ops.med import med_outputs
 from fal_net_torch.ops.med_kernel import MedForward, describe_plan, med_outputs_fused, med_vjp_fused, stage_plan
 from fal_net_torch.ops.med_vjp import med_vjp
@@ -282,6 +295,12 @@ VAL_BATCH = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores, NVIDIA data sheet
 TF32_FLOPS = 494.7e12  # H100 SXM TF32 tensor cores, dense, NVIDIA data sheet
+BF16_FLOPS = 989.4e12  # H100 SXM bf16 tensor cores, dense, NVIDIA data sheet
+# L1 (the composed logits conv) against its plain version: ((B, Cin, H, W), Cout, pad_h); the serving, B=1,
+# stage-1 and validation shapes, and a rank's halo'd rows under --spatial 4 at 384 rows (96 + 2)
+L1_SHAPES = [((8, 96, 384, 1280), 49, 1), ((1, 96, 384, 1280), 49, 1), ((8, 96, 192, 640), 49, 1),
+             ((4, 96, 375, 1242), 49, 1), ((8, 96, 98, 640), 49, 0)]
+L1_TOL = 1e-5  # rtol, and atol as a fraction of max|plain|: the same products summed in another order
 CONV_TIMED = (8, 64, 192, 640, 64)  # the conv case whose times go into the kernels line
 # fp32 operations per logit, counted from the kernel sources (an exp2 counts
 # one): K1 disp-only (multiply by log2 e, max, subtract, exp2, add,
@@ -2017,23 +2036,72 @@ def in_turns(fns: dict, reps: int = 20) -> dict:
     return {k: (*ms[k], peak_gb(f)) for k, f in fns.items()}
 
 
+def logits_conv_vs_plain(rng, dev, card: str) -> dict:
+    """Phase 12: L1 against its plain version at L1_SHAPES (TF32 off for the
+    plain version, so that only the order of the fp32 sums differs), then
+    timed in turns (kernel, plain, cuDNN bf16, and back; medians of 20):
+    the plain version with TF32 on, as the port ran the logits conv before
+    L1 (an fp32 copy of the input, then cuDNN), and cuDNN's bf16 conv with
+    a bf16 output, the nearest library call (not the same function).
+    Returns the kernels line's numbers at the serving shape."""
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))  # inputs drawn on the card
+    worst, serving = 0.0, None
+    for shape, cout, pad_h in L1_SHAPES:
+        b, cin, h, w = shape
+        x = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        k = (torch.randn((cout, cin, 3, 3), device=dev, generator=gen) / np.sqrt(9 * cin)).to(torch.bfloat16)
+        bias = torch.randn(cout, device=dev, generator=gen)
+        got = logits_conv(x, k, bias, pad_h)
+        torch.cuda.synchronize()
+        with tf32(False):
+            want = logits_conv_plain(x, k, bias, pad_h)
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        if got.dtype != torch.float32 or got.shape != want.shape or not torch.allclose(
+                got, want, rtol=L1_TOL, atol=L1_TOL * scale):
+            raise AssertionError(f"L1 {shape} -> {cout} pad_h {pad_h}: {got.dtype} {tuple(got.shape)}, max abs err "
+                                 f"{err:.3e} (rtol {L1_TOL}, atol {L1_TOL} x {scale:.3e})")
+        worst = max(worst, err)
+        del got, want
+        lib_bias = bias.to(torch.bfloat16)
+        fns = {"kernel": lambda: logits_conv(x, k, bias, pad_h), "plain": lambda: logits_conv_plain(x, k, bias, pad_h),
+               "cudnn_bf16": lambda: torch.nn.functional.conv2d(x, k, lib_bias, 1, (pad_h, 1))}
+        ms = {name: [] for name in fns}
+        for name in (*fns, *reversed(fns)):
+            ms[name].append(median_ms(fns[name], reps=20))
+        out_shape = (b, cout, h - 2 + 2 * pad_h, w)
+        nbytes_ = nbytes(x, k, bias) + int(np.prod(out_shape)) * 4
+        b_ms, b_by = bound(nbytes_, 2.0 * np.prod(out_shape) * 9 * cin, BF16_FLOPS)
+        line(f"phase 12 L1 logits_conv {shape} -> {cout}, pad_h {pad_h}: max abs err {err:.3e} (max|plain| "
+             f"{scale:.3e}); kernel {ms['kernel'][0]:.4f}, {ms['kernel'][1]:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+             f"({nbytes_ / 1e6:.1f} MB, {2.0 * np.prod(out_shape) * 9 * cin / 1e9:.1f} GFLOP); plain (fp32 copy + "
+             f"cuDNN, TF32) {ms['plain'][0]:.4f}, {ms['plain'][1]:.4f} ms; cuDNN bf16 conv2d, bf16 out (the nearest "
+             f"library call, not the same function) {ms['cudnn_bf16'][0]:.4f}, {ms['cudnn_bf16'][1]:.4f} ms [{card}]")
+        if serving is None:
+            serving = {"ms": float(np.mean(ms["kernel"])), "plain_ms": float(np.mean(ms["plain"])),
+                       "library_ms": float(np.mean(ms["cudnn_bf16"])), "bound_ms": b_ms, "bound_by": b_by}
+        del x, k, bias
+    torch.cuda.empty_cache()
+    return {**serving, "max_abs_err": worst}
+
+
 def phase_bf16_train(root: str, workdir: str) -> dict:
     """Phase 12a: cli.train --dtype bfloat16 on phase 7a's tree, TRAIN_STEPS steps;
     the checkpoint's parameters and Adam's state stay fp32."""
     result, trainer, _, k1, k2, secs = run_cli_train(["--stage", "1", "--dtype", "bfloat16"], root, workdir)
+    l1 = L1_LAUNCHES["logits_conv"]  # one a step's forward: the gate runs K1 and K2 alone
     (epoch,) = result["history"]
     data = torch.load(os.path.join(result["save_path"], "checkpoint.pt"), map_location="cpu", weights_only=True)
     dtypes = {v.dtype for v in data["state_dict"].values()}
     dtypes |= {t.dtype for st in data["optimizer"]["state"].values() for t in st.values()
                if torch.is_tensor(t) and t.ndim}
-    if (k1, k2) != (TRAIN_STEPS + 1, TRAIN_STEPS + 1) or trainer.model.dtype != torch.bfloat16 or dtypes != {
-            torch.float32}:
-        raise AssertionError(f"cli.train --dtype bfloat16: K1 {k1}, K2 {k2} launches, model {trainer.model.dtype}, "
-                             f"checkpoint dtypes {dtypes}")
+    if (k1, k2, l1) != (TRAIN_STEPS + 1, TRAIN_STEPS + 1, TRAIN_STEPS) or trainer.model.dtype != torch.bfloat16 or \
+            dtypes != {torch.float32}:
+        raise AssertionError(f"cli.train --dtype bfloat16: K1 {k1}, K2 {k2}, L1 {l1} launches, model "
+                             f"{trainer.model.dtype}, checkpoint dtypes {dtypes}")
     line(f"phase 12 cli.train --dtype bfloat16 FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B={BATCH}: {TRAIN_STEPS} steps in "
-         f"{secs:.2f} s, epoch loss {epoch['loss']:.6f} rec {epoch['rec_loss']:.6f}; K1 {k1}, K2 {k2} launches; "
-         f"checkpoint parameters and Adam state fp32")
-    return {"k1": k1, "k2": k2}
+         f"{secs:.2f} s, epoch loss {epoch['loss']:.6f} rec {epoch['rec_loss']:.6f}; K1 {k1}, K2 {k2}, L1 {l1} "
+         f"launches; checkpoint parameters and Adam state fp32")
+    return {"k1": k1, "k2": k2, "l1": l1}
 
 
 def phase_bf16(rng, dev, card: str, seed: int, serve_dir: str, evaluation: dict, workdir: str) -> dict:
@@ -2044,7 +2112,8 @@ def phase_bf16(rng, dev, card: str, seed: int, serve_dir: str, evaluation: dict,
     from fal_net_torch.serve import load_exported
     from fal_net_torch.train.stages import stage2_loss
 
-    k1_total = k2_total = 0
+    l1_kernel = logits_conv_vs_plain(rng, dev, card)
+    k1_total = k2_total = l1_total = 0
     model32 = create_model("B", 49, generator=torch.Generator().manual_seed(seed), device=dev)
     model16 = model32.with_dtype("bfloat16")
     frames = np.stack([normalize(synthetic_image(rng)) for _ in range(BATCH)]).transpose(0, 3, 1, 2).copy()
@@ -2064,12 +2133,13 @@ def phase_bf16(rng, dev, card: str, seed: int, serve_dir: str, evaluation: dict,
         del logits
         out = model16(x8, 2.0, 300.0, ret_disp=True, ret_pan=True, ret_subocc=True)
         torch.cuda.synchronize()
-    k1 = MedForward.launches
-    if k1 != 4 or not all(torch.isfinite(t).all() for t in out) or out.disp.dtype != torch.float32:
-        raise AssertionError(f"bf16 forward: K1 {k1} launches, outputs {[t.dtype for t in out]}")
-    k1_total += k1
+    k1, l1 = MedForward.launches, L1_LAUNCHES["logits_conv"]
+    if (k1, l1) != (4, 2) or not all(torch.isfinite(t).all() for t in out) or out.disp.dtype != torch.float32:
+        raise AssertionError(f"bf16 forward: K1 {k1}, L1 {l1} launches, outputs {[t.dtype for t in out]}")
+    k1_total, l1_total = k1_total + k1, l1_total + l1
     line(f"phase 12 K1 in the bf16 FAL_netB N=49 {SERVE_H}x{SERVE_W} B={BATCH}: fp32 logits, K1 = plain head in every "
-         f"mode (phase 3's tolerances), worst abs err {worst:.3e}; {k1} K1 launches")
+         f"mode (phase 3's tolerances), worst abs err {worst:.3e}; {k1} K1 launches, {l1} L1 launches (the logits "
+         f"and the forward)")
 
     # the bf16 drift against fp32, TF32 off (reported, not bounded)
     with torch.inference_mode(), tf32(False):
@@ -2091,6 +2161,10 @@ def phase_bf16(rng, dev, card: str, seed: int, serve_dir: str, evaluation: dict,
             line(f"phase 12 forward FAL_netB N=49 {SERVE_H}x{SERVE_W} disp B={b} (in turns fp32, bf16, bf16, fp32): "
                  f"fp32 {got['fp32'][0]:.3f}, {got['fp32'][1]:.3f} ms, peak {got['fp32'][2]:.2f} GB; bf16 "
                  f"{got['bf16'][0]:.3f}, {got['bf16'][1]:.3f} ms, peak {got['bf16'][2]:.2f} GB [{card}]")
+    peaks = {k: v[2] for k, v in times[f"fwd_b{BATCH}"].items()}
+    if not peaks["bf16"] < peaks["fp32"]:
+        raise AssertionError(f"bf16 forward B={BATCH} peaks at {peaks['bf16']:.3f} GB, not below fp32's "
+                             f"{peaks['fp32']:.3f} GB")
     del model32, model16, x8
 
     # the stage-1 step at B=8 (192x640), fp32 and bf16 in turns; then one bf16 stage-2 step
@@ -2099,9 +2173,10 @@ def phase_bf16(rng, dev, card: str, seed: int, serve_dir: str, evaluation: dict,
     _build.reset_launch_counts()
     train_step_fn(t16, opt, sched, batch)()
     torch.cuda.synchronize()
-    if (MedForward.launches, MedForward.bwd_launches) != (1, 1):
-        raise AssertionError(f"bf16 stage-1 step: K1 {MedForward.launches}, K2 {MedForward.bwd_launches}")
-    k1_total, k2_total = k1_total + 1, k2_total + 1
+    if (MedForward.launches, MedForward.bwd_launches, L1_LAUNCHES["logits_conv"]) != (1, 1, 1):
+        raise AssertionError(f"bf16 stage-1 step: K1 {MedForward.launches}, K2 {MedForward.bwd_launches}, L1 "
+                             f"{L1_LAUNCHES['logits_conv']}")
+    k1_total, k2_total, l1_total = k1_total + 1, k2_total + 1, l1_total + 1
     got = in_turns({"fp32": train_step_fn(tmodel, opt, sched, batch), "bf16": train_step_fn(t16, opt, sched, batch)})
     times["step"] = got
     if not all(torch.isfinite(p).all() for p in tmodel.parameters()) or {p.dtype for p in tmodel.parameters()} != {
@@ -2120,16 +2195,17 @@ def phase_bf16(rng, dev, card: str, seed: int, serve_dir: str, evaluation: dict,
     _build.reset_launch_counts()
     step2["bf16"]()
     torch.cuda.synchronize()
-    if (MedForward.launches, MedForward.bwd_launches) != (2, 1):
-        raise AssertionError(f"bf16 stage-2 step: K1 {MedForward.launches}, K2 {MedForward.bwd_launches}")
-    k1_total, k2_total = k1_total + 2, k2_total + 1
+    if (MedForward.launches, MedForward.bwd_launches, L1_LAUNCHES["logits_conv"]) != (2, 1, 2):
+        raise AssertionError(f"bf16 stage-2 step: K1 {MedForward.launches}, K2 {MedForward.bwd_launches}, L1 "
+                             f"{L1_LAUNCHES['logits_conv']} (the teacher's and the student's forward)")
+    k1_total, k2_total, l1_total = k1_total + 2, k2_total + 1, l1_total + 2
     with torch.no_grad():
         loss, _ = stage2_loss(s_model.with_dtype("bfloat16"), s_batch, teacher, min_disp=2.0, max_disp=300.0, a_p=0.0,
                               a_sm=0.4 * 2 / 512, a_mr=1.0)
     got = in_turns(step2, reps=10)
     times["step2"] = got
     line(f"phase 12 stage-2 step, bf16 student and teacher FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B={BATCH // 2} (double "
-         f"batch {BATCH}): K1 2, K2 1 launches, loss {loss.item():.6f}; in turns with the fp32 student (the teacher "
+         f"batch {BATCH}): K1 2, K2 1, L1 2 launches, loss {loss.item():.6f}; in turns with the fp32 student (the teacher "
          f"bf16 in both): fp32 {got['fp32'][0]:.3f}, {got['fp32'][1]:.3f} ms, bf16 {got['bf16'][0]:.3f}, "
          f"{got['bf16'][1]:.3f} ms, peak {got['bf16'][2]:.2f} GB [{card}]")
     if not np.isfinite(loss.item()):
@@ -2140,14 +2216,16 @@ def phase_bf16(rng, dev, card: str, seed: int, serve_dir: str, evaluation: dict,
     metrics, (ev,), disps, by_mode, secs = recorded_eval(lambda: cli_test.main([
         "--data_root", evaluation["root"], "--lists_dir", evaluation["lists"], "--pretrained", evaluation["ckpt"],
         "--batch_size", str(BATCH), "--dtype", "bfloat16", "--save_path", os.path.join(workdir, "eval_bf16")]))
+    l1 = L1_LAUNCHES["logits_conv"]
     check_eval_outputs(os.path.join(workdir, "eval_bf16"), metrics, "bf16")
     n_all = EVAL_FRAMES * len(EVAL_SHAPES)
     want_k1 = {"disp": 2 * (n_all // BATCH) + 2 * len(EVAL_SHAPES)}
-    if by_mode != want_k1 or len(disps) != n_all or ev.model.dtype != torch.bfloat16:
-        raise AssertionError(f"cli.test --dtype bfloat16: K1 {by_mode} (want {want_k1}), {len(disps)} images")
-    k1_total += sum(by_mode.values())
+    if by_mode != want_k1 or l1 != 2 * (n_all // BATCH) or len(disps) != n_all or ev.model.dtype != torch.bfloat16:
+        raise AssertionError(f"cli.test --dtype bfloat16: K1 {by_mode} (want {want_k1}), L1 {l1} (want "
+                             f"{2 * (n_all // BATCH)}: two forwards a batch), {len(disps)} images")
+    k1_total, l1_total = k1_total + sum(by_mode.values()), l1_total + l1
     d_err = max(float(np.abs(disps[i] - evaluation["ms_disps"][i]).max()) for i in disps)
-    line(f"phase 12 cli.test --dtype bfloat16 (ms-pp, {n_all} images, B={BATCH}) in {secs:.2f} s: K1 {by_mode}; "
+    line(f"phase 12 cli.test --dtype bfloat16 (ms-pp, {n_all} images, B={BATCH}) in {secs:.2f} s: K1 {by_mode}, L1 {l1}; "
          f"abs_rel {metrics['abs_rel']:.6f} a1 {metrics['a1']:.6f} (fp32, phase 10: {evaluation['ms_metrics']['abs_rel']:.6f}, "
          f"{evaluation['ms_metrics']['a1']:.6f}); max |d disp| against fp32 {d_err:.4f} px [{card}]")
 
@@ -2164,21 +2242,23 @@ def phase_bf16(rng, dev, card: str, seed: int, serve_dir: str, evaluation: dict,
     with torch.inference_mode():
         (got,) = fwd(x.permute(0, 2, 3, 1).contiguous())
         torch.cuda.synchronize()
-        k1_art = MedForward.mode_launches
+        k1_art, l1_art = MedForward.mode_launches, L1_LAUNCHES["logits_conv"]
         want = live(x, 2.0, 300.0, ret_disp=True).disp.permute(0, 2, 3, 1)
     err = float((got - want).abs().max())
     rtol, atol = EVAL_DISP_TOL
-    if fwd.meta["dtype"] != "bfloat16" or k1_art != {"disp": 1} or not torch.allclose(got, want, rtol=rtol, atol=atol):
-        raise AssertionError(f"bf16 artifact: dtype {fwd.meta['dtype']}, K1 {k1_art}, max abs err {err:.3e}")
-    k1_total += 1
+    if fwd.meta["dtype"] != "bfloat16" or k1_art != {"disp": 1} or l1_art != 1 or not torch.allclose(
+            got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"bf16 artifact: dtype {fwd.meta['dtype']}, K1 {k1_art}, L1 {l1_art}, max abs err "
+                             f"{err:.3e}")
+    k1_total, l1_total = k1_total + 1, l1_total + 1
     with torch.inference_mode():
         xa = x.permute(0, 2, 3, 1).contiguous()
         got_t = in_turns({"live": lambda: live(x, 2.0, 300.0, ret_disp=True), "artifact": lambda: fwd(xa)})
     line(f"phase 12 cli.export --dtype bfloat16 {SERVE_H}x{SERVE_W} disp B={BATCH} in {export_s:.2f} s, "
-         f"{size / 1e6:.1f} MB, meta dtype {fwd.meta['dtype']}; K1 inside it {k1_art}; vs the live bf16 model max abs "
+         f"{size / 1e6:.1f} MB, meta dtype {fwd.meta['dtype']}; K1 inside it {k1_art}, L1 {l1_art}; vs the live bf16 model max abs "
          f"err {err:.3e} px; forward in turns: live {got_t['live'][0]:.3f}, {got_t['live'][1]:.3f} ms, artifact "
          f"{got_t['artifact'][0]:.3f}, {got_t['artifact'][1]:.3f} ms [{card}]")
-    return {"k1": k1_total, "k2": k2_total, "worst": worst, "times": times}
+    return {"k1": k1_total, "k2": k2_total, "l1": l1_total, "l1_kernel": l1_kernel, "worst": worst, "times": times}
 
 
 def phase_multi(dev, card: str, evaluation: dict, workdir: str) -> dict:
@@ -2529,6 +2609,20 @@ def main() -> None:
             "bound_ms": k2_bound,
             "bound_by": k2_by,
             "library_ms": None,
+        },
+        {
+            "name": "logits_conv",
+            "route": "cuda",
+            "source": "fal_net_torch/csrc/logits_conv.cu",
+            "replaces": "fal_net_tpu/models/layers.py:67",  # _conv_accum, an XLA conv: no Pallas counterpart
+            # the bf16 paths of phase 12: cli.train, the forward, the stage-1 and stage-2 steps, cli.test, the artifact
+            "launches": bf16_train["l1"] + bf16["l1"],
+            "max_abs_err": bf16["l1_kernel"]["max_abs_err"],
+            "ms": bf16["l1_kernel"]["ms"],  # (8, 96, 384, 1280) -> 49
+            "plain_ms": bf16["l1_kernel"]["plain_ms"],
+            "bound_ms": bf16["l1_kernel"]["bound_ms"],
+            "bound_by": bf16["l1_kernel"]["bound_by"],
+            "library_ms": bf16["l1_kernel"]["library_ms"],  # cuDNN bf16 conv2d, bf16 out: the nearest call
         },
         *script_kernels,
     ]}))

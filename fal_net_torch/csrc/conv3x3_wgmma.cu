@@ -70,6 +70,7 @@
 //     32-byte sectors.  The Cout, H and W tails are masked.
 
 #include "med_stage.cuh"  // mbarrier, TMA and cp.async helpers
+#include "wgmma.cuh"      // wgmma, its descriptor, the tensor-map encoder
 
 namespace {
 
@@ -88,7 +89,6 @@ constexpr int kInBytes = kInFloats * 4;        // 43520
 constexpr int kAlign = 1024;
 constexpr int kMaxDevices = 64;                // the launch settings are kept per device
 
-__host__ __device__ constexpr int round_up(int v, int a) { return (v + a - 1) / a * a; }
 template <int N> struct Stage {
   static constexpr int kInRegion = round_up(kInBytes, kAlign);
   static constexpr int kWBytes = 9 * N * kCi * 4;          // nine (N, 16) tiles of 64-byte rows
@@ -97,16 +97,6 @@ template <int N> struct Stage {
   static constexpr int kSmem = kStages * kBytes + 2 * kStages * 8 + kAlign;  // + barriers, alignment slack
 };
 
-// The wgmma descriptor of a K-major tf32 operand in (N, 16) tiles with the
-// 64-byte swizzle: start address >> 4, leading offset unused by swizzled
-// K-major layouts (1), stride offset 512 bytes between groups of 8 rows (32),
-// layout type 2 (64-byte swizzle).  Tiles start on 1024-byte boundaries; the
-// second k8 step starts at +32 bytes, and the hardware applies the swizzle
-// to the address it forms.
-__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (32ull << 32) | (2ull << 62);
-}
-
 // Byte offset of element (n, k) of a K-major (N, 16) fp32 tile under the
 // 64-byte swizzle: address bits 4-5 (which 16-byte quarter of the row) are
 // XORed with bits 7-8 ((n / 2) % 4), as TMA's CU_TENSOR_MAP_SWIZZLE_64B
@@ -114,59 +104,6 @@ __device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
 __device__ __forceinline__ int sw64_offset(int n, int k) {
   return n * 64 + (((k >> 2) ^ ((n >> 1) & 3)) << 4) + (k & 3) * 4;
 }
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
-template <int kPending> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending) : "memory");
-}
-
-// D (64 x N, fp32, registers) += A (64 x 8, tf32, registers) * B (8 x N,
-// tf32, shared memory through `desc`).
-template <int N> struct Wgmma;
-
-#define WG_L4(a, b, c, d) "%" #a ", %" #b ", %" #c ", %" #d
-#define WG_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define WG_DEFINE(N, DREGS, A0, A1, A2, A3, DESC, ONE, ...)                                                   \
-  template <> struct Wgmma<N> {                                                                              \
-    __device__ __forceinline__ static void run(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc) {   \
-      asm volatile(                                                                                          \
-          "{\n.reg .pred p;\nsetp.ne.b32 p, %" #ONE ", 0;\n"                                                 \
-          "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" DREGS "}, {%" #A0 ", %" #A1 ", %" #A2 \
-          ", %" #A3 "}, %" #DESC ", p, 1, 1;\n}\n"                                                         \
-          : __VA_ARGS__                                                                                      \
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));                                  \
-    }                                                                                                        \
-  };
-
-WG_DEFINE(8, WG_L4(0, 1, 2, 3), 4, 5, 6, 7, 8, 9, WG_D4(0))
-WG_DEFINE(16, WG_L4(0, 1, 2, 3) ", " WG_L4(4, 5, 6, 7), 8, 9, 10, 11, 12, 13, WG_D4(0), WG_D4(4))
-WG_DEFINE(24, WG_L4(0, 1, 2, 3) ", " WG_L4(4, 5, 6, 7) ", " WG_L4(8, 9, 10, 11), 12, 13, 14, 15, 16, 17,
-          WG_D4(0), WG_D4(4), WG_D4(8))
-WG_DEFINE(32,
-          WG_L4(0, 1, 2, 3) ", " WG_L4(4, 5, 6, 7) ", " WG_L4(8, 9, 10, 11) ", " WG_L4(12, 13, 14, 15), 16, 17,
-          18, 19, 20, 21, WG_D4(0), WG_D4(4), WG_D4(8), WG_D4(12))
-WG_DEFINE(40,
-          WG_L4(0, 1, 2, 3) ", " WG_L4(4, 5, 6, 7) ", " WG_L4(8, 9, 10, 11) ", " WG_L4(12, 13, 14, 15) ", " WG_L4(
-              16, 17, 18, 19),
-          20, 21, 22, 23, 24, 25, WG_D4(0), WG_D4(4), WG_D4(8), WG_D4(12), WG_D4(16))
-WG_DEFINE(48,
-          WG_L4(0, 1, 2, 3) ", " WG_L4(4, 5, 6, 7) ", " WG_L4(8, 9, 10, 11) ", " WG_L4(12, 13, 14, 15) ", " WG_L4(
-              16, 17, 18, 19) ", " WG_L4(20, 21, 22, 23),
-          24, 25, 26, 27, 28, 29, WG_D4(0), WG_D4(4), WG_D4(8), WG_D4(12), WG_D4(16), WG_D4(20))
-WG_DEFINE(56,
-          WG_L4(0, 1, 2, 3) ", " WG_L4(4, 5, 6, 7) ", " WG_L4(8, 9, 10, 11) ", " WG_L4(12, 13, 14, 15) ", " WG_L4(
-              16, 17, 18, 19) ", " WG_L4(20, 21, 22, 23) ", " WG_L4(24, 25, 26, 27),
-          28, 29, 30, 31, 32, 33, WG_D4(0), WG_D4(4), WG_D4(8), WG_D4(12), WG_D4(16), WG_D4(20), WG_D4(24))
-WG_DEFINE(64,
-          WG_L4(0, 1, 2, 3) ", " WG_L4(4, 5, 6, 7) ", " WG_L4(8, 9, 10, 11) ", " WG_L4(12, 13, 14, 15) ", " WG_L4(
-              16, 17, 18, 19) ", " WG_L4(20, 21, 22, 23) ", " WG_L4(24, 25, 26, 27) ", " WG_L4(28, 29, 30, 31),
-          32, 33, 34, 35, 36, 37, WG_D4(0), WG_D4(4), WG_D4(8), WG_D4(12), WG_D4(16), WG_D4(20), WG_D4(24),
-          WG_D4(28))
-
-#undef WG_DEFINE
-#undef WG_D4
-#undef WG_L4
 
 // The tile grid: x tiles fastest, then row bands, batch, output-channel tiles.
 struct Tiles {
@@ -292,7 +229,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (dy < 0 || dy > 2) continue;
 #pragma unroll
           for (int dx = 0; dx < 3; ++dx)
-            Wgmma<N>::run(acc[o], f[dx], desc_sw64(w_s + (dy * 3 + dx) * S::kTapBytes + kb * 32));
+            Wgmma<N, Tf32>::run(acc[o], f[dx], desc_sw64(w_s + (dy * 3 + dx) * S::kTapBytes + kb * 32));
         }
         wgmma_commit();
         wgmma_wait<1>();  // the previous group is done: its fragments may be overwritten
@@ -314,22 +251,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // The shared-memory limit and the SM count are driver calls of microseconds

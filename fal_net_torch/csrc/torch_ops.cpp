@@ -1,12 +1,12 @@
 // The CUDA impls of the port's PyTorch ops: fal_net_torch::med_fwd (K1),
-// med_bwd (K2), conv3x3 (K3 and K4) and roll_window (K5).
+// med_bwd (K2), conv3x3 (K3 and K4), roll_window (K5) and logits_conv (L1).
 //
 // fal_net_torch/ops/library.py defines the ops' schemas, their fake (meta)
 // impls, their plain CPU kernels and med_fwd's autograd formula; this file
 // registers what runs for CUDA tensors.  Each impl checks its inputs, sets
 // the device, allocates its outputs, works out the MED kernels' shift margin,
 // calls the kernel's C entry (med_fwd.cu, med_bwd.cu, conv3x3_wgmma.cu,
-// roll_probe.cu) on PyTorch's current stream, throws on a nonzero return and
+// roll_probe.cu, logits_conv.cu) on PyTorch's current stream, throws on a nonzero return and
 // counts the launch.  So a call goes from the dispatcher to the kernel
 // launch without Python, and torch.export records the op in its graph.
 //
@@ -22,6 +22,7 @@
 
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
+#include <ATen/ops/zeros.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
 #include <torch/library.h>
@@ -43,6 +44,8 @@ int med_bwd_plan(int N, int C, int W, int want_disp, int want_pan, int want_gimg
 int conv3x3_wgmma(const float* x, const float* w2, float* out, int B, int Cin, int H, int W, int Cout,
                   void* stream);
 int roll_window(const float* x, const int* f, float* out, int H, int W, int wp, int left, void* stream);
+int logits_conv(const void* x, const void* w, const float* bias, float* out, int B, int Cin, int H, int W, int Cout,
+                int pad_h, int w_cin, void* stream);
 }
 
 namespace {
@@ -52,8 +55,9 @@ constexpr int kPlanFields = 11;   // med_stage.cuh
 constexpr int kPlanDirect = 9;    // the plan's `direct` field
 
 // Launch counts: K1 by mode (disp | pan << 1 | subocc << 2, minus one), then
-// K2, the conv and the roll.  Read by ops/_build.py::launch_counts.
-enum { kMedFwd = 0, kMedBwd = 7, kConv = 8, kRoll = 9, kCounters = 10 };
+// K2, the conv, the roll and the logits conv.  Read by
+// ops/_build.py::launch_counts.
+enum { kMedFwd = 0, kMedBwd = 7, kConv = 8, kRoll = 9, kLogits = 10, kCounters = 11 };
 std::atomic<long long> launches[kCounters];
 
 const float* ptr(const at::Tensor& t) { return t.numel() ? t.const_data_ptr<float>() : nullptr; }
@@ -194,6 +198,43 @@ at::Tensor roll_window_cuda(const at::Tensor& x, const at::Tensor& f, int64_t wp
   return out;
 }
 
+// L1: x (B, Cin, H, W) and k (Cout, Cin, 3, 3) bf16, bias (Cout) fp32 ->
+// (B, Cout, H - 2 + 2 pad_h, W) fp32.  The kernel takes k as (Cout, 9, Cin'),
+// Cin' = Cin rounded up to 8 with zeros (TMA's 16-byte strides): an 85 KB
+// copy at Cin = 96, N = 49.
+at::Tensor logits_conv_cuda(const at::Tensor& x, const at::Tensor& k, const at::Tensor& bias, int64_t pad_h) {
+  TORCH_CHECK_VALUE(x.is_cuda() && k.device() == x.device() && bias.device() == x.device(),
+                    "the logits conv kernel needs x, k and bias on one CUDA device; they are on ", x.device(), ", ",
+                    k.device(), ", ", bias.device());
+  TORCH_CHECK_TYPE(x.scalar_type() == at::kBFloat16 && k.scalar_type() == at::kBFloat16 &&
+                       bias.scalar_type() == at::kFloat,
+                   "the logits conv kernel takes bfloat16 x and k and a float32 bias, got ", x.scalar_type(), ", ",
+                   k.scalar_type(), ", ", bias.scalar_type());
+  TORCH_CHECK_VALUE(x.dim() == 4 && x.is_contiguous(), "x must be a contiguous NCHW tensor, got ", x.sizes());
+  TORCH_CHECK_VALUE(k.dim() == 4 && k.size(1) == x.size(1) && k.size(2) == 3 && k.size(3) == 3, "k must be (Cout, ",
+                    x.size(1), ", 3, 3) for x ", x.sizes(), ", got ", k.sizes());
+  TORCH_CHECK_VALUE(bias.dim() == 1 && bias.size(0) == k.size(0) && bias.is_contiguous(),
+                    "bias must be a contiguous (", k.size(0), ",) tensor, got ", bias.sizes());
+  TORCH_CHECK_VALUE(pad_h == 0 || pad_h == 1, "pad_h must be 0 or 1, got ", pad_h);
+  const int64_t ho = x.size(2) - 2 + 2 * pad_h, cout = k.size(0), cin = k.size(1);
+  TORCH_CHECK_VALUE(ho >= 1, "x has ", x.size(2), " rows: no output row at pad_h ", pad_h);
+  const c10::cuda::CUDAGuard guard(x.device());
+  at::Tensor w = k.permute({0, 2, 3, 1}).reshape({cout, 9, cin});
+  if (cin % 8) {
+    at::Tensor padded = at::zeros({cout, 9, (cin + 7) / 8 * 8}, k.options());
+    padded.narrow(2, 0, cin).copy_(w);
+    w = padded;
+  }
+  w = w.contiguous();
+  at::Tensor out = at::empty({x.size(0), cout, ho, x.size(3)}, x.options().dtype(at::kFloat));
+  check_launch(logits_conv(x.const_data_ptr(), w.const_data_ptr(), bias.const_data_ptr<float>(),
+                           out.mutable_data_ptr<float>(), x.size(0), cin, x.size(2), x.size(3), cout, pad_h, w.size(2),
+                           c10::cuda::getCurrentCUDAStream().stream()),
+               "logits_conv", 0);
+  ++launches[kLogits];
+  return out;
+}
+
 }  // namespace
 
 TORCH_LIBRARY_IMPL(fal_net_torch, CUDA, m) {
@@ -201,6 +242,7 @@ TORCH_LIBRARY_IMPL(fal_net_torch, CUDA, m) {
   m.impl("med_bwd", &med_bwd_cuda);
   m.impl("conv3x3", &conv3x3_cuda);
   m.impl("roll_window", &roll_window_cuda);
+  m.impl("logits_conv", &logits_conv_cuda);
 }
 
 extern "C" {

@@ -12,15 +12,17 @@ fal_net_tpu/models/falnet.py).
 ``dtype`` is the backbone's compute dtype, a model attribute as in JAX
 (fal_net_tpu/models/falnet.py:54); the parameters stay fp32 in both:
   * ``torch.float32``: the backbone in fp32 (TF32 convolutions on the card
-    where torch allows them), then ``conv0`` on iconv1's output, outside
-    autocast;
+    where torch allows them);
   * ``torch.bfloat16``: the image is cast at conv0 and every backbone conv,
     the deconvs included, runs on bf16 input and weights with a bf16 output
-    (models/layers.py).  The logits follow JAX's default ``fuse_logits``
-    (fal_net_tpu/models/backbone.py:320-335, :func:`composed_logits`):
-    iconv1 and the 1x1 are composed in fp32, rounded to bf16 once, and
-    convolved over the bf16 concat with fp32 accumulation and an fp32
-    result; the 1x1's fp32 bias is added after.
+    (models/layers.py).
+In both, the logits follow JAX's default ``fuse_logits``
+(fal_net_tpu/models/backbone.py:320-335, :func:`composed_logits`): iconv1
+and the 1x1 are composed in fp32 into one 3x3 kernel, rounded to the
+compute dtype once, and convolved over the concat with fp32 accumulation
+and an fp32 result, plus the 1x1's fp32 bias: one fp32 convolution in
+fp32, the kernel L1 (ops/logits_conv.py) in bf16.  The parameters and their
+state_dict keys are those of the two convs.
 
 ``phase_deconv`` (off by default): the decoder's exactly-2x deconvs run as
 one transposed conv with a composed 4x4 kernel (ops/phase_deconv.py), 2.25x
@@ -73,6 +75,7 @@ from torch import nn
 from fal_net_torch.models.backbone import VARIANTS, FalNetBackbone, VariantSpec
 from fal_net_torch.models.layers import conv, init_conv
 from fal_net_torch.ops._build import ensure_loaded
+from fal_net_torch.ops.logits_conv import logits_conv
 from fal_net_torch.ops.med import MedOutputs, med_outputs, quirk_mask_r
 from fal_net_torch.ops.med_kernel import med_outputs_fused
 from fal_net_torch.parallel.spatial import ONE_RANK, Level, RowShard, active_rows
@@ -100,17 +103,20 @@ def composed_logits(x: torch.Tensor, iconv1_weight: torch.Tensor, conv1x1: nn.Co
     """JAX's ``fuse_logits`` (fal_net_tpu/models/backbone.py:320-335): the 3x3
     ``iconv1_weight`` and the 1x1 ``conv1x1`` composed in fp32 into one 3x3
     kernel, rounded to ``x``'s dtype once, convolved over ``x`` with fp32
-    accumulation and an fp32 result, plus the 1x1's fp32 bias.  The operands
-    are upcast and convolved in fp32: exact for bf16 operands, TF32
-    included (bf16's 8-bit significand fits TF32's 11 bits).  Under an active
-    row shard, on this rank's rows with their halo."""
-    k = torch.einsum("om,mihw->oihw", conv1x1.weight[:, :, 0, 0], iconv1_weight)
-    k = k.to(x.dtype).float()
+    accumulation and an fp32 result, plus the 1x1's fp32 bias: in fp32 one
+    ``F.conv2d`` (TF32 on the card where torch allows it), in bf16 L1
+    (:func:`fal_net_torch.ops.logits_conv.logits_conv`: the kernel on the
+    card, its plain version on the CPU), whose backward is JAX's
+    ``_conv_accum_bwd``.  Under an active row shard, on this rank's rows
+    with their halo."""
+    k = torch.einsum("om,mihw->oihw", conv1x1.weight[:, :, 0, 0], iconv1_weight).to(x.dtype)
     pad = (iconv1_weight.shape[-2] // 2, iconv1_weight.shape[-1] // 2)
     rows = active_rows()
     if rows is not None:
         x, pad = rows.halo(x, pad[0]), (0, pad[1])
-    return F.conv2d(x.float(), k, conv1x1.bias, 1, pad)
+    if x.dtype == torch.float32:
+        return F.conv2d(x, k, conv1x1.bias, 1, pad)
+    return logits_conv(x.contiguous(), k, conv1x1.bias, pad[0])
 
 
 class FalNet(nn.Module):
@@ -173,13 +179,9 @@ class FalNet(nn.Module):
         return self.spatial.apply(lambda f: self._head(backbone, f), [feats], feats.split)
 
     def _head(self, backbone: FalNetBackbone, feats: torch.Tensor) -> torch.Tensor:
-        """iconv1 and the logits 1x1 on the backbone's features: composed
-        (:func:`composed_logits`) in bf16, one after the other in fp32."""
-        if self.dtype != torch.float32:
-            return composed_logits(feats, backbone.iconv1.weight, self.conv0)
-        dlog = backbone.iconv1(feats)
-        with torch.autocast(feats.device.type, enabled=False):
-            return self.conv0(dlog.float())
+        """iconv1 and the logits 1x1 on the backbone's features, composed
+        (:func:`composed_logits`)."""
+        return composed_logits(feats, backbone.iconv1.weight, self.conv0)
 
     def forward(
         self,

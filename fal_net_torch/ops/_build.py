@@ -47,9 +47,10 @@ CXX_FLAGS = ("-std=c++20", "-O2", "-fPIC", f"-D_GLIBCXX_USE_CXX11_ABI={int(torch
 TORCH_DIR = os.path.dirname(os.path.abspath(torch.__file__))
 TORCH_LIBS = ("c10", "c10_cuda", "torch", "torch_cpu", "torch_cuda")
 # the launch counters of csrc/torch_ops.cpp, in its order: K1 by mode
-# (disp | pan << 1 | subocc << 2, minus one), K2, the conv (K3, K4), the roll (K5)
+# (disp | pan << 1 | subocc << 2, minus one), K2, the conv (K3, K4), the roll
+# (K5), the logits conv (L1)
 K1_MODES = ("disp", "pan", "disp+pan", "subocc", "disp+subocc", "pan+subocc", "disp+pan+subocc")
-COUNTERS = (*(f"med_fwd:{m}" for m in K1_MODES), "med_bwd", "conv3x3", "roll_window")
+COUNTERS = (*(f"med_fwd:{m}" for m in K1_MODES), "med_bwd", "conv3x3", "roll_window", "logits_conv")
 
 
 class BuildError(RuntimeError):

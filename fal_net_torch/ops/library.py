@@ -1,6 +1,6 @@
 """The port's kernels as PyTorch ops: the ``fal_net_torch`` namespace.
 
-Four ops, each defined here with its schema, a fake (meta) impl that gives
+Five ops, each defined here with its schema, a fake (meta) impl that gives
 the output shapes (so that ``torch.export`` traces it), and a CPU kernel
 that is its plain version; their CUDA impls are the hand-written kernels,
 registered by ``csrc/torch_ops.cpp`` once :func:`fal_net_torch.ops._build.load_library`
@@ -19,6 +19,14 @@ has loaded the built library:
     computes.
   * ``roll_window(x, f, wp, left) -> out``: K5; plain version
     :func:`fal_net_torch.ops.roll_probe.roll_window_plain`.
+  * ``logits_conv(x, k, bias, pad_h) -> out``: L1, the composed logits
+    conv (bf16 operands, fp32 sums and output); plain version
+    :func:`fal_net_torch.ops.logits_conv.logits_conv_plain`.  Its autograd
+    formula is JAX's ``_conv_accum_bwd`` (fal_net_tpu/models/layers.py:92):
+    the cotangent cast to the operands' dtype and the same-dtype conv VJP
+    for ``x`` and ``k`` (``aten.convolution_backward``, as JAX leaves it to
+    XLA), the fp32 sum for ``bias``; it saves ``x`` and ``k`` as they came,
+    bf16 on the model's path.
 
 ``tables`` are the MED kernels' plane tables (S, 5, N)
 (:func:`fal_net_torch.ops.med_kernel.plane_tables`), S = 1 for one bound
@@ -31,7 +39,9 @@ The CPU kernels exist so that a program exported on the CPU, and
 ``torch.library.opcheck``, can run: the public wrappers
 (``med_outputs_fused``, ``med_vjp_fused``, ``conv3x3_packed``,
 ``roll_window``) raise on CPU tensors, so a model never reaches a plain
-version through them.
+version through them.  ``logits_conv`` is the exception: the model calls it
+in bf16 on either device (:func:`fal_net_torch.models.falnet.composed_logits`),
+and on CPU tensors its plain CPU kernel is the model's arithmetic.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from __future__ import annotations
 import torch
 
 from fal_net_torch.ops.conv3x3 import conv3x3_tf32_plain
+from fal_net_torch.ops.logits_conv import logits_conv_plain
 from fal_net_torch.ops.med import med_outputs
 from fal_net_torch.ops.med_vjp import med_vjp
 from fal_net_torch.ops.roll_probe import roll_window_plain
@@ -51,6 +62,7 @@ SCHEMAS = {
                "-> (Tensor, Tensor)",
     "conv3x3": "(Tensor x, Tensor w2) -> Tensor",
     "roll_window": "(Tensor x, Tensor f, int wp, int left) -> Tensor",
+    "logits_conv": "(Tensor x, Tensor k, Tensor bias, int pad_h) -> Tensor",
 }
 
 _lib = torch.library.Library(NAMESPACE, "DEF")
@@ -135,3 +147,34 @@ def _roll_window_cpu(x, f, wp, left):
 @torch.library.register_fake(f"{NAMESPACE}::roll_window", lib=_lib)
 def _roll_window_fake(x, f, wp, left):
     return torch.empty_like(x)
+
+
+@torch.library.impl(_lib, "logits_conv", "CPU")
+def _logits_conv_cpu(x, k, bias, pad_h):
+    return logits_conv_plain(x, k, bias, pad_h).contiguous()
+
+
+@torch.library.register_fake(f"{NAMESPACE}::logits_conv", lib=_lib)
+def _logits_conv_fake(x, k, bias, pad_h):
+    b, _, h, w = x.shape
+    return x.new_empty((b, k.shape[0], h - 2 + 2 * pad_h, w), dtype=torch.float32)
+
+
+def _logits_conv_setup(ctx, inputs, output):
+    x, k, _bias, pad_h = inputs
+    ctx.pad_h = pad_h
+    ctx.save_for_backward(x, k)
+
+
+def _logits_conv_backward(ctx, g):
+    x, k = ctx.saved_tensors
+    need_x, need_k, need_bias = ctx.needs_input_grad[:3]
+    dx = dk = None
+    if need_x or need_k:
+        dx, dk, _ = torch.ops.aten.convolution_backward(
+            g.to(x.dtype), x, k, None, [1, 1], [ctx.pad_h, 1], [1, 1], False, [0, 0], 1, [need_x, need_k, False])
+    return dx, dk, g.sum((0, 2, 3)) if need_bias else None, None
+
+
+torch.library.register_autograd(f"{NAMESPACE}::logits_conv", _logits_conv_backward, setup_context=_logits_conv_setup,
+                                lib=_lib)

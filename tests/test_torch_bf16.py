@@ -71,7 +71,8 @@ def _nchw(a):
 
 class ConvDtypes(TorchDispatchMode):
     """Records (input, weight, output) dtypes of every aten convolution and
-    whether the input and weight are bf16-exact."""
+    of the logits conv op (fal_net_torch::logits_conv, L1), and whether the
+    input and weight are bf16-exact."""
 
     def __init__(self):
         super().__init__()
@@ -79,7 +80,7 @@ class ConvDtypes(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if func is torch.ops.aten.convolution.default:
+        if func in (torch.ops.aten.convolution.default, torch.ops.fal_net_torch.logits_conv.default):
             x, w = args[0], args[1]
             exact = lambda t: bool((t.to(torch.bfloat16).to(t.dtype) == t).all())
             self.calls.append((x.dtype, w.dtype, out.dtype, exact(x) and exact(w)))
@@ -89,7 +90,7 @@ class ConvDtypes(TorchDispatchMode):
 @pytest.mark.parametrize("variant", ["A", "B", "tiny"])
 def test_every_backbone_conv_runs_on_bf16(variant):
     """Every backbone conv (deconvs included) takes bf16 input and weights and
-    gives bf16; the logits conv, the last, takes bf16-exact fp32 operands and
+    gives bf16; the logits conv, the last, is the op L1 on bf16 operands and
     gives fp32.  The declared amask head never runs."""
     model = create_model(variant, N, device="cpu", dtype="bfloat16", generator=torch.Generator().manual_seed(0))
     convs = sum(isinstance(m, torch.nn.Conv2d) for m in model.modules()) - 1  # conv0 composes into iconv1
@@ -100,7 +101,7 @@ def test_every_backbone_conv_runs_on_bf16(variant):
     bf16 = torch.bfloat16
     assert len(rec.calls) == convs
     assert all(c[:3] == (bf16, bf16, bf16) for c in rec.calls[:-1]), rec.calls
-    assert rec.calls[-1] == (torch.float32, torch.float32, torch.float32, True)
+    assert rec.calls[-1] == (bf16, bf16, torch.float32, True)
     assert out.disp.dtype == out.pan.dtype == torch.float32
     assert all(p.dtype == torch.float32 for p in model.parameters())
 

@@ -231,12 +231,17 @@ def test_evaluator_on_two_cpu_replicas(tiny, tmp_path, kw):
 
 
 def test_pipeline_on_two_cpu_replicas(tiny, rng):
+    """Batches of 4 over two replicas equal one device at the parts' batch
+    of 2, bit for bit: each part is that batch's computation (the tail's
+    padding included). One device at batch 4 is no exact reference: the
+    CPU's convolutions sum in a batch-dependent order (FAL-net's 1x1 level
+    6 first), a few fp32 ulps that the decoder carries to the disparities."""
     images = [(f"f{i}", (rng.standard_normal((H, W, 3)) * 0.3).astype(np.float32)) for i in range(5)]
-    want = dict(DisparityPipeline(tiny, batch_size=4, ms_post_process=True).run(images))
+    want = dict(DisparityPipeline(tiny, batch_size=2, ms_post_process=True).run(images))
     got = dict(DisparityPipeline(tiny, batch_size=4, ms_post_process=True, mesh=["cpu", "cpu"]).run(images))
     assert list(got) == [n for n, _ in images]
     for n in want:
-        np.testing.assert_allclose(got[n], want[n], rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(got[n], want[n])
 
 
 def test_cli_test_num_devices_on_cpu(tiny, raw_tree, tmp_path):  # noqa: F811
