@@ -157,8 +157,10 @@ Phases, each reported on its own line; any failure exits nonzero:
      per step, L1 once a step; the checkpoint's parameters and Adam's state
      fp32); L1 against its plain version (TF32 off) at rtol 1e-5, atol 1e-5
      max|plain| (the same products summed in another order) at
-     (8, 96, 384, 1280), (1, 96, 384, 1280), (8, 96, 192, 640) and
-     (4, 96, 375, 1242) -> 49, and on halo'd rows (8, 96, 98, 640) with
+     (8, 96, 384, 1280), (1, 96, 384, 1280), (8, 96, 192, 640),
+     (4, 96, 375, 1242) and (8, 96, 375, 1242) -> 49 (x on L1's 16-byte row
+     pitch, as the model builds it: 8-column padded rows at W = 1242), and
+     on halo'd rows (8, 96, 98, 640) with
      pad_h 0 (a --spatial rank's), each timed in turns (medians of 20)
      beside its bound, the plain path the port ran before (an fp32 copy,
      then cuDNN with TF32) and cuDNN's bf16 conv (bf16 out, the nearest
@@ -228,7 +230,7 @@ from fal_net_torch.models import create_model
 from fal_net_torch.models.checkpoint import save_checkpoint
 from fal_net_torch.ops import _build
 from fal_net_torch.ops.logits_conv import LAUNCHES as L1_LAUNCHES
-from fal_net_torch.ops.logits_conv import logits_conv, logits_conv_plain
+from fal_net_torch.ops.logits_conv import logits_conv, logits_conv_plain, pitched
 from fal_net_torch.ops.med import med_outputs
 from fal_net_torch.ops.med_kernel import MedForward, describe_plan, med_outputs_fused, med_vjp_fused, stage_plan
 from fal_net_torch.ops.med_vjp import med_vjp
@@ -297,9 +299,9 @@ FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores, NVIDIA data sheet
 TF32_FLOPS = 494.7e12  # H100 SXM TF32 tensor cores, dense, NVIDIA data sheet
 BF16_FLOPS = 989.4e12  # H100 SXM bf16 tensor cores, dense, NVIDIA data sheet
 # L1 (the composed logits conv) against its plain version: ((B, Cin, H, W), Cout, pad_h); the serving, B=1,
-# stage-1 and validation shapes, and a rank's halo'd rows under --spatial 4 at 384 rows (96 + 2)
+# stage-1, validation and bf16 cli.test shapes, and a rank's halo'd rows under --spatial 4 at 384 rows (96 + 2)
 L1_SHAPES = [((8, 96, 384, 1280), 49, 1), ((1, 96, 384, 1280), 49, 1), ((8, 96, 192, 640), 49, 1),
-             ((4, 96, 375, 1242), 49, 1), ((8, 96, 98, 640), 49, 0)]
+             ((4, 96, 375, 1242), 49, 1), ((8, 96, 375, 1242), 49, 1), ((8, 96, 98, 640), 49, 0)]
 L1_TOL = 1e-5  # rtol, and atol as a fraction of max|plain|: the same products summed in another order
 CONV_TIMED = (8, 64, 192, 640, 64)  # the conv case whose times go into the kernels line
 # fp32 operations per logit, counted from the kernel sources (an exp2 counts
@@ -2048,7 +2050,7 @@ def logits_conv_vs_plain(rng, dev, card: str) -> dict:
     worst, serving = 0.0, None
     for shape, cout, pad_h in L1_SHAPES:
         b, cin, h, w = shape
-        x = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        x = pitched(torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16))  # as the model's concat
         k = (torch.randn((cout, cin, 3, 3), device=dev, generator=gen) / np.sqrt(9 * cin)).to(torch.bfloat16)
         bias = torch.randn(cout, device=dev, generator=gen)
         got = logits_conv(x, k, bias, pad_h)

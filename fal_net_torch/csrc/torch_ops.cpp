@@ -29,6 +29,7 @@
 
 #include <algorithm>
 #include <atomic>
+#include <cstdint>
 #include <optional>
 #include <tuple>
 
@@ -44,8 +45,9 @@ int med_bwd_plan(int N, int C, int W, int want_disp, int want_pan, int want_gimg
 int conv3x3_wgmma(const float* x, const float* w2, float* out, int B, int Cin, int H, int W, int Cout,
                   void* stream);
 int roll_window(const float* x, const int* f, float* out, int H, int W, int wp, int left, void* stream);
-int logits_conv(const void* x, const void* w, const float* bias, float* out, int B, int Cin, int H, int W, int Cout,
-                int pad_h, int w_cin, void* stream);
+int logits_conv(const void* x, const long long* xs, const void* w, const float* bias, float* out, int B, int Cin,
+                int H, int W, int Cout, int pad_h, int w_cin, void* stream);
+int logits_conv_fits(int Cin, int Cout, long long* bytes);
 }
 
 namespace {
@@ -199,9 +201,11 @@ at::Tensor roll_window_cuda(const at::Tensor& x, const at::Tensor& f, int64_t wp
 }
 
 // L1: x (B, Cin, H, W) and k (Cout, Cin, 3, 3) bf16, bias (Cout) fp32 ->
-// (B, Cout, H - 2 + 2 pad_h, W) fp32.  The kernel takes k as (Cout, 9, Cin'),
-// Cin' = Cin rounded up to 8 with zeros (TMA's 16-byte strides): an 85 KB
-// copy at Cin = 96, N = 49.
+// (B, Cout, H - 2 + 2 pad_h, W) fp32.  x's rows are dense on a 16-byte pitch:
+// its row, channel and batch strides multiples of 8 elements (a size-1
+// dimension's stride is the kernel's to choose), its data 16-byte aligned
+// (TMA).  The kernel takes k as (Cout, 9, Cin'), Cin' = Cin rounded up to 8
+// with zeros (TMA's 16-byte strides): an 85 KB copy at Cin = 96, N = 49.
 at::Tensor logits_conv_cuda(const at::Tensor& x, const at::Tensor& k, const at::Tensor& bias, int64_t pad_h) {
   TORCH_CHECK_VALUE(x.is_cuda() && k.device() == x.device() && bias.device() == x.device(),
                     "the logits conv kernel needs x, k and bias on one CUDA device; they are on ", x.device(), ", ",
@@ -210,7 +214,18 @@ at::Tensor logits_conv_cuda(const at::Tensor& x, const at::Tensor& k, const at::
                        bias.scalar_type() == at::kFloat,
                    "the logits conv kernel takes bfloat16 x and k and a float32 bias, got ", x.scalar_type(), ", ",
                    k.scalar_type(), ", ", bias.scalar_type());
-  TORCH_CHECK_VALUE(x.dim() == 4 && x.is_contiguous(), "x must be a contiguous NCHW tensor, got ", x.sizes());
+  TORCH_CHECK_VALUE(x.dim() == 4, "x must be (B, Cin, H, W), got ", x.sizes());
+  // the strides of rows, channels and the batch; a size-1 dimension's as if packed
+  const int64_t w_ = x.size(3);
+  const long long row = x.size(2) > 1 ? x.stride(2) : (w_ + 7) / 8 * 8;
+  const long long chan = x.size(1) > 1 ? x.stride(1) : row * x.size(2);
+  const long long batch = x.size(0) > 1 ? x.stride(0) : chan * x.size(1);
+  const long long xs[3] = {row, chan, batch};
+  TORCH_CHECK_VALUE((x.stride(3) == 1 || w_ == 1) && row >= w_ && row % 8 == 0 && chan % 8 == 0 && batch % 8 == 0 &&
+                        chan > 0 && batch > 0 && reinterpret_cast<uintptr_t>(x.const_data_ptr()) % 16 == 0,
+                    "x's rows must be contiguous, on a 16-byte pitch (row, channel and batch strides multiples of "
+                    "8 elements; ops/logits_conv.py::pitched), and its data 16-byte aligned (TMA); got sizes ",
+                    x.sizes(), ", strides ", x.strides(), ", storage offset ", x.storage_offset());
   TORCH_CHECK_VALUE(k.dim() == 4 && k.size(1) == x.size(1) && k.size(2) == 3 && k.size(3) == 3, "k must be (Cout, ",
                     x.size(1), ", 3, 3) for x ", x.sizes(), ", got ", k.sizes());
   TORCH_CHECK_VALUE(bias.dim() == 1 && bias.size(0) == k.size(0) && bias.is_contiguous(),
@@ -218,6 +233,10 @@ at::Tensor logits_conv_cuda(const at::Tensor& x, const at::Tensor& k, const at::
   TORCH_CHECK_VALUE(pad_h == 0 || pad_h == 1, "pad_h must be 0 or 1, got ", pad_h);
   const int64_t ho = x.size(2) - 2 + 2 * pad_h, cout = k.size(0), cin = k.size(1);
   TORCH_CHECK_VALUE(ho >= 1, "x has ", x.size(2), " rows: no output row at pad_h ", pad_h);
+  long long fit[2];
+  TORCH_CHECK_VALUE(!logits_conv_fits(cin, cout, fit), "the logits conv kernel keeps its weights in shared memory: ",
+                    cout, " output channels of ", cin, " inputs need ", fit[0], " bytes, and at most ", fit[1],
+                    " fit (at most 64 output channels)");
   const c10::cuda::CUDAGuard guard(x.device());
   at::Tensor w = k.permute({0, 2, 3, 1}).reshape({cout, 9, cin});
   if (cin % 8) {
@@ -226,9 +245,10 @@ at::Tensor logits_conv_cuda(const at::Tensor& x, const at::Tensor& k, const at::
     w = padded;
   }
   w = w.contiguous();
-  at::Tensor out = at::empty({x.size(0), cout, ho, x.size(3)}, x.options().dtype(at::kFloat));
-  check_launch(logits_conv(x.const_data_ptr(), w.const_data_ptr(), bias.const_data_ptr<float>(),
-                           out.mutable_data_ptr<float>(), x.size(0), cin, x.size(2), x.size(3), cout, pad_h, w.size(2),
+  at::Tensor out = at::empty({x.size(0), cout, ho, w_}, x.options().dtype(at::kFloat).memory_format(
+                                                            at::MemoryFormat::Contiguous));
+  check_launch(logits_conv(x.const_data_ptr(), xs, w.const_data_ptr(), bias.const_data_ptr<float>(),
+                           out.mutable_data_ptr<float>(), x.size(0), cin, x.size(2), w_, cout, pad_h, w.size(2),
                            c10::cuda::getCurrentCUDAStream().stream()),
                "logits_conv", 0);
   ++launches[kLogits];

@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from fal_net_torch.models.layers import ConvElu, Deconv, ResidualBlock, conv
+from fal_net_torch.ops.logits_conv import pitched_cat
 from fal_net_torch.parallel.spatial import ONE_RANK, Level, RowShard, level_heights
 
 
@@ -164,6 +165,9 @@ class FalNetBackbone(nn.Module):
         for j in range(6, 0, -1):  # deconv6..deconv1; the last fuse is the concat before iconv1
             skip = skips[j - 1]
             d = level(deconv(j, skip.x.shape[-1]), [y], j - 1, row_local=hs[j - 1] == 2 * hs[j], h_in=hs[j])
-            fuse = getattr(self, f"iconv{j}") if j > 1 else (lambda t: t)
-            y = level(lambda a, b, fuse=fuse: fuse(torch.cat([a, b], dim=1)), [d, skip], j - 1)
+            if j > 1:
+                fuse = lambda a, b, conv=getattr(self, f"iconv{j}"): conv(torch.cat([a, b], dim=1))
+            else:  # the logits conv's input: in bf16 on L1's row pitch (ops/logits_conv.py)
+                fuse = lambda a, b: (pitched_cat if a.dtype == torch.bfloat16 else torch.cat)([a, b], dim=1)
+            y = level(fuse, [d, skip], j - 1)
         return y

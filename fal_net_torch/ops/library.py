@@ -21,7 +21,10 @@ has loaded the built library:
     :func:`fal_net_torch.ops.roll_probe.roll_window_plain`.
   * ``logits_conv(x, k, bias, pad_h) -> out``: L1, the composed logits
     conv (bf16 operands, fp32 sums and output); plain version
-    :func:`fal_net_torch.ops.logits_conv.logits_conv_plain`.  Its autograd
+    :func:`fal_net_torch.ops.logits_conv.logits_conv_plain`.  Its CUDA impl
+    takes ``x``'s rows on a 16-byte pitch (``ops/logits_conv.py::on_pitch``;
+    a contiguous tensor is on it where W % 8 == 0) and raises otherwise; the
+    fake impl and the CPU kernel take any layout.  Its autograd
     formula is JAX's ``_conv_accum_bwd`` (fal_net_tpu/models/layers.py:92):
     the cotangent cast to the operands' dtype and the same-dtype conv VJP
     for ``x`` and ``k`` (``aten.convolution_backward``, as JAX leaves it to

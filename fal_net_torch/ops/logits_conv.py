@@ -5,7 +5,7 @@ L1 replaces fal_net_tpu/models/layers.py::_conv_accum as
 fal_net_tpu/models/backbone.py:329 calls it under ``fuse_logits``: a 3x3,
 stride-1 conv of NCHW bf16 ``x`` (B, Cin, H, W) with the bf16 composed
 kernel ``k`` (Cout, Cin, 3, 3), every product and sum in fp32, plus the
-fp32 ``bias`` (Cout), into fp32 (B, Cout, H - 2 + 2 pad_h, W):
+fp32 ``bias`` (Cout), into fp32 NCHW (B, Cout, H - 2 + 2 pad_h, W):
 
     out[b, co, y, x] = bias[co] + sum k[co, ci, dy, dx] x[b, ci, y + dy - pad_h, x + dx - 1]   (0 outside).
 
@@ -19,6 +19,15 @@ CUDA tensor the op launches the kernel (CUDA impl in csrc/torch_ops.cpp,
 which checks the tensors and raises on what the kernel refuses); on a CPU
 tensor it runs :func:`logits_conv_plain`.  ``LAUNCHES`` reads L1's launch
 count, which the op keeps.
+
+The kernel stages ``x`` by TMA, which takes rows on a 16-byte pitch: on the
+card ``x``'s rows must be contiguous, its row, channel and batch strides
+multiples of 8 elements and its data 16-byte aligned (:func:`on_pitch`);
+any other ``x`` raises ``ValueError``.  Where W % 8 == 0 a contiguous
+tensor is on the pitch.  Elsewhere (KITTI's 1242 columns) the model builds
+the concat that L1 reads on it (:func:`pitched_cat`: a view of a buffer
+whose rows are padded to a multiple of 8 columns), and :func:`pitched`
+hands such an ``x`` on as it is.
 """
 
 from __future__ import annotations
@@ -29,6 +38,58 @@ import torch.nn.functional as F
 from fal_net_torch.ops._build import LaunchCounts, load_library
 
 LAUNCHES = LaunchCounts(("logits_conv",))
+PITCH = 8  # elements: L1's rows, channels and batches start on 16 bytes of bf16 (TMA)
+
+
+def on_pitch(x: torch.Tensor) -> bool:
+    """Whether L1 takes ``x``'s layout (the CUDA impl's check, on strides and
+    the storage offset; storage itself starts aligned): rows contiguous, the
+    row, channel and batch strides multiples of :data:`PITCH` (a size-1
+    dimension's stride does not count)."""
+    if x.dim() != 4:
+        return False
+    b, c, h, w = x.shape
+    if w > 1 and x.stride(3) != 1:
+        return False
+    row = x.stride(2) if h > 1 else -(-w // PITCH) * PITCH
+    strides = (row, x.stride(1) if c > 1 else PITCH, x.stride(0) if b > 1 else PITCH)
+    return row >= w and all(s > 0 and s % PITCH == 0 for s in strides) and x.storage_offset() % PITCH == 0
+
+
+def pitched_empty(shape, like: torch.Tensor) -> torch.Tensor:
+    """An uninitialized tensor of ``shape`` with ``like``'s dtype and device
+    whose rows are on L1's pitch: a view of a buffer whose last dimension is
+    rounded up to a multiple of :data:`PITCH` (the buffer itself where it
+    is one)."""
+    *lead, w = shape
+    wp = -(-w // PITCH) * PITCH
+    buf = like.new_empty((*lead, wp))
+    return buf if wp == w else buf[..., :w]
+
+
+def pitched_cat(tensors, dim: int = 1) -> torch.Tensor:
+    """``torch.cat(tensors, dim)`` written on L1's pitch (:func:`pitched_empty`,
+    each tensor copied into its slice; differentiable): ``torch.cat`` itself
+    where the rows already are, W % 8 == 0."""
+    if tensors[0].shape[-1] % PITCH == 0:
+        return torch.cat(tensors, dim)
+    shape = list(tensors[0].shape)
+    shape[dim] = sum(t.shape[dim] for t in tensors)
+    out, at = pitched_empty(shape, tensors[0]), 0
+    for t in tensors:
+        out.narrow(dim, at, t.shape[dim]).copy_(t)
+        at += t.shape[dim]
+    return out
+
+
+def pitched(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself if L1 takes its layout (:func:`on_pitch`), else a copy on
+    the pitch."""
+    if on_pitch(x):
+        return x
+    out = pitched_empty(x.shape, x)
+    out.copy_(x)
+    return out
 
 
 def logits_conv_plain(x: torch.Tensor, k: torch.Tensor, bias: torch.Tensor, pad_h: int) -> torch.Tensor:

@@ -19,6 +19,15 @@ stage-1 training step at batch 8 and 192x640: CUDA events around one call,
 median of 50 calls after warm-up, on inputs and weights from seed 0.
 Prints one JSON object with the card's name.
 
+L1 (the bf16 logits conv) at ``L1_SHAPES`` beside its bytes bound, the bf16
+FAL_netB disp forward at batch 8 (384x1280) and the bf16 stage-1 step
+(batch 8, 192x640) with the fp32 forward and step beside them and each
+one's peak device memory, and the concat that L1 reads, alone, at the
+serving and the evaluation shapes: NCHW ``torch.cat``, a channels-last
+concat (the two parts copied into a channels-last buffer) and, where the
+package has it, ``pitched_cat`` (the rows on L1's 16-byte pitch).
+``--l1`` times only these (python -m fal_net_torch.scripts.med_times --l1).
+
 It calls only entry points that earlier versions of the package have too,
 so run as a file with another checkout of the package first on PYTHONPATH
 (``PYTHONPATH=OTHER python fal_net_torch/scripts/med_times.py``) it times that
@@ -37,6 +46,7 @@ import torch
 
 import fal_net_torch
 from fal_net_torch.models import create_model
+from fal_net_torch.ops.logits_conv import logits_conv
 from fal_net_torch.ops.med_kernel import med_outputs_fused, med_vjp_fused
 from fal_net_torch.ops.roll_probe import roll_window
 from fal_net_torch.train.stages import stage1_loss
@@ -46,6 +56,11 @@ from fal_net_torch.utils.timing import median_ms
 
 SEED, REPS, B, N = 0, 50, 8, 49
 SERVE, TRAIN = (384, 1280), (192, 640)
+# L1: ((B, Cin, H, W), Cout, pad_h): the serving forward, batch 1, the stage-1 step, validation, cli.test at
+# batch 8 and a rank's halo'd rows under --spatial 4 (as chip_smoke.py's L1_SHAPES)
+L1_SHAPES = (((8, 96, 384, 1280), 49, 1), ((1, 96, 384, 1280), 49, 1), ((8, 96, 192, 640), 49, 1),
+             ((4, 96, 375, 1242), 49, 1), ((8, 96, 375, 1242), 49, 1), ((8, 96, 98, 640), 49, 0))
+HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989.4e12  # H100 SXM, NVIDIA data sheet
 
 
 def host_us(fn, calls: int = 5000) -> float:
@@ -62,9 +77,88 @@ def host_us(fn, calls: int = 5000) -> float:
     return secs / calls * 1e6
 
 
+def peak_gb(fn) -> float:
+    """Peak device memory of one call of ``fn``, in GB (here, not imported:
+    an older checkout's package may lack it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def l1_times(dev) -> dict:
+    """L1 at L1_SHAPES, its bound, the concat alone, and the bf16 paths that run L1 (see the module
+    docstring); inputs drawn on the card from seed SEED + 4."""
+    try:  # L1 takes rows on a 16-byte pitch
+        from fal_net_torch.ops.logits_conv import pitched, pitched_cat
+    except ImportError:  # an older package takes contiguous NCHW
+        pitched, pitched_cat = (lambda x: x.contiguous()), None
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    ms, bounds, cat, paths = {}, {}, {}, {}
+    for shape, cout, pad_h in L1_SHAPES:
+        cin = shape[1]
+        x = pitched(torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16))
+        k = (torch.randn((cout, cin, 3, 3), device=dev, generator=gen) / np.sqrt(9 * cin)).to(torch.bfloat16)
+        bias = torch.randn(cout, device=dev, generator=gen)
+        key = f"{shape} -> {cout} pad_h {pad_h}"
+        ms[key] = median_ms(lambda: logits_conv(x, k, bias, pad_h), REPS)
+        outs = shape[0] * cout * (shape[2] - 2 + 2 * pad_h) * shape[3]
+        moved = x.numel() * 2 + k.numel() * 2 + cout * 4 + outs * 4
+        bounds[key] = max(moved / HBM_BYTES_PER_S, 2.0 * outs * 9 * cin / BF16_FLOPS) * 1e3
+        del x, k, bias
+    for b, h, w in ((B, *SERVE), (B, 375, 1242), (4, 375, 1242)):
+        a = torch.randn((b, 64, h, w), device=dev, generator=gen).to(torch.bfloat16)
+        c = torch.randn((b, 32, h, w), device=dev, generator=gen).to(torch.bfloat16)
+
+        def channels_last():
+            o = torch.empty((b, 96, h, w), device=dev, dtype=torch.bfloat16, memory_format=torch.channels_last)
+            o[:, :64].copy_(a)
+            o[:, 64:].copy_(c)
+            return o
+
+        fns = {"nchw": lambda: torch.cat([a, c], 1), "channels-last": channels_last}
+        if pitched_cat is not None:
+            fns["pitched"] = lambda: pitched_cat([a, c])
+        for name, fn in fns.items():
+            cat[f"{name} {(b, 96, h, w)}"] = median_ms(fn, REPS)
+        del a, c
+    torch.cuda.empty_cache()
+    model = create_model("B", N, generator=torch.Generator().manual_seed(SEED), device=dev)
+    left = torch.randn((B, 3, *SERVE), device=dev, generator=gen)
+    for dtype in ("float32", "bfloat16"):
+        m = model.with_dtype(dtype)
+        with torch.inference_mode():
+            fwd = lambda: m(left, 2.0, 300.0, ret_disp=True)
+            paths[f"forward disp {dtype} B={B} {SERVE}"] = median_ms(fwd, REPS)
+            paths[f"forward disp {dtype} B={B} {SERVE} peak GB"] = peak_gb(fwd)
+    del left
+    opt, sched = create_optimizer(
+        model, lr=1e-4, beta1=0.5, beta2=0.999, milestones=(30, 40), lr_gamma=0.5, steps_per_epoch=1000
+    )
+    batch = {"left": torch.randn((B, 3, *TRAIN), device=dev, generator=gen),
+             "right": torch.randn((B, 3, *TRAIN), device=dev, generator=gen)}
+    for dtype in ("float32", "bfloat16"):
+        m = model.with_dtype(dtype)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss, _ = stage1_loss(m, batch, min_disp=2.0, max_disp=300.0, a_p=0.0, a_sm=0.2 * 2 / 512)
+            loss.backward()
+            opt.step()
+            sched.step()
+
+        paths[f"stage-1 step {dtype} B={B} {TRAIN}"] = median_ms(step, REPS, warmup=5)
+    return {"l1": ms, "l1_bound": bounds, "cat": cat, "paths": paths}
+
+
 def main(argv=None) -> dict:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)  # --help only
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--l1", action="store_true", help="time only L1, the concat it reads and its bf16 paths")
+    args = parser.parse_args(argv)
     dev = resolve_device("cuda")
+    if args.l1:
+        return report({}, {}, l1_times(dev))
     rng = np.random.default_rng(SEED)
     draw = lambda c, hw: torch.from_numpy(rng.standard_normal((B, c, *hw), np.float32)).to(dev)
     out = {}
@@ -135,11 +229,18 @@ def main(argv=None) -> dict:
         sched.step()
 
     out[f"stage-1 step B={B} {TRAIN}"] = median_ms(step, REPS, warmup=5)
+    del model, opt, sched, batch
+    torch.cuda.empty_cache()
+    return report(out, host, l1_times(dev))
+
+
+def report(ms: dict, host: dict, l1: dict) -> dict:
+    """Print and return the JSON line, with the card's name and power limit."""
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    result = {"package": fal_net_torch.__file__, "card": card, "ms": out, "host_us": host}
+    result = {"package": fal_net_torch.__file__, "card": card, "ms": ms, "host_us": host, **l1}
     print(json.dumps(result), flush=True)
     return result
 

@@ -35,7 +35,8 @@ from fal_net_torch.models import create_model
 from fal_net_torch.models.falnet import composed_logits
 from fal_net_torch.models.jax_import import state_dict_from_jax
 from fal_net_torch.ops import _build
-from fal_net_torch.ops.logits_conv import LAUNCHES, logits_conv, logits_conv_plain
+from fal_net_torch.ops.logits_conv import LAUNCHES, logits_conv, logits_conv_plain, on_pitch, pitched, pitched_cat
+from fal_net_torch.parallel import spatial
 
 FWD_TOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1.6e-2, 1e-3
@@ -65,7 +66,7 @@ def _jax_logits(variant, num_levels, dtype, x, params=None):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("variant,h,w", [("B", 64, 128), ("tiny", 32, 64)])
+@pytest.mark.parametrize("variant,h,w", [("B", 64, 128), ("tiny", 32, 64), ("tiny", 32, 68)])
 def test_model_logits_match_jax_fused(rng, variant, h, w, dtype):
     """FalNet.logits in fp32 and bf16 against JAX's fused logits on the same
     weights and image: fp32 at MODEL_TOL; bf16, whose backbone rounds at
@@ -168,6 +169,128 @@ def test_logits_conv_opcheck(rng, pad_h):
     assert torch.equal(logits_conv(x, k, b, pad_h), logits_conv_plain(x, k, b, pad_h))
 
 
+@pytest.mark.parametrize("pad_h", [0, 1])
+def test_logits_conv_opcheck_pitched(rng, pad_h):
+    """opcheck on the op with x as the model hands it at W % 8 != 0: a view
+    of a buffer whose rows are padded to 8 columns (on L1's pitch, not
+    contiguous)."""
+    x = pitched(torch.from_numpy(rng.standard_normal((2, 16, 6, 9)).astype(np.float32)).to(torch.bfloat16))
+    assert on_pitch(x) and not x.is_contiguous() and x.stride(2) == 16
+    k = torch.from_numpy(rng.standard_normal((5, 16, 3, 3)).astype(np.float32)).to(torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal(5).astype(np.float32))
+    torch.library.opcheck(torch.ops.fal_net_torch.logits_conv.default,
+                          (x.requires_grad_(), k.requires_grad_(), b.requires_grad_(), pad_h))
+    assert torch.equal(logits_conv(x, k, b, pad_h), logits_conv_plain(x.contiguous(), k, b, pad_h))
+
+
+def test_pitch_helpers(rng):
+    """on_pitch mirrors the CUDA impl's layout check; pitched_cat equals
+    torch.cat (a view of a buffer 8-column padded where W % 8 != 0) and
+    passes gradients to each part; pitched copies only what is off the
+    pitch."""
+    whole = torch.zeros(2, 8, 4, 16, dtype=torch.bfloat16)
+    assert on_pitch(whole) and on_pitch(whole[:, :, :, :9]) and on_pitch(whole[1:]) and on_pitch(whole[:, 2:5])
+    assert not on_pitch(whole[..., 1:]) and not on_pitch(whole[:, :, :, :9].contiguous())
+    assert not on_pitch(whole.transpose(2, 3)) and not on_pitch(whole[0])
+    assert on_pitch(torch.zeros(1, 1, 1, 9)) and not on_pitch(torch.zeros(2, 1, 1, 9))
+    assert pitched(whole) is whole
+    for w in (16, 13):
+        a = torch.from_numpy(rng.standard_normal((2, 5, 3, w)).astype(np.float32)).requires_grad_()
+        c = torch.from_numpy(rng.standard_normal((2, 3, 3, w)).astype(np.float32)).requires_grad_()
+        got = pitched_cat([a, c])
+        assert torch.equal(got, torch.cat([a, c], 1)) and got.stride(2) == 16 and on_pitch(got)
+        g = torch.from_numpy(rng.standard_normal(got.shape).astype(np.float32))
+        got.backward(g)
+        assert torch.equal(a.grad, g[:, :5]) and torch.equal(c.grad, g[:, 5:])
+    off = torch.from_numpy(rng.standard_normal((1, 3, 2, 13)).astype(np.float32))
+    on = pitched(off)
+    assert torch.equal(on, off) and on_pitch(on) and on.data_ptr() != off.data_ptr()
+
+
+def _fake_gather(whole, shard, k):
+    """spatial._all_gather for ``shard``'s halo on the whole tensor's rows:
+    each rank's first and last k rows, as the ranks would send them."""
+    def gather(t, group):
+        return [torch.cat([p[..., :k, :], p[..., -k:, :]], dim=-2)
+                for p in (whole[..., lo:hi, :] for lo, hi in (shard.bounds(whole.shape[-2], r)
+                                                              for r in range(shard.size)))]
+    return gather
+
+
+@pytest.mark.parametrize("index", [0, 1, 2])
+def test_halo_keeps_row_pitch(rng, monkeypatch, index):
+    """Under an active row shard (3 ranks; the gather stands in for the
+    collective), the halo of a bf16 concat on L1's pitch stays on it, equal
+    to the padded rows, and composed_logits hands it to L1 as it is: no copy
+    of the halo'd rows; an fp32 contiguous tensor's halo stays contiguous."""
+    shard = spatial.RowShard(3, index)
+    whole = pitched_cat([torch.from_numpy(rng.standard_normal((2, 8, 9, 13)).astype(np.float32)).to(torch.bfloat16),
+                         torch.from_numpy(rng.standard_normal((2, 8, 9, 13)).astype(np.float32)).to(torch.bfloat16)])
+    monkeypatch.setattr(spatial, "_all_gather", _fake_gather(whole, shard, 1))
+    lo, hi = shard.bounds(9)
+    mine = pitched_cat([whole[:, :8, lo:hi], whole[:, 8:, lo:hi]])
+    got = shard.halo(mine, 1)
+    padded = torch.nn.functional.pad(whole, (0, 0, 1, 1))
+    assert on_pitch(got) and got.stride(2) == 16 and torch.equal(got, padded[:, :, lo:hi + 2])
+    wi = torch.from_numpy(rng.standard_normal((5, 16, 3, 3)).astype(np.float32))
+    conv1x1 = torch.nn.Conv2d(5, 5, 1)
+    seen = []
+
+    class Inputs(torch.utils._python_dispatch.TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is torch.ops.fal_net_torch.logits_conv.default:
+                seen.append(args[0])
+            elif func in (torch.ops.aten.copy_.default, torch.ops.aten.clone.default):
+                seen.append(func)
+            return out
+
+    with torch.no_grad(), shard.active(), Inputs():
+        logits = composed_logits(mine, wi, conv1x1)
+    assert len(seen) == 1 and on_pitch(seen[0]) and seen[0].stride(2) == 16, seen
+    with torch.no_grad():
+        want = composed_logits(whole, wi, conv1x1)[:, :, lo:hi]
+    _close(logits.numpy(), want.numpy(), 1e-6, 1e-6, "halo'd logits")
+    plain = whole.float().contiguous()
+    monkeypatch.setattr(spatial, "_all_gather", _fake_gather(plain, shard, 1))
+    assert shard.halo(plain[:, :, lo:hi], 1).is_contiguous()
+
+
+@pytest.mark.parametrize("w", [32, 36])
+@pytest.mark.parametrize("variant", ["B", "tiny"])
+def test_bf16_concat_reaches_l1_uncopied(variant, w):
+    """FalNet.forward in bf16: the concat that L1 reads is built once, on
+    L1's 16-byte pitch (a view of an 8-column padded buffer at W = 36), and
+    reaches the op as it is: no op copies a (B, Cin, H, W) tensor, and the
+    op's x is the concat's storage."""
+    model = create_model(variant, 9, device="cpu", dtype="bfloat16", generator=torch.Generator().manual_seed(0))
+    cin = model.get_submodule(model.spec.torch_backbone_key).iconv1.weight.shape[1]
+    left = torch.randn(1, 3, 16, w, generator=torch.Generator().manual_seed(1))
+    concat = (1, cin, 16, w)
+    made, copies, inputs = [], [], []
+
+    class Trace(torch.utils._python_dispatch.TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is torch.ops.fal_net_torch.logits_conv.default:
+                inputs.append(args[0])
+            elif isinstance(out, torch.Tensor) and tuple(out.shape) == concat:
+                if func in (torch.ops.aten.cat.default, torch.ops.aten.slice.Tensor):
+                    made.append(out)
+                elif not func._schema.is_mutable and func not in (torch.ops.aten.alias.default,):
+                    copies.append(func)
+            if func in (torch.ops.aten.copy_.default,) and tuple(args[0].shape) == concat:
+                copies.append(func)
+            return out
+
+    with torch.no_grad(), Trace():
+        model(left, 2.0, 300.0, ret_disp=True)
+    assert len(inputs) == 1 and on_pitch(inputs[0]) and tuple(inputs[0].shape) == concat
+    assert len(made) == 1 and made[0].untyped_storage().data_ptr() == inputs[0].untyped_storage().data_ptr()
+    assert inputs[0].is_contiguous() == (w % 8 == 0)
+    assert not copies, copies
+
+
 @pytest.mark.parametrize("variant", ["B", "tiny"])
 def test_bf16_head_saves_no_fp32_copy(variant):
     """Every tensor the bf16 head saves for its backward is bf16, or is a
@@ -221,19 +344,22 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,pad_h,offset", [((2, 96, 12, 256), 1, 0), ((1, 96, 9, 1242), 1, 0),
-                                                ((1, 96, 9, 1242), 0, 2), ((2, 13, 7, 37), 0, 0),
-                                                ((1, 16, 5, 64), 1, 1)])
-def test_logits_conv_kernel_matches_plain_on_gpu(cuda_device, shape, pad_h, offset):
+@pytest.mark.parametrize("shape,pad_h,view", [((2, 96, 12, 256), 1, "whole"), ((1, 96, 9, 1242), 1, "whole"),
+                                              ((1, 96, 9, 1242), 0, "whole"), ((2, 16, 7, 37), 0, "whole"),
+                                              ((1, 16, 5, 64), 1, "whole"), ((2, 96, 6, 70), 1, "channels"),
+                                              ((2, 40, 7, 100), 1, "whole")])
+def test_logits_conv_kernel_matches_plain_on_gpu(cuda_device, shape, pad_h, view):
     """L1 against its plain version (TF32 off) at rtol 1e-5, atol 1e-5
-    max|plain|, one launch a call, on each staging path: TMA (W = 256),
-    shifted 16-byte copies (W = 1242, x at 0 or 2 elements past a 16-byte
-    boundary), single columns (W = 37, or x 2-byte aligned)."""
+    max|plain|, one launch a call, on its one staging path (a TMA box over
+    rows on a 16-byte pitch): W = 256, 1242 (pad_h 1 and 0) and 37 on
+    8-column padded rows, B = 1, the tiny model's 40 channels, and x a
+    channel slice of a wider pitched tensor (its strides not packed)."""
     rng = np.random.default_rng(0)
     b, c, h, w = shape
-    n = int(np.prod(shape))
-    buf = torch.from_numpy(rng.standard_normal(n + offset).astype(np.float32)).to(cuda_device, torch.bfloat16)
-    x = buf[offset:].view(shape)  # contiguous, its data `offset` elements into the buffer
+    wide = (b, 2 * c if view == "channels" else c, h, w)
+    full = pitched(torch.from_numpy(rng.standard_normal(wide).astype(np.float32)).to(cuda_device, torch.bfloat16))
+    x = full[:, c // 2: c // 2 + c] if view == "channels" else full
+    assert on_pitch(x) and x.is_contiguous() == (view == "whole" and w % 8 == 0)
     k = torch.from_numpy(rng.standard_normal((49, c, 3, 3)).astype(np.float32) * 0.1).to(cuda_device, torch.bfloat16)
     bias = torch.from_numpy(rng.standard_normal(49).astype(np.float32)).to(cuda_device)
     _build.load_library()
@@ -252,14 +378,30 @@ def test_logits_conv_kernel_matches_plain_on_gpu(cuda_device, shape, pad_h, offs
 
 @pytest.mark.cuda
 def test_logits_conv_kernel_refuses_on_gpu(cuda_device):
-    """What the kernel does not take raises; nothing falls back."""
+    """What the kernel does not take raises; nothing falls back: a wrong
+    dtype or pad_h, rows that are not contiguous or not on a 16-byte pitch
+    (W = 37 contiguous), data not 16-byte aligned (a view 1 element in), and
+    weights that do not fit in shared memory (more than 64 output channels,
+    or 256 input channels at 49)."""
     x = torch.zeros(1, 8, 4, 16, device=cuda_device, dtype=torch.bfloat16)
     k = torch.zeros(5, 8, 3, 3, device=cuda_device, dtype=torch.bfloat16)
     bias = torch.zeros(5, device=cuda_device)
     _build.load_library()
+    before = LAUNCHES["logits_conv"]
     with pytest.raises(TypeError, match="bfloat16"):
         logits_conv(x.float(), k.float(), bias, 1)
     with pytest.raises(ValueError, match="pad_h"):
         logits_conv(x, k, bias, 2)
     with pytest.raises(ValueError, match="contiguous"):
         logits_conv(x.transpose(2, 3), k, bias, 1)
+    with pytest.raises(ValueError, match="pitch"):
+        logits_conv(torch.zeros(1, 8, 4, 37, device=cuda_device, dtype=torch.bfloat16), k, bias, 1)
+    with pytest.raises(ValueError, match="aligned"):
+        logits_conv(torch.zeros(8 * 4 * 16 + 1, device=cuda_device, dtype=torch.bfloat16)[1:].view(1, 8, 4, 16), k,
+                    bias, 1)
+    for cin, cout in ((8, 65), (256, 49)):
+        xi = torch.zeros(1, cin, 4, 16, device=cuda_device, dtype=torch.bfloat16)
+        ki = torch.zeros(cout, cin, 3, 3, device=cuda_device, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="shared memory"):
+            logits_conv(xi, ki, torch.zeros(cout, device=cuda_device), 1)
+    assert LAUNCHES["logits_conv"] == before
