@@ -230,7 +230,7 @@ from fal_net_torch.models import create_model
 from fal_net_torch.models.checkpoint import save_checkpoint
 from fal_net_torch.ops import _build
 from fal_net_torch.ops.logits_conv import LAUNCHES as L1_LAUNCHES
-from fal_net_torch.ops.logits_conv import logits_conv, logits_conv_plain, pitched
+from fal_net_torch.ops.logits_conv import logits_conv, logits_conv_plain, pitched_empty
 from fal_net_torch.ops.med import med_outputs
 from fal_net_torch.ops.med_kernel import MedForward, describe_plan, med_outputs_fused, med_vjp_fused, stage_plan
 from fal_net_torch.ops.med_vjp import med_vjp
@@ -2050,7 +2050,8 @@ def logits_conv_vs_plain(rng, dev, card: str) -> dict:
     worst, serving = 0.0, None
     for shape, cout, pad_h in L1_SHAPES:
         b, cin, h, w = shape
-        x = pitched(torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16))  # as the model's concat
+        x = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        x = pitched_empty(shape, x).copy_(x)  # on the 16-byte row pitch, as the model builds its concat
         k = (torch.randn((cout, cin, 3, 3), device=dev, generator=gen) / np.sqrt(9 * cin)).to(torch.bfloat16)
         bias = torch.randn(cout, device=dev, generator=gen)
         got = logits_conv(x, k, bias, pad_h)

@@ -66,7 +66,9 @@
 //     loaded by TMA once per block: 9 x Cin' x N x 2 bytes, 96.8 KB for
 //     FAL_netB (Cin = 96, N = 56).  The rest of the 227 KB holds the ring
 //     (3 stages at N = 56) and the relaid buffers.  Blocks are persistent,
-//     one per SM.
+//     one per SM.  Past 64 output channels (--no_levels up to K1's 128)
+//     the channels split into equal tiles of at most 64, one per blockIdx.y,
+//     and a block keeps only its own tile's weights: 110.6 KB at Cin = 96.
 //   * Epilogue: the sums start from the bias and go straight to NCHW fp32;
 //     for one register, the 8 lanes of a quad row write 8 consecutive
 //     pixels (32 bytes).  The Cout, H and W tails are masked.  Both
@@ -90,7 +92,7 @@ constexpr int kStageBytes = kCi * kChan;                    // 24320
 constexpr int kPix = kCols + 2;                             // relaid columns: the tile's and one each side
 constexpr int kC8Bytes = 16 * kInRows * kPix;               // one relaid group of 8 channels: 10400
 constexpr int kRelaidBytes = 2 * kC8Bytes;                  // the chunk's two groups
-constexpr int kMaxN = 64;                  // output channels, padded to a multiple of 8, at most
+constexpr int kMaxN = 64;                  // output channels of a block, padded to a multiple of 8, at most
 constexpr int kThreads = 256;              // two warpgroups
 constexpr int kMaxStages = 4;              // ring depth, at most (3 for FAL_netB, 4 for A and C)
 constexpr int kSmemLimit = 232448;         // a block's shared memory on sm_90
@@ -104,6 +106,11 @@ static_assert(kLead + kCols + 1 <= kBoxW && kBoxW % 8 == 0, "the staged box hold
 // channels, tap), each a multiple of 512 bytes (N % 8 == 0): the 64-byte
 // swizzle's period.
 __host__ __device__ constexpr int weight_bytes(int Cin, int N) { return (Cin + 31) / 32 * 9 * N * 64; }
+
+// The output channels split into co_tiles(Cout) equal tiles of tile_n(Cout) channels (a multiple of 8), one a
+// blockIdx.y; the last is masked at Cout.
+int co_tiles(int Cout) { return (Cout + kMaxN - 1) / kMaxN; }
+int tile_n(int Cout) { return round_up((Cout + co_tiles(Cout) - 1) / co_tiles(Cout), 8); }
 
 // Stages that fit beside the weights and the two relaid buffers; below 2 the shape is refused.
 int stages_for(int wbytes) {
@@ -164,6 +171,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int chunks = (Cin + kCi - 1) / kCi;
   const int n_tiles = tiles.count();
   const int total = n_tiles > (int)blockIdx.x ? ((n_tiles - 1 - blockIdx.x) / gridDim.x + 1) * chunks : 0;
+  const int co0 = blockIdx.y * N;  // this block's output channels: co0 .. co0 + N - 1, below Cout
 
   // chunk i of this block's walk: tile blockIdx.x + (i / chunks) gridDim.x, channels (i % chunks) kCi ..
   auto load = [&](int i) {
@@ -179,7 +187,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     mbar_expect_tx(wbar, weight_bytes(Cin, N));
     for (int c = 0; c < (Cin + 31) / 32; ++c)
-      for (int tap = 0; tap < 9; ++tap) tma_load_3d(wts + (c * 9 + tap) * N * 64, &w_map, wbar, 32 * c, tap, 0);
+      for (int tap = 0; tap < 9; ++tap) tma_load_3d(wts + (c * 9 + tap) * N * 64, &w_map, wbar, 32 * c, tap, co0);
     for (int i = 0; i < stages && i < total; ++i) load(i);
   }
   __syncthreads();
@@ -240,7 +248,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     float acc[kRows][N / 2];  // (pixel m + 8 ((k >> 1) & 1), channel 8 (k >> 2) + 2 tig + (k & 1)), from the bias
 #pragma unroll
     for (int k = 0; k < N / 2; ++k) {
-      const int co = 8 * (k >> 2) + 2 * tig + (k & 1);
+      const int co = co0 + 8 * (k >> 2) + 2 * tig + (k & 1);
       const float b0 = co < Cout ? bias[co] : 0.f;
 #pragma unroll
       for (int o = 0; o < kRows; ++o) acc[o][k] = b0;
@@ -294,7 +302,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int k = 0; k < N / 2; ++k) {
         const int xx = x0 + m + 8 * ((k >> 1) & 1);
-        const int co = 8 * (k >> 2) + 2 * tig + (k & 1);
+        const int co = co0 + 8 * (k >> 2) + 2 * tig + (k & 1);
         if (xx < W && co < Cout) out[(((size_t)b * Cout + co) * Ho + y) * W + xx] = acc[o][k];
       }
     }
@@ -317,7 +325,8 @@ int launch(const CUtensorMap& xm, const CUtensorMap& wm, const float* bias, floa
     set[dev] = true;
   }
   const long long count = (long long)tiles.x_tiles * tiles.y_tiles * tiles.B;
-  const int grid = (int)(count < sms ? count : sms);
+  const int co = co_tiles(Cout), per = sms / co > 1 ? sms / co : 1;  // about one block an SM over all tiles
+  const dim3 grid((unsigned)(count < per ? count : per), (unsigned)co);
   kernel<<<grid, kThreads, smem, stream>>>(xm, wm, bias, out, Cin, W, Ho, Cout, pad_h, stages, tiles);
   return (int)cudaGetLastError();
 }
@@ -327,11 +336,11 @@ int launch(const CUtensorMap& xm, const CUtensorMap& wm, const float* bias, floa
 extern "C" {
 
 // Whether L1 takes Cin input and Cout output channels: 0 if so; else 1.
-// `bytes` gets the weights' bytes in shared memory and the most that fit
-// (0 past kMaxN output channels).
+// `bytes` gets the bytes of one block's weights in shared memory (a tile of
+// at most kMaxN output channels) and the most that fit.
 int logits_conv_fits(int Cin, int Cout, long long* bytes) {
-  bytes[0] = Cin < 1 || Cout < 1 ? 0 : weight_bytes(Cin, round_up(Cout, 8));
-  bytes[1] = Cout > kMaxN ? 0 : kSmemLimit - kAlign - kBarBytes - 2 * kStageBytes - 2 * kRelaidBytes;
+  bytes[0] = Cin < 1 || Cout < 1 ? 0 : weight_bytes(Cin, tile_n(Cout));
+  bytes[1] = kSmemLimit - kAlign - kBarBytes - 2 * kStageBytes - 2 * kRelaidBytes;
   return Cin < 1 || Cout < 1 || bytes[0] > bytes[1];
 }
 
@@ -376,9 +385,9 @@ int logits_conv(const void* x, const long long* xs, const void* w, const float* 
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
-  // w (Cout, 9, w_cin) seen as (w_cin, 9, Cout), innermost first; a box is one tap's (N, 32) tile, zero past
-  // w_cin and Cout
-  const int N = round_up(Cout, 8);
+  // w (Cout, 9, w_cin) seen as (w_cin, 9, Cout), innermost first; a box is one tap's (N, 32) tile of one
+  // block's output channels, zero past w_cin and Cout
+  const int N = tile_n(Cout);
   const cuuint64_t wdim[3] = {(cuuint64_t)w_cin, 9, (cuuint64_t)Cout};
   const cuuint64_t wstride[2] = {(cuuint64_t)w_cin * 2, (cuuint64_t)w_cin * 18};
   const cuuint32_t wbox[3] = {32, 1, (cuuint32_t)N};

@@ -224,7 +224,7 @@ at::Tensor logits_conv_cuda(const at::Tensor& x, const at::Tensor& k, const at::
   TORCH_CHECK_VALUE((x.stride(3) == 1 || w_ == 1) && row >= w_ && row % 8 == 0 && chan % 8 == 0 && batch % 8 == 0 &&
                         chan > 0 && batch > 0 && reinterpret_cast<uintptr_t>(x.const_data_ptr()) % 16 == 0,
                     "x's rows must be contiguous, on a 16-byte pitch (row, channel and batch strides multiples of "
-                    "8 elements; ops/logits_conv.py::pitched), and its data 16-byte aligned (TMA); got sizes ",
+                    "8 elements; ops/logits_conv.py::pitched_empty), and its data 16-byte aligned (TMA); got sizes ",
                     x.sizes(), ", strides ", x.strides(), ", storage offset ", x.storage_offset());
   TORCH_CHECK_VALUE(k.dim() == 4 && k.size(1) == x.size(1) && k.size(2) == 3 && k.size(3) == 3, "k must be (Cout, ",
                     x.size(1), ", 3, 3) for x ", x.sizes(), ", got ", k.sizes());
@@ -236,7 +236,7 @@ at::Tensor logits_conv_cuda(const at::Tensor& x, const at::Tensor& k, const at::
   long long fit[2];
   TORCH_CHECK_VALUE(!logits_conv_fits(cin, cout, fit), "the logits conv kernel keeps its weights in shared memory: ",
                     cout, " output channels of ", cin, " inputs need ", fit[0], " bytes, and at most ", fit[1],
-                    " fit (at most 64 output channels)");
+                    " fit (a block keeps one tile of at most 64 output channels)");
   const c10::cuda::CUDAGuard guard(x.device());
   at::Tensor w = k.permute({0, 2, 3, 1}).reshape({cout, 9, cin});
   if (cin % 8) {

@@ -75,7 +75,7 @@ from torch import nn
 from fal_net_torch.models.backbone import VARIANTS, FalNetBackbone, VariantSpec
 from fal_net_torch.models.layers import conv, init_conv
 from fal_net_torch.ops._build import ensure_loaded
-from fal_net_torch.ops.logits_conv import logits_conv, pitched
+from fal_net_torch.ops.logits_conv import logits_conv
 from fal_net_torch.ops.med import MedOutputs, med_outputs, quirk_mask_r
 from fal_net_torch.ops.med_kernel import med_outputs_fused
 from fal_net_torch.parallel.spatial import ONE_RANK, Level, RowShard, active_rows
@@ -108,10 +108,10 @@ def composed_logits(x: torch.Tensor, iconv1_weight: torch.Tensor, conv1x1: nn.Co
     (:func:`fal_net_torch.ops.logits_conv.logits_conv`: the kernel on the
     card, its plain version on the CPU), whose backward is JAX's
     ``_conv_accum_bwd``.  Under an active row shard, on this rank's rows
-    with their halo.  L1 takes ``x``'s rows on a 16-byte pitch
-    (:func:`fal_net_torch.ops.logits_conv.pitched`): the backbone's concat
-    is built on it, so on the model's path ``x`` goes to the kernel as it
-    is; another layout is copied onto the pitch first."""
+    with their halo.  On the card L1 takes ``x``'s rows only on a 16-byte
+    pitch and raises otherwise (:mod:`fal_net_torch.ops.logits_conv`): the
+    backbone builds its bf16 concat on it and the halo keeps the row
+    stride, so ``x`` goes to the kernel as it is."""
     k = torch.einsum("om,mihw->oihw", conv1x1.weight[:, :, 0, 0], iconv1_weight).to(x.dtype)
     pad = (iconv1_weight.shape[-2] // 2, iconv1_weight.shape[-1] // 2)
     rows = active_rows()
@@ -119,7 +119,7 @@ def composed_logits(x: torch.Tensor, iconv1_weight: torch.Tensor, conv1x1: nn.Co
         x, pad = rows.halo(x, pad[0]), (0, pad[1])
     if x.dtype == torch.float32:
         return F.conv2d(x, k, conv1x1.bias, 1, pad)
-    return logits_conv(pitched(x), k, conv1x1.bias, pad[0])
+    return logits_conv(x, k, conv1x1.bias, pad[0])
 
 
 class FalNet(nn.Module):

@@ -22,8 +22,8 @@ has loaded the built library:
   * ``logits_conv(x, k, bias, pad_h) -> out``: L1, the composed logits
     conv (bf16 operands, fp32 sums and output); plain version
     :func:`fal_net_torch.ops.logits_conv.logits_conv_plain`.  Its CUDA impl
-    takes ``x``'s rows on a 16-byte pitch (``ops/logits_conv.py::on_pitch``;
-    a contiguous tensor is on it where W % 8 == 0) and raises otherwise; the
+    takes ``x``'s rows on a 16-byte pitch (``ops/logits_conv.py``; a
+    contiguous tensor is on it where W % 8 == 0) and raises otherwise; the
     fake impl and the CPU kernel take any layout.  Its autograd
     formula is JAX's ``_conv_accum_bwd`` (fal_net_tpu/models/layers.py:92):
     the cotangent cast to the operands' dtype and the same-dtype conv VJP

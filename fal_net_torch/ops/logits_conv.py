@@ -22,12 +22,12 @@ count, which the op keeps.
 
 The kernel stages ``x`` by TMA, which takes rows on a 16-byte pitch: on the
 card ``x``'s rows must be contiguous, its row, channel and batch strides
-multiples of 8 elements and its data 16-byte aligned (:func:`on_pitch`);
-any other ``x`` raises ``ValueError``.  Where W % 8 == 0 a contiguous
-tensor is on the pitch.  Elsewhere (KITTI's 1242 columns) the model builds
-the concat that L1 reads on it (:func:`pitched_cat`: a view of a buffer
-whose rows are padded to a multiple of 8 columns), and :func:`pitched`
-hands such an ``x`` on as it is.
+multiples of 8 elements and its data 16-byte aligned; any other ``x``
+raises ``ValueError`` (the CUDA impl's check), and is never copied.  Where
+W % 8 == 0 a contiguous tensor is on the pitch.  Elsewhere (KITTI's 1242
+columns) the model builds the concat that L1 reads on it
+(:func:`pitched_cat`: a view of a buffer whose rows are padded to a
+multiple of 8 columns; :func:`pitched_empty` for other callers).
 """
 
 from __future__ import annotations
@@ -39,21 +39,6 @@ from fal_net_torch.ops._build import LaunchCounts, load_library
 
 LAUNCHES = LaunchCounts(("logits_conv",))
 PITCH = 8  # elements: L1's rows, channels and batches start on 16 bytes of bf16 (TMA)
-
-
-def on_pitch(x: torch.Tensor) -> bool:
-    """Whether L1 takes ``x``'s layout (the CUDA impl's check, on strides and
-    the storage offset; storage itself starts aligned): rows contiguous, the
-    row, channel and batch strides multiples of :data:`PITCH` (a size-1
-    dimension's stride does not count)."""
-    if x.dim() != 4:
-        return False
-    b, c, h, w = x.shape
-    if w > 1 and x.stride(3) != 1:
-        return False
-    row = x.stride(2) if h > 1 else -(-w // PITCH) * PITCH
-    strides = (row, x.stride(1) if c > 1 else PITCH, x.stride(0) if b > 1 else PITCH)
-    return row >= w and all(s > 0 and s % PITCH == 0 for s in strides) and x.storage_offset() % PITCH == 0
 
 
 def pitched_empty(shape, like: torch.Tensor) -> torch.Tensor:
@@ -79,16 +64,6 @@ def pitched_cat(tensors, dim: int = 1) -> torch.Tensor:
     for t in tensors:
         out.narrow(dim, at, t.shape[dim]).copy_(t)
         at += t.shape[dim]
-    return out
-
-
-def pitched(x: torch.Tensor) -> torch.Tensor:
-    """``x`` itself if L1 takes its layout (:func:`on_pitch`), else a copy on
-    the pitch."""
-    if on_pitch(x):
-        return x
-    out = pitched_empty(x.shape, x)
-    out.copy_(x)
     return out
 
 

@@ -112,7 +112,7 @@ class _Halo(torch.autograd.Function):
         zeros = x.new_zeros(x.shape[:-2] + (k, x.shape[-1]))
         top = parts[s - 1][..., k:, :] if s > 0 else zeros  # the rank above's last rows
         bottom = parts[s + 1][..., :k, :] if s < n - 1 else zeros  # the rank below's first rows
-        # on x's row pitch (the logits conv's input is padded to a 16-byte pitch: ops/logits_conv.py)
+        # keep the input's row stride: rows padded past W stay padded
         w = x.shape[-1]
         pitch = x.stride(-2) if x.stride(-1) == 1 and x.shape[-2] > 1 and x.stride(-2) > w else w
         out = x.new_empty(x.shape[:-2] + (x.shape[-2] + 2 * k, pitch))[..., :w]

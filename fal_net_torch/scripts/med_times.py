@@ -20,9 +20,10 @@ median of 50 calls after warm-up, on inputs and weights from seed 0.
 Prints one JSON object with the card's name.
 
 L1 (the bf16 logits conv) at ``L1_SHAPES`` beside its bytes bound, the bf16
-FAL_netB disp forward at batch 8 (384x1280) and the bf16 stage-1 step
-(batch 8, 192x640) with the fp32 forward and step beside them and each
-one's peak device memory, and the concat that L1 reads, alone, at the
+FAL_netB disp forward at batch 8 (384x1280) and at KITTI's native
+375x1242 (batch 8, ``cli.test``'s, and 4, validation's) and the bf16
+stage-1 step (batch 8, 192x640) with the fp32 forwards and step beside
+them and each forward's peak device memory, and the concat that L1 reads, alone, at the
 serving and the evaluation shapes: NCHW ``torch.cat``, a channels-last
 concat (the two parts copied into a channels-last buffer) and, where the
 package has it, ``pitched_cat`` (the rows on L1's 16-byte pitch).
@@ -91,7 +92,8 @@ def l1_times(dev) -> dict:
     """L1 at L1_SHAPES, its bound, the concat alone, and the bf16 paths that run L1 (see the module
     docstring); inputs drawn on the card from seed SEED + 4."""
     try:  # L1 takes rows on a 16-byte pitch
-        from fal_net_torch.ops.logits_conv import pitched, pitched_cat
+        from fal_net_torch.ops.logits_conv import pitched_cat, pitched_empty
+        pitched = lambda x: pitched_empty(x.shape, x).copy_(x)
     except ImportError:  # an older package takes contiguous NCHW
         pitched, pitched_cat = (lambda x: x.contiguous()), None
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
@@ -125,14 +127,15 @@ def l1_times(dev) -> dict:
         del a, c
     torch.cuda.empty_cache()
     model = create_model("B", N, generator=torch.Generator().manual_seed(SEED), device=dev)
-    left = torch.randn((B, 3, *SERVE), device=dev, generator=gen)
-    for dtype in ("float32", "bfloat16"):
-        m = model.with_dtype(dtype)
-        with torch.inference_mode():
-            fwd = lambda: m(left, 2.0, 300.0, ret_disp=True)
-            paths[f"forward disp {dtype} B={B} {SERVE}"] = median_ms(fwd, REPS)
-            paths[f"forward disp {dtype} B={B} {SERVE} peak GB"] = peak_gb(fwd)
-    del left
+    for b, hw in ((B, SERVE), (B, (375, 1242)), (4, (375, 1242))):
+        left = torch.randn((b, 3, *hw), device=dev, generator=gen)
+        for dtype in ("float32", "bfloat16"):
+            m = model.with_dtype(dtype)
+            with torch.inference_mode():
+                fwd = lambda: m(left, 2.0, 300.0, ret_disp=True)
+                paths[f"forward disp {dtype} B={b} {hw}"] = median_ms(fwd, REPS)
+                paths[f"forward disp {dtype} B={b} {hw} peak GB"] = peak_gb(fwd)
+        del left
     opt, sched = create_optimizer(
         model, lr=1e-4, beta1=0.5, beta2=0.999, milestones=(30, 40), lr_gamma=0.5, steps_per_epoch=1000
     )

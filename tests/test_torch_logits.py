@@ -35,13 +35,26 @@ from fal_net_torch.models import create_model
 from fal_net_torch.models.falnet import composed_logits
 from fal_net_torch.models.jax_import import state_dict_from_jax
 from fal_net_torch.ops import _build
-from fal_net_torch.ops.logits_conv import LAUNCHES, logits_conv, logits_conv_plain, on_pitch, pitched, pitched_cat
+from fal_net_torch.ops.logits_conv import LAUNCHES, logits_conv, logits_conv_plain, pitched_cat, pitched_empty
 from fal_net_torch.parallel import spatial
 
 FWD_TOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1.6e-2, 1e-3
 # the whole model's logits as tests/test_torch_models.py holds them
 MODEL_TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+def _on_pitch(x):
+    """Whether ``x``'s rows are dense on L1's 16-byte pitch, as the CUDA
+    impl requires: unit column stride, row, channel and batch strides and
+    the data pointer multiples of 8 bf16 elements."""
+    return x.dim() == 4 and x.stride(3) == 1 and all(s % 8 == 0 for s in x.stride()[:3]) and \
+        x.data_ptr() % 16 == 0
+
+
+def _pitched(x):
+    """A copy of ``x`` on L1's pitch, as the model builds its concat."""
+    return pitched_empty(x.shape, x).copy_(x)
 
 
 def _nchw(a):
@@ -174,8 +187,8 @@ def test_logits_conv_opcheck_pitched(rng, pad_h):
     """opcheck on the op with x as the model hands it at W % 8 != 0: a view
     of a buffer whose rows are padded to 8 columns (on L1's pitch, not
     contiguous)."""
-    x = pitched(torch.from_numpy(rng.standard_normal((2, 16, 6, 9)).astype(np.float32)).to(torch.bfloat16))
-    assert on_pitch(x) and not x.is_contiguous() and x.stride(2) == 16
+    x = _pitched(torch.from_numpy(rng.standard_normal((2, 16, 6, 9)).astype(np.float32)).to(torch.bfloat16))
+    assert _on_pitch(x) and not x.is_contiguous() and x.stride(2) == 16
     k = torch.from_numpy(rng.standard_normal((5, 16, 3, 3)).astype(np.float32)).to(torch.bfloat16)
     b = torch.from_numpy(rng.standard_normal(5).astype(np.float32))
     torch.library.opcheck(torch.ops.fal_net_torch.logits_conv.default,
@@ -184,27 +197,24 @@ def test_logits_conv_opcheck_pitched(rng, pad_h):
 
 
 def test_pitch_helpers(rng):
-    """on_pitch mirrors the CUDA impl's layout check; pitched_cat equals
-    torch.cat (a view of a buffer 8-column padded where W % 8 != 0) and
-    passes gradients to each part; pitched copies only what is off the
-    pitch."""
-    whole = torch.zeros(2, 8, 4, 16, dtype=torch.bfloat16)
-    assert on_pitch(whole) and on_pitch(whole[:, :, :, :9]) and on_pitch(whole[1:]) and on_pitch(whole[:, 2:5])
-    assert not on_pitch(whole[..., 1:]) and not on_pitch(whole[:, :, :, :9].contiguous())
-    assert not on_pitch(whole.transpose(2, 3)) and not on_pitch(whole[0])
-    assert on_pitch(torch.zeros(1, 1, 1, 9)) and not on_pitch(torch.zeros(2, 1, 1, 9))
-    assert pitched(whole) is whole
+    """pitched_empty rounds the rows up to 8 columns (the buffer itself
+    where W % 8 == 0, a view of it elsewhere); pitched_cat equals torch.cat
+    on that pitch and passes gradients to each part."""
+    for w, pitch in ((16, 16), (13, 16), (8, 8), (1, 8)):
+        e = pitched_empty((2, 3, 4, w), torch.zeros((), dtype=torch.bfloat16))
+        assert e.shape == (2, 3, 4, w) and e.dtype == torch.bfloat16 and e.stride() == (12 * pitch, 4 * pitch, pitch, 1)
+        assert e.is_contiguous() == (w % 8 == 0) and _on_pitch(e)
     for w in (16, 13):
         a = torch.from_numpy(rng.standard_normal((2, 5, 3, w)).astype(np.float32)).requires_grad_()
         c = torch.from_numpy(rng.standard_normal((2, 3, 3, w)).astype(np.float32)).requires_grad_()
         got = pitched_cat([a, c])
-        assert torch.equal(got, torch.cat([a, c], 1)) and got.stride(2) == 16 and on_pitch(got)
+        assert torch.equal(got, torch.cat([a, c], 1)) and got.stride(2) == 16 and _on_pitch(got)
         g = torch.from_numpy(rng.standard_normal(got.shape).astype(np.float32))
         got.backward(g)
         assert torch.equal(a.grad, g[:, :5]) and torch.equal(c.grad, g[:, 5:])
     off = torch.from_numpy(rng.standard_normal((1, 3, 2, 13)).astype(np.float32))
-    on = pitched(off)
-    assert torch.equal(on, off) and on_pitch(on) and on.data_ptr() != off.data_ptr()
+    on = _pitched(off)
+    assert torch.equal(on, off) and _on_pitch(on) and not _on_pitch(off)
 
 
 def _fake_gather(whole, shard, k):
@@ -231,7 +241,7 @@ def test_halo_keeps_row_pitch(rng, monkeypatch, index):
     mine = pitched_cat([whole[:, :8, lo:hi], whole[:, 8:, lo:hi]])
     got = shard.halo(mine, 1)
     padded = torch.nn.functional.pad(whole, (0, 0, 1, 1))
-    assert on_pitch(got) and got.stride(2) == 16 and torch.equal(got, padded[:, :, lo:hi + 2])
+    assert _on_pitch(got) and got.stride(2) == 16 and torch.equal(got, padded[:, :, lo:hi + 2])
     wi = torch.from_numpy(rng.standard_normal((5, 16, 3, 3)).astype(np.float32))
     conv1x1 = torch.nn.Conv2d(5, 5, 1)
     seen = []
@@ -247,7 +257,7 @@ def test_halo_keeps_row_pitch(rng, monkeypatch, index):
 
     with torch.no_grad(), shard.active(), Inputs():
         logits = composed_logits(mine, wi, conv1x1)
-    assert len(seen) == 1 and on_pitch(seen[0]) and seen[0].stride(2) == 16, seen
+    assert len(seen) == 1 and _on_pitch(seen[0]) and seen[0].stride(2) == 16, seen
     with torch.no_grad():
         want = composed_logits(whole, wi, conv1x1)[:, :, lo:hi]
     _close(logits.numpy(), want.numpy(), 1e-6, 1e-6, "halo'd logits")
@@ -285,10 +295,38 @@ def test_bf16_concat_reaches_l1_uncopied(variant, w):
 
     with torch.no_grad(), Trace():
         model(left, 2.0, 300.0, ret_disp=True)
-    assert len(inputs) == 1 and on_pitch(inputs[0]) and tuple(inputs[0].shape) == concat
+    assert len(inputs) == 1 and _on_pitch(inputs[0]) and tuple(inputs[0].shape) == concat
     assert len(made) == 1 and made[0].untyped_storage().data_ptr() == inputs[0].untyped_storage().data_ptr()
     assert inputs[0].is_contiguous() == (w % 8 == 0)
     assert not copies, copies
+
+
+def test_bf16_artifact_keeps_row_pitch(tmp_path):
+    """A bf16 artifact exported at W % 8 != 0 keeps the concat's padded
+    rows: the program hands L1 an x on the pitch (the CUDA impl refuses any
+    other), equal to the live model's output."""
+    from fal_net_torch import serve
+
+    model = create_model("tiny", 9, device="cpu", dtype="bfloat16", generator=torch.Generator().manual_seed(0))
+    path = str(tmp_path / "bf16.pt2z")
+    serve.save_exported(path, serve.export_forward(model, batch=1, height=32, width=36, device="cpu"))
+    fwd = serve.load_exported(path, device="cpu")
+    left = torch.rand(1, 32, 36, 3, generator=torch.Generator().manual_seed(1))
+    inputs = []
+
+    class Inputs(torch.utils._python_dispatch.TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.fal_net_torch.logits_conv.default:
+                inputs.append(args[0])
+            return func(*args, **(kwargs or {}))
+
+    with torch.no_grad(), Inputs():
+        (got,) = fwd(left)
+    assert len(inputs) == 1 and tuple(inputs[0].shape) == (1, 40, 32, 36) and _on_pitch(inputs[0])
+    assert not inputs[0].is_contiguous()
+    with torch.no_grad():
+        want = model(left.permute(0, 3, 1, 2), 2.0, 300.0, ret_disp=True).disp.permute(0, 2, 3, 1)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("variant", ["B", "tiny"])
@@ -344,24 +382,30 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,pad_h,view", [((2, 96, 12, 256), 1, "whole"), ((1, 96, 9, 1242), 1, "whole"),
-                                              ((1, 96, 9, 1242), 0, "whole"), ((2, 16, 7, 37), 0, "whole"),
-                                              ((1, 16, 5, 64), 1, "whole"), ((2, 96, 6, 70), 1, "channels"),
-                                              ((2, 40, 7, 100), 1, "whole")])
-def test_logits_conv_kernel_matches_plain_on_gpu(cuda_device, shape, pad_h, view):
+@pytest.mark.parametrize("shape,pad_h,view,cout", [
+    ((2, 96, 12, 256), 1, "whole", 49), ((1, 96, 9, 1242), 1, "whole", 49), ((1, 96, 9, 1242), 0, "whole", 49),
+    ((2, 16, 7, 37), 0, "whole", 49), ((1, 16, 5, 64), 1, "whole", 49), ((2, 96, 6, 70), 1, "channels", 49),
+    ((2, 40, 7, 100), 1, "whole", 49), ((2, 13, 6, 70), 1, "whole", 49), ((2, 96, 7, 300), 1, "whole", 65),
+    ((2, 96, 9, 1242), 1, "whole", 98), ((1, 96, 6, 256), 1, "whole", 128), ((2, 40, 5, 37), 1, "whole", 72)])
+def test_logits_conv_kernel_matches_plain_on_gpu(cuda_device, shape, pad_h, view, cout):
     """L1 against its plain version (TF32 off) at rtol 1e-5, atol 1e-5
     max|plain|, one launch a call, on its one staging path (a TMA box over
     rows on a 16-byte pitch): W = 256, 1242 (pad_h 1 and 0) and 37 on
-    8-column padded rows, B = 1, the tiny model's 40 channels, and x a
-    channel slice of a wider pitched tensor (its strides not packed)."""
+    8-column padded rows, B = 1, the tiny model's 40 channels, x a
+    channel slice of a wider pitched tensor (its strides not packed),
+    Cin % 8 != 0 (13: the weights repacked to 16 channels, TMA's zeros past
+    Cin inside a 16-channel chunk), and past 64 output channels
+    (--no_levels up to K1's 128 planes: tiles of at most 64 in blockIdx.y,
+    each block keeping only its tile's weights, the last masked at Cout)."""
     rng = np.random.default_rng(0)
     b, c, h, w = shape
     wide = (b, 2 * c if view == "channels" else c, h, w)
-    full = pitched(torch.from_numpy(rng.standard_normal(wide).astype(np.float32)).to(cuda_device, torch.bfloat16))
+    full = _pitched(torch.from_numpy(rng.standard_normal(wide).astype(np.float32)).to(cuda_device, torch.bfloat16))
     x = full[:, c // 2: c // 2 + c] if view == "channels" else full
-    assert on_pitch(x) and x.is_contiguous() == (view == "whole" and w % 8 == 0)
-    k = torch.from_numpy(rng.standard_normal((49, c, 3, 3)).astype(np.float32) * 0.1).to(cuda_device, torch.bfloat16)
-    bias = torch.from_numpy(rng.standard_normal(49).astype(np.float32)).to(cuda_device)
+    assert _on_pitch(x) and x.is_contiguous() == (view == "whole" and w % 8 == 0)
+    k = torch.from_numpy(rng.standard_normal((cout, c, 3, 3)).astype(np.float32) * 0.1).to(cuda_device,
+                                                                                           torch.bfloat16)
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)).to(cuda_device)
     _build.load_library()
     before = LAUNCHES["logits_conv"]
     got = logits_conv(x, k, bias, pad_h)
@@ -381,8 +425,8 @@ def test_logits_conv_kernel_refuses_on_gpu(cuda_device):
     """What the kernel does not take raises; nothing falls back: a wrong
     dtype or pad_h, rows that are not contiguous or not on a 16-byte pitch
     (W = 37 contiguous), data not 16-byte aligned (a view 1 element in), and
-    weights that do not fit in shared memory (more than 64 output channels,
-    or 256 input channels at 49)."""
+    weights that do not fit in shared memory (a block's tile of 64 output
+    channels of 160 inputs, or 49 of 256)."""
     x = torch.zeros(1, 8, 4, 16, device=cuda_device, dtype=torch.bfloat16)
     k = torch.zeros(5, 8, 3, 3, device=cuda_device, dtype=torch.bfloat16)
     bias = torch.zeros(5, device=cuda_device)
@@ -399,7 +443,7 @@ def test_logits_conv_kernel_refuses_on_gpu(cuda_device):
     with pytest.raises(ValueError, match="aligned"):
         logits_conv(torch.zeros(8 * 4 * 16 + 1, device=cuda_device, dtype=torch.bfloat16)[1:].view(1, 8, 4, 16), k,
                     bias, 1)
-    for cin, cout in ((8, 65), (256, 49)):
+    for cin, cout in ((160, 64), (256, 49)):
         xi = torch.zeros(1, cin, 4, 16, device=cuda_device, dtype=torch.bfloat16)
         ki = torch.zeros(cout, cin, 3, 3, device=cuda_device, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="shared memory"):
