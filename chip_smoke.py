@@ -203,7 +203,17 @@ Phases, each reported on its own line; any failure exits nonzero:
      alone, are printed beside them); K1 and K2 per rank and K1's launch shapes (each rank's
      rows); which levels each shape splits and keeps whole; each rank's ms
      (median of 5 more, TF32 on, host clock to a device synchronise) and
-     peak device memory beside one process's.
+     peak device memory beside one process's;
+  15. the quickstart and the console scripts: ``main(["--device",
+     "cuda"])`` of examples/quickstart_synthetic_torch.py in a temporary
+     working directory (the tiny model, N = 9, 64x128, batch 8: the MED
+     gate, 16 stage-1 steps, then the disp forward and multi-scale
+     post-processing), K1 and K2 counted (gate 1 each, steps 16 each, ms-pp
+     2 K1), every epoch's loss finite, the post-processed disparity finite
+     within [2, 24] px (the model's disparity bounds); then each
+     ``falnet-torch-*`` console script of pyproject.toml's
+     ``[project.scripts]``, resolved as an installed script's wrapper
+     resolves it: ``--help`` exits 0.
 After the phases a line gives the seconds each took on the host clock.
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2542,6 +2552,67 @@ def phase_scripts(card: str) -> list[dict]:
     return entries
 
 
+def phase_quickstart() -> dict:
+    """Phase 15: the port's quickstart on the card, then the console scripts
+    (see the module docstring).  Returns K1's and K2's launches on the
+    quickstart's path, the gate's apart."""
+    import importlib.metadata
+    import importlib.util
+    import io
+    import tomllib
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_synthetic_torch", os.path.join(here, "examples", "quickstart_synthetic_torch.py"))
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    cwd, t0 = os.getcwd(), time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        os.chdir(workdir)  # the example writes runs/quickstart under the working directory
+        try:
+            _build.reset_launch_counts()
+            result = quickstart.main(["--device", "cuda"])
+            torch.cuda.synchronize()
+            k1, k2 = MedForward.launches, MedForward.bwd_launches
+        finally:
+            os.chdir(cwd)
+    secs = time.perf_counter() - t0
+    steps = 2 * (len(quickstart.SyntheticStereo()) // 8)  # 2 epochs of batch 8
+    # the gate once each, every step once each, the ms-pp forwards (disp, then the flipped 2/3 pass) K1 twice
+    if (k1, k2) != (1 + steps + 2, 1 + steps):
+        raise AssertionError(f"phase 15 quickstart: K1 {k1}, K2 {k2} launches; want {1 + steps + 2} and {1 + steps}")
+    losses = [(h["loss"], h["rec_loss"]) for h in result["history"]]
+    if len(losses) != 2 or not np.isfinite(losses).all():
+        raise AssertionError(f"phase 15 quickstart: history {result['history']}")
+    d = result["disparity"]
+    lo, hi = float(d.min()), float(d.max())
+    if tuple(d.shape) != (1, 1, 64, 128) or not torch.isfinite(d).all() or not 2.0 <= lo <= hi <= 24.0:
+        raise AssertionError(f"phase 15 quickstart: disparity {tuple(d.shape)} in [{lo}, {hi}]")
+    line(f"phase 15 quickstart (tiny, N=9, 64x128, B=8, {steps} stage-1 steps, then ms-pp) in {secs:.2f} s: epoch "
+         f"(loss, rec_loss) {losses}; disparity median {float(d.median()):.4f} px, range [{lo:.4f}, {hi:.4f}] "
+         f"(ground truth {quickstart.SyntheticStereo.DISP}); K1 {k1} (gate 1, steps {steps}, ms-pp 2), K2 {k2} "
+         f"(gate 1, steps {steps})")
+
+    with open(os.path.join(here, "pyproject.toml"), "rb") as f:
+        scripts = {k: v for k, v in tomllib.load(f)["project"]["scripts"].items() if k.startswith("falnet-torch-")}
+    want = {f"falnet-torch-{c}" for c in ("train", "test", "export", "infer", "convert", "selfcheck")}
+    if set(scripts) != want:
+        raise AssertionError(f"phase 15 console scripts: {sorted(scripts)}, want {sorted(want)}")
+    for name, value in sorted(scripts.items()):
+        entry = importlib.metadata.EntryPoint(name, value, "console_scripts").load()
+        code = "no exit"
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            try:
+                entry(["--help"])
+            except SystemExit as e:
+                code = e.code
+        if code != 0 or "usage:" not in out.getvalue():
+            raise AssertionError(f"phase 15 {name} = {value}: --help gave {code!r}")
+    line(f"phase 15 console scripts: {', '.join(f'{k} = {v}' for k, v in sorted(scripts.items()))}: each imports "
+         f"and --help exits 0")
+    return {"k1": k1 - 1, "k2": k2 - 1}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2575,6 +2646,7 @@ def main() -> None:
             bf16 = timed("12", phase_bf16, rng, dev, card, args.seed, serve_dir, evaluation, workdir)
             multi = timed("13", phase_multi, dev, card, evaluation, workdir)
             spatial = timed("14", phase_spatial, dev, card, workdir)
+    quick = timed("15", phase_quickstart)
     line(f"phase seconds (host clock): {PHASE_S}; {time.perf_counter() - t_start:.1f} s in all, the interpreter's "
          f"start and imports apart")
     k1_bound, k1_by = bound(times["disp"][2], OPS_PER_LOGIT["med_fwd"] * times["disp_logits"])
@@ -2587,9 +2659,10 @@ def main() -> None:
             "replaces": "fal_net_tpu/ops/med_pallas.py:116",
             # serving (phase 4), training (phase 7a-c, 7d stage 2, 7e stage 1 slow, 7f the default run with
             # validation, 7g remat), evaluation (phase 10), the serving artifacts (phase 11), bf16 (phase 12) and
-            # the DDP ranks and evaluation replicas (phase 13) and the ranks that split rows (phase 14)
+            # the DDP ranks and evaluation replicas (phase 13), the ranks that split rows (phase 14) and the quickstart
+            # (phase 15)
             "launches": serve_launches + train["k1"] + later["k1"] + default["k1"] + remat["k1"] + evaluation["k1"]
-            + artifact["k1"] + bf16_train["k1"] + bf16["k1"] + multi["k1"] + spatial["k1"],
+            + artifact["k1"] + bf16_train["k1"] + bf16["k1"] + multi["k1"] + spatial["k1"] + quick["k1"],
             "max_abs_err": max(worst3, worst4, default["worst"], evaluation["worst"], bf16["worst"]),
             "ms": times["disp"][0],  # disp-only at (8, 49, 384, 1280)
             "plain_ms": times["disp"][1],
@@ -2603,9 +2676,9 @@ def main() -> None:
             "source": "fal_net_torch/csrc/med_bwd.cu",
             "replaces": "fal_net_tpu/ops/med_pallas.py:253",
             # training paths (phase 7a-c, 7d, 7e, 7f, 7g, the bf16 steps of phase 12, the DDP ranks of phase 13, the
-            # ranks that split rows in phase 14)
+            # ranks that split rows in phase 14, the quickstart's steps in phase 15)
             "launches": train["k2"] + later["k2"] + default["k2"] + remat["k2"] + bf16_train["k2"] + bf16["k2"]
-            + multi["k2"] + spatial["k2"],
+            + multi["k2"] + spatial["k2"] + quick["k2"],
             "max_abs_err": max(worst3b, train["worst"], later["worst"], default["k2_worst"]),
             "ms": times["k2"][0],  # disp+pan cotangents, no g_img, at (8, 49, 192, 640)
             "plain_ms": times["k2"][1],

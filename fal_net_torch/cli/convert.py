@@ -51,5 +51,11 @@ def main(argv=None) -> str:
     return path
 
 
+def run(argv=None) -> None:
+    """The ``falnet-torch-convert`` console script: :func:`main` without
+    the checkpoint's path, which the script would pass to ``sys.exit`` as a failure."""
+    main(argv)
+
+
 if __name__ == "__main__":
     main()

@@ -245,5 +245,11 @@ def save_point_cloud(path: str, image_path: str, disp: np.ndarray) -> None:
     save_point_cloud_ply(path, pc)
 
 
+def run(argv=None) -> None:
+    """The ``falnet-torch-infer`` console script: :func:`main` without
+    the number of images written, which the script would pass to ``sys.exit`` as a failure."""
+    main(argv)
+
+
 if __name__ == "__main__":
     main()

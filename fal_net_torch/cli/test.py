@@ -162,5 +162,11 @@ def main(argv=None) -> dict:
     return metrics
 
 
+def run(argv=None) -> None:
+    """The ``falnet-torch-test`` console script: :func:`main` without
+    the metrics, which the script would pass to ``sys.exit`` as a failure."""
+    main(argv)
+
+
 if __name__ == "__main__":
     main()

@@ -215,5 +215,11 @@ def main(argv=None) -> dict:
     return result
 
 
+def run(argv=None) -> None:
+    """The ``falnet-torch-train`` console script: :func:`main` without
+    the trainer's result, which the script would pass to ``sys.exit`` as a failure."""
+    main(argv)
+
+
 if __name__ == "__main__":
     main()

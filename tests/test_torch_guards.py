@@ -6,6 +6,7 @@ and chip_smoke.py refusing to run without a GPU.  The tests marked cuda need
 a GPU and skip without one."""
 
 import importlib
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -63,7 +64,7 @@ assert not bad, bad
 
 def test_no_jax_in_the_port_sources():
     """A grep of every source of the port (python, CUDA and the native C++
-    decoder) and of chip_smoke.py: no import of jax, jaxlib, flax, msgpack
+    decoder), of chip_smoke.py and of the port's quickstart: no import of jax, jaxlib, flax, msgpack
     or fal_net_tpu, and no C++ include from fal_net_tpu.  The port reads
     JAX's msgpack checkpoints with its own decoder (models/msgpack.py)."""
     import glob
@@ -71,7 +72,7 @@ def test_no_jax_in_the_port_sources():
 
     pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|msgpack|fal_net_tpu)\b"
                          r"|#\s*include\s+[<\"][^>\"]*fal_net_tpu", re.M)
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "examples", "quickstart_synthetic_torch.py")]
     for ext in ("py", "cu", "cuh", "cpp"):
         files += glob.glob(os.path.join(REPO, "fal_net_torch", "**", f"*.{ext}"), recursive=True)
     assert any(f.endswith(os.path.join("native", "io_native.cpp")) for f in files)
@@ -101,9 +102,10 @@ def test_fused_head_raises_on_cpu_tensors():
     assert MedForward.launches == launches
 
 
-def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
-    """create_model, load_checkpoint and cli.train default to the GPU; without
-    one they raise instead of running on the CPU."""
+def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path, monkeypatch):
+    """create_model, load_checkpoint, cli.train and the port's quickstart
+    default to the GPU; without one they raise instead of running on the
+    CPU."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present; the default device is usable")
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -117,6 +119,14 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
         load_checkpoint(path)
     with pytest.raises(RuntimeError, match="is_available"):
         train.main(["--data_root", str(tmp_path), "--model", "tiny", "--a_p", "0"])
+    spec = importlib.util.spec_from_file_location(
+        "_quickstart_torch", os.path.join(REPO, "examples", "quickstart_synthetic_torch.py"))
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="is_available"):
+        quickstart.main([])
+    assert os.listdir(tmp_path) == ["tiny.pt"]  # raised before it wrote a run directory
 
 
 def test_k2_raises_on_cpu_tensors():
