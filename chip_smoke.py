@@ -12,7 +12,8 @@ Phases, each reported on its own line; any failure exits nonzero:
   3. K1 vs plain: the MED forward kernel against the plain PyTorch head
      on shared seeded inputs, every mode, at the TPU kernel tests' shapes, with
      per-sample bound tensors, at the training shape (8, 49, 192, 640) and at
-     the serving shape (8, 49, 384, 1280), and at W = 11,572, 32,768 and
+     the serving shape (8, 49, 384, 1280), at FAL_netA and C's N = 33 at the
+     serving width (2, 33, 16, 1280), and at W = 11,572, 32,768 and
      65,536 (the direct path: slot rows hold a 1,280-column chunk's window
      and the shift margin, the image row is read from device memory), with
      those tests' tolerances.
@@ -21,7 +22,9 @@ Phases, each reported on its own line; any failure exits nonzero:
      the whole row (N = 49, W = 640), a ring that streams the planes once a
      sweep (N = 49, W = 1280; two column chunks at W = 1500),
      and cp.async copies where W * 4 is not a multiple of 16 (W = 187);
-  3b. K2 vs plain: the MED backward kernel against the plain VJP at the TPU
+  3b. K2 vs plain: the MED backward kernel against the plain VJP (evaluated
+     in float64 on the same inputs: in fp32 its own error reaches the
+     tolerance at |disparity| 300, see ``plain_vjp64``) at the TPU
      gradient tests' shapes (N = 7, 33, 49 at 8x128), with per-sample bound
      tensors, at W = 187 (cp.async), (2, 49, 16, 1280) and W = 1500 (ring),
      W = 5000, 32,768 and 65,536 (the direct path: chunk windows, the image
@@ -158,7 +161,8 @@ Phases, each reported on its own line; any failure exits nonzero:
      fp32); L1 against its plain version (TF32 off) at rtol 1e-5, atol 1e-5
      max|plain| (the same products summed in another order) at
      (8, 96, 384, 1280), (1, 96, 384, 1280), (8, 96, 192, 640),
-     (4, 96, 375, 1242) and (8, 96, 375, 1242) -> 49 (x on L1's 16-byte row
+     (4, 96, 375, 1242) and (8, 96, 375, 1242) -> 49, (8, 96, 384, 1280) and
+     (8, 96, 192, 640) -> 33 (FAL_netA and C; x on L1's 16-byte row
      pitch, as the model builds it: 8-column padded rows at W = 1242), and
      on halo'd rows (8, 96, 98, 640) with
      pad_h 0 (a --spatial rank's), each timed in turns (medians of 20)
@@ -213,7 +217,32 @@ Phases, each reported on its own line; any failure exits nonzero:
      within [2, 24] px (the model's disparity bounds); then each
      ``falnet-torch-*`` console script of pyproject.toml's
      ``[project.scripts]``, resolved as an installed script's wrapper
-     resolves it: ``--help`` exits 0.
+     resolves it: ``--help`` exits 0;
+  16. FAL_netA and FAL_netC at their published widths and N = 33
+     (fal_net_torch/scripts/verify_variants.py, the JAX package's
+     scripts/verify_variants_tpu.py, from the weights that script draws):
+     per variant K1 against the plain head at (1, 33, 384, 1280) with its
+     plan, the disp+pan+subocc forward at 384x1280 finite in [0, 300] and
+     timed at B=1 and 8, for A the maskR quirk on the same weights (maskR
+     differs by more than 1e-4, disp, pan and maskL bit-identical; its B=8
+     time and peak memory beside the default's), and 400 stage-1 steps
+     (64x128, B=4, bounds 2..18) whose median disparity lands within half a
+     level spacing of 6.00 px with falling loss, K1 401 and K2 400 launches;
+     then K1 in every mode at phase 3's tolerances and K2 in every cotangent
+     mode at phase 3b's at the serving (8, 33, 384, 1280), stage-1
+     (8, 33, 192, 640) and evaluation (8, 33, 375, 1242; cp.async) shapes,
+     each plan printed, and their times beside the plain versions and the
+     bytes bound; per variant one stage-1 step (192x640, B=8; K1 1, K2 1),
+     K2 against the plain VJP on the model's own logits with the loss's
+     cotangents, the steps timed in turns with FAL_netB N=49's (medians of
+     10) with peak memory; the bf16 forward at 384x1280, B=8 (K1 = plain head on its fp32
+     logits in every mode; K1 1, L1 1 at 33 output channels), timed in turns
+     with fp32 (medians of 10); ``cli.train --model A|C --no_levels 33`` on a KITTI-raw tree
+     as phase 7a's, for 2 steps (K1, K2 3 each), each checkpoint through
+     ``cli.infer`` with the variant read from it (K1 at N = 33), and
+     ``cli.test --maskr_quirk
+     --save --save_pan`` on A's checkpoint and 2 of phase 10's frames (K1 by
+     mode, metrics finite, exports written).
 After the phases a line gives the seconds each took on the host clock.
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -267,6 +296,7 @@ SHAPES = [
     (1, 9, 8, 96, 3, -1.0, -30.0),  # swapped-order negative bounds
     (3, 9, 8, 96, 3, (2.0, -1.0, 1.0), (300.0, -30.0, 30.0)),  # per-sample bounds
     (2, 49, 16, 1280, 3, (2.0, 1.0), 300.0),  # per-sample min, shared 0-d max; ring path
+    (2, 33, 16, 1280, 3, 2.0, 300.0),  # FAL_netA and C's N = 33 at the serving width
     (1, 49, 4, 1500, 3, 2.0, 300.0),  # two column chunks
     (8, 49, 192, 640, 3, 2.0, 300.0),  # training shape (stage 2's double batch: subocc)
     (8, 49, 384, 1280, 3, 2.0, 300.0),  # serving shape
@@ -309,16 +339,19 @@ FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores, NVIDIA data sheet
 TF32_FLOPS = 494.7e12  # H100 SXM TF32 tensor cores, dense, NVIDIA data sheet
 BF16_FLOPS = 989.4e12  # H100 SXM bf16 tensor cores, dense, NVIDIA data sheet
 # L1 (the composed logits conv) against its plain version: ((B, Cin, H, W), Cout, pad_h); the serving, B=1,
-# stage-1, validation and bf16 cli.test shapes, and a rank's halo'd rows under --spatial 4 at 384 rows (96 + 2)
+# stage-1, validation and bf16 cli.test shapes, a rank's halo'd rows under --spatial 4 at 384 rows (96 + 2), and
+# FAL_netA and C's serving and stage-1 shapes (33 output channels)
 L1_SHAPES = [((8, 96, 384, 1280), 49, 1), ((1, 96, 384, 1280), 49, 1), ((8, 96, 192, 640), 49, 1),
-             ((4, 96, 375, 1242), 49, 1), ((8, 96, 375, 1242), 49, 1), ((8, 96, 98, 640), 49, 0)]
+             ((4, 96, 375, 1242), 49, 1), ((8, 96, 375, 1242), 49, 1), ((8, 96, 98, 640), 49, 0),
+             ((8, 96, 384, 1280), 33, 1), ((8, 96, 192, 640), 33, 1)]
 L1_TOL = 1e-5  # rtol, and atol as a fraction of max|plain|: the same products summed in another order
 CONV_TIMED = (8, 64, 192, 640, 64)  # the conv case whose times go into the kernels line
 # fp32 operations per logit, counted from the kernel sources (an exp2 counts
 # one): K1 disp-only (multiply by log2 e, max, subtract, exp2, add,
 # multiply-add; the rescale once a stage of 7 planes is below one); K2 in the
 # training mode, C=3 (statistics sweep 23 with two exp2, gradient sweep 39
-# with three)
+# with three; disp's weights, taken in double, count as one fp32 exp2 each,
+# so the operations bound is low: bytes bound K2 at every shape timed here)
 OPS_PER_LOGIT = {"med_fwd": 6, "med_bwd": 62}
 
 
@@ -467,9 +500,18 @@ def phase_build():
          f"{secs.get('link', 0.0):.2f} s); ptxas: {'; '.join(regs) or 'cached'}")
 
 
-def phase_kernel_vs_plain(rng, dev) -> float:
+def plan_words(kernel: str, n: int, c: int, w: int, **flags) -> str:
+    """The staging plan in words (``describe_plan``) with its threads and
+    columns a thread."""
+    p = stage_plan(kernel, n, c, w, **flags)
+    return f"{describe_plan(kernel, n, c, w, **flags)}, {p['consumers']} threads x {p['cpt']} columns"
+
+
+def k1_vs_plain(rng, dev, shapes) -> float:
+    """K1 against the plain head at each of ``shapes`` in every mode at TOL;
+    returns the worst abs error."""
     worst = 0.0
-    for b, n, h, w, c, mn, mx in SHAPES:
+    for b, n, h, w, c, mn, mx in shapes:
         logits = torch.from_numpy(rng.standard_normal((b, n, h, w), np.float32)).to(dev)
         image = torch.from_numpy(rng.standard_normal((b, c, h, w), np.float32)).to(dev)
         label = f"{(b, n, h, w, c)} [{mn},{mx}]"
@@ -484,17 +526,37 @@ def phase_kernel_vs_plain(rng, dev) -> float:
                 want = med_outputs(logits, image, mn.expand(b), mx.expand(b), **kw)
             else:
                 want = med_outputs(logits, image, mn, mx, **kw)
-            path = describe_plan("med_fwd", n, c, w, disp=kw["ret_disp"], pan=kw.get("ret_pan", False),
-                              subocc=kw.get("ret_subocc", False))
+            path = plan_words("med_fwd", n, c, w, disp=kw["ret_disp"], pan=kw.get("ret_pan", False),
+                           subocc=kw.get("ret_subocc", False))
             worst = max(worst, compare(got, want, f"{label} {mode} [{path}]"))
+    return worst
+
+
+def phase_kernel_vs_plain(rng, dev) -> float:
+    worst = k1_vs_plain(rng, dev, SHAPES)
     line(f"phase 3 kernel vs plain: {len(SHAPES)} shapes x {len(MODES)} modes agree, "
          f"worst abs err {worst:.3e}")
     return worst
 
 
-def phase_bwd_vs_plain(rng, dev) -> float:
+def plain_vjp64(logits, image, mn, mx, g_disp, g_pan, image_grad=True):
+    """The plain VJP evaluated in float64 on the same inputs (and the same
+    fp32 plane tables), cast back to fp32: the reference K2 is held to.  Its
+    fp32 evaluation comes within a hair of GRAD_TOL by itself where d_n is
+    near disp at |disparity| up to 300 (disp's rounding times sm0_n g_disp;
+    fal_net_torch/scripts/med_times.py prints both errors), so that
+    it would measure its own error beside the kernel's."""
+    up = lambda t: t.double() if torch.is_tensor(t) else t
+    g, g_img = med_vjp(up(logits), up(image), up(mn), up(mx), up(g_disp), up(g_pan), image_grad=image_grad)
+    return g.float(), None if g_img is None else g_img.float()
+
+
+def k2_vs_plain(rng, dev, shapes) -> float:
+    """K2 against the plain VJP (in float64, :func:`plain_vjp64`) at each of
+    ``shapes`` in every cotangent mode and through autograd after a subocc
+    forward, at GRAD_TOL; returns the worst abs error."""
     worst = 0.0
-    for b, n, h, w, c, mn, mx in GRAD_SHAPES:
+    for b, n, h, w, c, mn, mx in shapes:
         draw = lambda ch: torch.from_numpy(rng.standard_normal((b, ch, h, w), np.float32)).to(dev)
         logits, image, g_disp, g_pan = draw(n), draw(c), draw(1), draw(c)
         label = f"{(b, n, h, w, c)} [{mn},{mx}]"
@@ -504,8 +566,8 @@ def phase_bwd_vs_plain(rng, dev) -> float:
             gd, gp = (g_disp if want_d else None), (g_pan if want_p else None)
             got = med_vjp_fused(logits, image, mn, mx, gd, gp, image_grad=img)
             torch.cuda.synchronize()
-            want = med_vjp(logits, image, mn, mx, gd, gp, image_grad=img)
-            path = describe_plan("med_bwd", n, c, w, disp=want_d, pan=want_p, image_grad=img)
+            want = plain_vjp64(logits, image, mn, mx, gd, gp, image_grad=img)
+            path = plan_words("med_bwd", n, c, w, disp=want_d, pan=want_p, image_grad=img)
             worst = max(worst, compare_grads(got, want, f"{label} {mode} [{path}]"))
         # through autograd after a subocc forward: the masks carry no gradient
         lg = logits.clone().requires_grad_()
@@ -516,8 +578,13 @@ def phase_bwd_vs_plain(rng, dev) -> float:
         loss = (out.disp * g_disp).sum() + (out.pan * g_pan).sum() + out.maskL.sum() + out.maskR.sum()
         got = torch.autograd.grad(loss, (lg, im))
         torch.cuda.synchronize()
-        want = med_vjp(logits, image, mn, mx, g_disp, g_pan)
+        want = plain_vjp64(logits, image, mn, mx, g_disp, g_pan)
         worst = max(worst, compare_grads(got, want, f"{label} autograd after subocc forward"))
+    return worst
+
+
+def phase_bwd_vs_plain(rng, dev) -> float:
+    worst = k2_vs_plain(rng, dev, GRAD_SHAPES)
     line(f"phase 3b K2 vs plain: {len(GRAD_SHAPES)} shapes x {len(GRAD_MODES) + 1} modes agree, "
          f"worst abs err {worst:.3e}")
     k2 = {mode: (widest("med_bwd", disp=d, pan=p, image_grad=i), widest("med_bwd", staged=True, disp=d, pan=p,
@@ -673,8 +740,6 @@ def phase_train(rng, dev, workdir: str):
     from PIL import Image
 
     from fal_net_torch.data.loader import to_device
-    from fal_net_torch.losses.photometric import rec_loss
-    from fal_net_torch.losses.smoothness import smoothness
     from fal_net_torch.train.config import Stage1Config
     from fal_net_torch.train.trainer import Trainer
 
@@ -731,23 +796,32 @@ def phase_train(rng, dev, workdir: str):
     signs = int((mx < 0).sum())
     with torch.no_grad():
         logits = trainer.model.logits(batch["left"], mx)
-    # the stage-1 loss in sum form (times the pan's element count), so that
-    # the cotangents are O(1) and atol 1e-5 means something
+    worst = k2_on_logits(logits, batch, mn, mx, cfg.a_sm, f"model logits B=8 per-sample bounds ({signs} swapped)")
+    line(f"phase 7c per-sample-bound step (fix_order=False): loss {metrics['loss']:.6f}, K1 {k1_t}, "
+         f"K2 {k2_t} launches; K2 vs plain VJP on the model's logits, worst abs err {worst:.3e}")
+    return {"k1": k1 + infer_k1 + k1_t, "k2": k2 + k2_t, "worst": worst, "root": root, "ckpt": ckpt}
+
+
+def k2_on_logits(logits, batch, mn, mx, a_sm: float, label: str) -> float:
+    """K2 against the plain VJP (in float64, :func:`plain_vjp64`) on a
+    model's own ``logits`` with the stage-1 loss's cotangents (a_p 0), the
+    loss in sum form (times the pan's element count) so that the cotangents
+    are O(1) and atol 1e-5 means something; returns the worst abs error."""
+    from fal_net_torch.losses.photometric import rec_loss
+    from fal_net_torch.losses.smoothness import smoothness
+
+    left, right = batch["left"], batch["right"]
     lg = logits.clone().requires_grad_()
-    out = med_outputs_fused(lg, batch["left"], mn, mx, ret_disp=True, ret_pan=True)
-    x0 = int(0.2 * TRAIN_W)
+    out = med_outputs_fused(lg, left, mn, mx, ret_disp=True, ret_pan=True)
+    x0 = int(0.2 * left.shape[-1])
     loss = out.pan.numel() * (
-        rec_loss(1.0, out.pan, batch["right"], None, 0.0)
-        + cfg.a_sm * smoothness(batch["left"][..., x0:], out.disp[..., x0:], gamma=2.0)
+        rec_loss(1.0, out.pan, right, None, 0.0) + a_sm * smoothness(left[..., x0:], out.disp[..., x0:], gamma=2.0)
     )
     g_disp, g_pan = torch.autograd.grad(loss, (out.disp, out.pan), retain_graph=True)
     (g_k2,) = torch.autograd.grad(loss, lg)
     torch.cuda.synchronize()
-    g_plain, _ = med_vjp(logits, batch["left"], mn, mx, g_disp, g_pan, image_grad=False)
-    worst = compare_grads((g_k2, None), (g_plain, None), f"model logits B=8 per-sample bounds ({signs} swapped)")
-    line(f"phase 7c per-sample-bound step (fix_order=False): loss {metrics['loss']:.6f}, K1 {k1_t}, "
-         f"K2 {k2_t} launches; K2 vs plain VJP on the model's logits, worst abs err {worst:.3e}")
-    return {"k1": k1 + infer_k1 + k1_t, "k2": k2 + k2_t, "worst": worst, "root": root, "ckpt": ckpt}
+    g_plain, _ = plain_vjp64(logits, left, mn, mx, g_disp, g_pan, image_grad=False)
+    return compare_grads((g_k2, None), (g_plain, None), label)
 
 
 def decode_times(root: str, data_s: float) -> None:
@@ -824,13 +898,14 @@ def recorded_train(argv):
     return result, trainer, record, secs
 
 
-def run_cli_train(flags, root: str, workdir: str):
-    """cli.train for TRAIN_STEPS steps of FAL_netB N=49 at 192x640 with the
-    stage's default batch, a_p 0; returns (result, trainer, teacher state
-    after setup, K1 launches, K2 launches, seconds)."""
+def run_cli_train(flags, root: str, workdir: str, model: str = "B", levels: int = 49):
+    """cli.train for TRAIN_STEPS steps of ``model`` (FAL_netB N=49 unless
+    given) at 192x640 with the stage's default batch, a_p 0; returns
+    (result, trainer, teacher state after setup, K1 launches, K2 launches,
+    seconds)."""
     _build.reset_launch_counts()
     result, trainer, record, secs = recorded_train([
-        *flags, "--model", "B", "--no_levels", "49", "--a_p", "0", "--epochs", "1",
+        *flags, "--model", model, "--no_levels", str(levels), "--a_p", "0", "--epochs", "1",
         "--epoch_size", str(TRAIN_STEPS), "--print_freq", "1", "--data_root", root, "--lists_dir", root,
         "--save_path", os.path.join(workdir, "runs"),
     ])
@@ -1076,7 +1151,7 @@ def phase_default_run(rng, dev, kitti_root: str, workdir: str, card: str, seed: 
     g_disp, g_pan = torch.autograd.grad(loss, (out.disp, out.pan), retain_graph=True)
     (g_k2,) = torch.autograd.grad(loss, lg)
     torch.cuda.synchronize()
-    g_plain, _ = med_vjp(logits, batch["left"], 2.0, 300.0, g_disp, g_pan, image_grad=False)
+    g_plain, _ = plain_vjp64(logits, batch["left"], 2.0, 300.0, g_disp, g_pan, image_grad=False)
     k2_err = compare_grads((g_k2, None), (g_plain, None), "stage-1 loss with the perceptual term, model logits B=8")
     line(f"phase 7f K2 vs plain VJP with the perceptual term's cotangents (rec {aux['rec_loss'].item():.6f}): "
          f"worst abs err {k2_err:.3e}")
@@ -1128,7 +1203,7 @@ def phase_later_stages(dev, root: str, ckpt: str, workdir: str):
     g_disp, g_pan = torch.autograd.grad(loss, (out.disp, out.pan), retain_graph=True)
     (g_k2,) = torch.autograd.grad(loss, lg)
     torch.cuda.synchronize()
-    g_plain, _ = med_vjp(logits, s_in, mn, mx, g_disp, g_pan, image_grad=False)
+    g_plain, _ = plain_vjp64(logits, s_in, mn, mx, g_disp, g_pan, image_grad=False)
     worst = compare_grads((g_k2, None), (g_plain, None), "stage-2 student logits, double batch, after subocc")
     line(f"phase 7d K2 vs plain VJP on the student's logits after a subocc forward: worst abs err {worst:.3e}")
 
@@ -1150,17 +1225,12 @@ def phase_converge(dev):
     """scripts/verify_train_tpu.py on the card: stage-1 training on smooth
     synthetic stereo whose true disparity, 6 px, is plane 4 of 2..18, N=9.
     Returns the trained model (phase 8b's teacher) and the batch."""
-    import scipy.ndimage as ndi
-
     from fal_net_torch.ops.med import disparity_levels
+    from fal_net_torch.scripts.verify_variants import synthetic_stereo
     from fal_net_torch.train.stages import stage1_loss
 
     disp_px, h, w, b, n, mn, mx, steps = CONVERGE.values()
-    rng = np.random.default_rng(0)
-    coarse = rng.random((b, h // 8 + 2, (w + disp_px) // 8 + 2, 3)).astype(np.float32)
-    wide = np.stack([ndi.zoom(c, (8, 8, 1), order=3)[:h, : w + disp_px] for c in coarse]) - 0.5
-    nchw = lambda a: torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2))).to(dev)
-    batch = {"left": nchw(wide[:, :, :w]), "right": nchw(wide[:, :, disp_px:])}
+    batch = dict(zip(("left", "right"), (torch.from_numpy(a).to(dev) for a in synthetic_stereo(disp_px, h, w, b))))
     model = create_model("tiny", n, generator=torch.Generator().manual_seed(0), device=dev)
     opt = torch.optim.Adam(model.parameters(), lr=5e-4, betas=(0.5, 0.999))
     _build.reset_launch_counts()
@@ -1229,13 +1299,15 @@ def phase_converge_stage2(dev, teacher, batch):
          f"{spacing / 2:.4f}); K1 {launches[0]}, K2 {launches[1]} launches; teacher unchanged")
 
 
-def train_setup(dev, seed: int, batch_size: int = BATCH, phase_deconv: bool = False):
-    """FAL_netB N=49, its Adam and a seeded 192x640 batch: the training
-    step that phase 5 times (stage 1 at batch 8; stage 1 slow and stage 2 at
-    their batch 4, a double batch of 8) and phase 6 profiles."""
+def train_setup(dev, seed: int, batch_size: int = BATCH, phase_deconv: bool = False, variant: str = "B",
+                levels: int = 49):
+    """FAL_netB N=49 (or ``variant`` at ``levels``), its Adam and a seeded
+    192x640 batch: the training step that phase 5 times (stage 1 at batch 8;
+    stage 1 slow and stage 2 at their batch 4, a double batch of 8), phase 6
+    profiles and phase 16 runs for FAL_netA and C."""
     from fal_net_torch.train.state import create_optimizer
 
-    model = create_model("B", 49, generator=torch.Generator().manual_seed(seed), device=dev,
+    model = create_model(variant, levels, generator=torch.Generator().manual_seed(seed), device=dev,
                          phase_deconv=phase_deconv)
     opt, sched = create_optimizer(
         model, lr=1e-4, beta1=0.5, beta2=0.999, milestones=(30, 40), lr_gamma=0.5, steps_per_epoch=1000,
@@ -1862,8 +1934,8 @@ def phase_eval(rng, dev, seed: int, card: str, workdir: str) -> dict:
     line(f"phase 10 evaluation: {k1_total} K1 launches; tree of {n_all} frames written in {tree_s:.2f} s; worst "
          f"gate abs err {worst:.3e}")
     return {"k1": k1_total, "worst": worst, "images_per_s": n_timed / secs, "steady_images_per_s": n_steady / steady_s,
-            "root": root, "lists": lists["all"], "ckpt": ckpt, "ms_metrics": ms_metrics, "ms_disps": ms_disps,
-            "off_metrics": off_metrics, "off_disps": off_disps}
+            "root": root, "lists": lists["all"], "save_lists": lists["save"], "ckpt": ckpt, "ms_metrics": ms_metrics,
+            "ms_disps": ms_disps, "off_metrics": off_metrics, "off_disps": off_disps}
 
 
 # phase 11: the artifacts' forward in a fresh interpreter, on phase 4a's first 8 frames (raw
@@ -2039,12 +2111,11 @@ def peak_gb(fn) -> float:
 
 
 def in_turns(fns: dict, reps: int = 20) -> dict:
-    """Median ms of each of two callables in turns (a, b, b, a) and each one's
-    peak device memory: {name: (ms, ms, GB)}."""
-    (a, fa), (b, fb) = fns.items()
-    ms = {a: [median_ms(fa, reps=reps)], b: [median_ms(fb, reps=reps)]}
-    ms[b].append(median_ms(fb, reps=reps))
-    ms[a].append(median_ms(fa, reps=reps))
+    """Median ms of each callable in turns (a, b, ..., ..., b, a; medians
+    of ``reps``) and each one's peak device memory: {name: (ms, ms, GB)}."""
+    ms = {k: [] for k in fns}
+    for k in (*fns, *reversed(fns)):
+        ms[k].append(median_ms(fns[k], reps=reps))
     return {k: (*ms[k], peak_gb(f)) for k, f in fns.items()}
 
 
@@ -2613,6 +2684,206 @@ def phase_quickstart() -> dict:
     return {"k1": k1 - 1, "k2": k2 - 1}
 
 
+# phase 16: K1 and K2 at FAL_netA and C's plane count, at the serving, stage-1 and evaluation shapes (the last
+# at W = 1242: cp.async copies), (B, N, H, W, C, min_disp, max_disp)
+VARIANT_SHAPES = [(8, 33, SERVE_H, SERVE_W, 3, 2.0, 300.0), (8, 33, TRAIN_H, TRAIN_W, 3, 2.0, 300.0),
+                  (8, 33, KITTI_H, KITTI_W, 3, 2.0, 300.0)]
+VARIANT_LEVELS = 33  # FAL_netA's and FAL_netC's default (models/backbone.py)
+
+
+def med_times_n33(rng, dev, card: str) -> None:
+    """K1 (disp, disp+pan, disp+pan+subocc) and K2 (the training step's
+    disp+pan cotangents) at VARIANT_SHAPES beside their plain versions and
+    their bytes bounds (CUDA events; kernels median of 20, plain versions of
+    5), printed."""
+    for b, n, h, w, c, mn, mx in VARIANT_SHAPES:
+        draw = lambda ch: torch.from_numpy(rng.standard_normal((b, ch, h, w), np.float32)).to(dev)
+        logits, image, gd, gp = draw(n), draw(c), draw(1), draw(c)
+        shape = (b, n, h, w)
+        for mode in ("disp", "disp+pan", "disp+pan+subocc"):
+            kw = MODES[mode]
+            k = median_ms(lambda: med_outputs_fused(logits, image, mn, mx, **kw))
+            p = median_ms(lambda: med_outputs(logits, image, mn, mx, **kw), reps=5)
+            out = med_outputs_fused(logits, image, mn, mx, **kw)
+            need = nbytes(logits, image if "pan" in mode else None, *out)
+            b_ms = need / HBM_BYTES_PER_S * 1e3
+            plan = plan_words("med_fwd", n, c, w, pan="pan" in mode, subocc="subocc" in mode)
+            line(f"phase 16 K1 {shape} {mode}: kernel {k:.4f} ms, plain {p:.4f} ms, bound {b_ms:.4f} ms from "
+                 f"{need / 1e6:.1f} MB (bytes) [{plan}] [{card}]")
+            del out
+        k = median_ms(lambda: med_vjp_fused(logits, image, mn, mx, gd, gp, image_grad=False))
+        p = median_ms(lambda: med_vjp(logits, image, mn, mx, gd, gp, image_grad=False), reps=5)
+        # inputs once and g_logits (the logits' size) written once
+        b_ms, b_by = bound(nbytes(logits, image, gd, gp, logits), OPS_PER_LOGIT["med_bwd"] * logits.numel())
+        line(f"phase 16 K2 {shape} disp+pan: kernel {k:.4f} ms, plain VJP {p:.4f} ms, bound {b_ms:.4f} ms by "
+             f"{b_by} [{plan_words('med_bwd', n, c, w, pan=True)}] [{card}]")
+        del logits, image, gd, gp
+    torch.cuda.empty_cache()
+
+
+def phase_variants(rng, dev, card: str, seed: int, evaluation: dict, workdir: str) -> dict:
+    """Phase 16: FAL_netA and FAL_netC on the card (see the module
+    docstring).  ``evaluation`` is phase 10's record (its Eigen tree); the
+    KITTI-raw training tree and two frames are written anew in ``workdir``.
+    Returns the launches of the phase's main paths (K1, K2, L1; the
+    comparisons' and the gates' apart) and its worst errors."""
+    from PIL import Image
+
+    from fal_net_torch.cli import test as cli_test
+    from fal_net_torch.models.checkpoint import load_checkpoint
+    from fal_net_torch.scripts import verify_variants
+
+    k1 = k2 = l1 = 0
+    worst_k1 = 0.0
+    # (a) the counterpart of scripts/verify_variants_tpu.py, each variant at its default N
+    for v in verify_variants.VARIANTS:
+        line(f"phase 16 verify_variants FAL_net{v} [{card}]")
+        _build.reset_launch_counts()
+        res = verify_variants.check_variant(v)
+        torch.cuda.synchronize()
+        k1 += MedForward.launches
+        med = verify_variants.check_med_numerics(res["num_levels"])
+        worst_k1 = max(worst_k1, *med["errs"].values())
+        conv = verify_variants.check_training(v)
+        k1, k2 = k1 + conv["launches"][0], k2 + conv["launches"][1]
+        if not (res["ok"] and med["ok"] and conv["ok"]) or res["num_levels"] != VARIANT_LEVELS:
+            raise AssertionError(f"verify_variants FAL_net{v}: forward {res['ok']} (N={res['num_levels']}), K1 "
+                                 f"numerics {med['ok']}, convergence {conv['ok']}")
+        quirk = res.get("quirk")
+        line(f"phase 16 FAL_net{v} N={res['num_levels']}: forward {SERVE_H}x{SERVE_W} disp+pan B=1 "
+             f"{res['ms'][1]:.3f} ms, B={BATCH} {res['ms'][BATCH]:.3f} ms ({1000 * BATCH / res['ms'][BATCH]:.2f} "
+             f"imgs/s); K1 numerics at (1, {res['num_levels']}, {SERVE_H}, {SERVE_W}) max errs {med['errs']}; "
+             f"convergence {conv['first']:.6f} -> {conv['last']:.6f}, median disparity {conv['median']:.4f} px (half "
+             f"spacing {conv['spacing'] / 2:.4f}) in {conv['seconds']:.2f} s, K1 {conv['launches'][0]}, K2 "
+             f"{conv['launches'][1]}" + ("" if quirk is None else
+             f"; a_maskr_quirk: maskR max |d| {quirk['mask_diff']:.4f}, disp, pan, maskL bit-identical; B={BATCH} "
+             f"disp+pan+subocc default {quirk['default'][0]:.3f} ms, peak {quirk['default'][1]:.2f} GB, quirk "
+             f"{quirk['quirk'][0]:.3f} ms, peak {quirk['quirk'][1]:.2f} GB") + f" [{card}]")
+
+    # (b) K1 and K2 at N = 33: the serving, stage-1 and evaluation shapes, every mode, each plan printed
+    worst_k1 = max(worst_k1, k1_vs_plain(rng, dev, VARIANT_SHAPES))
+    worst_k2 = k2_vs_plain(rng, dev, VARIANT_SHAPES)
+    line(f"phase 16 K1 and K2 at N = {VARIANT_LEVELS}: {len(VARIANT_SHAPES)} shapes, K1 x {len(MODES)} modes, worst "
+         f"abs err {worst_k1:.3e}; K2 x {len(GRAD_MODES) + 1} modes, worst abs err {worst_k2:.3e}")
+    med_times_n33(rng, dev, card)
+
+    # (c) one stage-1 step per variant on K1 and K2 (K2 against the plain VJP on the model's own logits), then
+    # the steps timed in turns with FAL_netB's, with peak memory
+    steps = {"FAL_netB": train_step_fn(*train_setup(dev, seed))}
+    for v in verify_variants.VARIANTS:
+        model, opt, sched, batch = train_setup(dev, seed, variant=v, levels=VARIANT_LEVELS)
+        step = train_step_fn(model, opt, sched, batch)
+        _build.reset_launch_counts()
+        step()
+        torch.cuda.synchronize()
+        if (MedForward.launches, MedForward.bwd_launches) != (1, 1):
+            raise AssertionError(f"FAL_net{v} stage-1 step: K1 {MedForward.launches}, K2 {MedForward.bwd_launches}")
+        k1, k2 = k1 + 1, k2 + 1
+        with torch.no_grad():
+            logits = model.logits(batch["left"], 300.0)
+        worst_k2 = max(worst_k2, k2_on_logits(logits, batch, 2.0, 300.0, 0.2 * 2 / 512,
+                                              f"FAL_net{v} model logits {tuple(logits.shape)} stage-1 cotangents"))
+        del logits
+        steps[f"FAL_net{v}"] = step
+    got = in_turns(steps, reps=10)
+    line(f"phase 16 stage-1 step {TRAIN_H}x{TRAIN_W} B={BATCH} (forward, backward, Adam; in turns "
+         f"{', '.join([*steps, *reversed(steps)])}), FAL_netA and C at N={VARIANT_LEVELS}, FAL_netB at 49: "
+         + "; ".join(f"{k} {a:.3f}, {b:.3f} ms, peak {gb:.2f} GB" for k, (a, b, gb) in got.items()) + f" [{card}]")
+    del steps, model, opt, sched, batch, step
+
+    # (d) bf16: the forward launches L1 (33 output channels); K1 inside it = the plain head on its fp32 logits
+    frames = np.stack([normalize(synthetic_image(rng)) for _ in range(BATCH)]).transpose(0, 3, 1, 2).copy()
+    x8 = torch.from_numpy(frames).to(dev)
+    for v in verify_variants.VARIANTS:
+        model32 = create_model(v, generator=torch.Generator().manual_seed(seed), device=dev).eval()
+        model16 = model32.with_dtype("bfloat16")
+        with torch.inference_mode():
+            logits = model16.logits(x8, 300.0)
+            if logits.dtype != torch.float32:
+                raise AssertionError(f"bf16 FAL_net{v}'s logits are {logits.dtype}")
+            for mode in ("disp", "disp+pan", "disp+pan+subocc"):
+                got = med_outputs_fused(logits, x8, 2.0, 300.0, **MODES[mode])
+                want = med_outputs(logits, x8, 2.0, 300.0, **MODES[mode])
+                worst_k1 = max(worst_k1, compare(got, want, f"bf16 FAL_net{v} logits B={BATCH} {mode}"))
+            del logits, got, want
+            _build.reset_launch_counts()
+            out = model16(x8, 2.0, 300.0, ret_disp=True, ret_pan=True, ret_subocc=True)
+            torch.cuda.synchronize()
+            launched = (MedForward.launches, L1_LAUNCHES["logits_conv"])
+            if launched != (1, 1) or not all(torch.isfinite(t).all() for t in out):
+                raise AssertionError(f"bf16 FAL_net{v} forward: K1, L1 launches {launched}, outputs finite "
+                                     f"{[bool(torch.isfinite(t).all()) for t in out]}")
+            k1, l1 = k1 + 1, l1 + 1
+            del out
+            got = in_turns({"fp32": lambda: model32(x8, 2.0, 300.0, ret_disp=True),
+                            "bf16": lambda: model16(x8, 2.0, 300.0, ret_disp=True)}, reps=10)
+        line(f"phase 16 bf16 FAL_net{v} N={VARIANT_LEVELS} {SERVE_H}x{SERVE_W} B={BATCH}: K1 = plain head on its fp32 "
+             f"logits in every mode; the disp+pan+subocc forward K1 1, L1 1 launches, finite; disp forward in turns "
+             f"fp32 {got['fp32'][0]:.3f}, {got['fp32'][1]:.3f} ms, peak {got['fp32'][2]:.2f} GB; bf16 "
+             f"{got['bf16'][0]:.3f}, {got['bf16'][1]:.3f} ms, peak {got['bf16'][2]:.2f} GB [{card}]")
+        del model32, model16
+    del x8
+
+    # (e) the entry points: cli.train --model A|C on a KITTI-raw tree as phase 7a's, cli.infer on each
+    # checkpoint with the variant read from it, cli.test --maskr_quirk on A's with two of phase 10's frames
+    root, frames = os.path.join(workdir, "kitti"), os.path.join(workdir, "frames")
+    write_kitti_tree(rng, root)
+    os.makedirs(frames)
+    for i in range(2):
+        Image.fromarray(smooth_frame(rng, KITTI_H, KITTI_W)).save(os.path.join(frames, f"f{i}.png"), compress_level=1)
+    ckpts = {}
+    for v in verify_variants.VARIANTS:
+        result, trainer, _, k1_t, k2_t, secs = run_cli_train(["--stage", "1"], root, workdir, model=v,
+                                                             levels=VARIANT_LEVELS)
+        (epoch,) = result["history"]
+        if (trainer.model.spec.name, trainer.model.num_levels, k1_t, k2_t) != (v, VARIANT_LEVELS, TRAIN_STEPS + 1,
+                                                                               TRAIN_STEPS + 1):
+            raise AssertionError(f"cli.train --model {v}: {trainer.model.spec.name} N={trainer.model.num_levels}, K1 "
+                                 f"{k1_t}, K2 {k2_t} launches (want {TRAIN_STEPS} + 1 each)")
+        del trainer
+        k1, k2 = k1 + k1_t - 1, k2 + k2_t - 1  # the setup gate's comparison apart
+        ckpts[v] = ckpt = os.path.join(result["save_path"], "checkpoint.pt")
+        loaded = load_checkpoint(ckpt, device=dev)
+        if (loaded.spec.name, loaded.num_levels) != (v, VARIANT_LEVELS):
+            raise AssertionError(f"{ckpt} loads as FAL_net{loaded.spec.name} N={loaded.num_levels}")
+        del loaded
+        out_dir = os.path.join(workdir, f"infer_{v}")
+        with k1_by_shape() as shapes:
+            _build.reset_launch_counts()
+            written = infer.main(["--pretrained", ckpt, "--images", frames, "--out_dir", out_dir,
+                                  "--batch_size", "2"])
+            torch.cuda.synchronize()
+        disp = np.stack([np.asarray(Image.open(os.path.join(out_dir, f"f{i}_disp.png"))) for i in range(2)]) / 256
+        if written != 2 or MedForward.launches != 1 or [s[1] for _, s in shapes] != [VARIANT_LEVELS] or \
+                disp.shape != (2, KITTI_H, KITTI_W) or not np.isfinite(disp).all():
+            raise AssertionError(f"cli.infer on FAL_net{v}'s checkpoint: {written} PNGs {disp.shape}, K1 "
+                                 f"{MedForward.launches} launches at {shapes}")
+        k1 += 1
+        line(f"phase 16 cli.train --model {v} --no_levels {VARIANT_LEVELS} {TRAIN_H}x{TRAIN_W} B={BATCH}: "
+             f"{TRAIN_STEPS} steps in {secs:.2f} s, epoch loss {epoch['loss']:.6f}; K1 {k1_t}, K2 {k2_t} launches; "
+             f"cli.infer (no --model; FAL_net{v} N={VARIANT_LEVELS} read from the checkpoint) 2 frames, K1 at "
+             f"{shapes}, PNG disparity in [{disp.min():.4f}, {disp.max():.4f}] px")
+    out_dir = os.path.join(workdir, "eval_quirk")
+    metrics, (ev,), disps, by_mode, secs = recorded_eval(lambda: cli_test.main([
+        "--data_root", evaluation["root"], "--lists_dir", evaluation["save_lists"], "--pretrained", ckpts["A"],
+        "--batch_size", str(BATCH), "--maskr_quirk", "--save", "--save_pan", "--save_path", out_dir]))
+    check_eval_outputs(out_dir, metrics, "cli.test --maskr_quirk")
+    want = {"disp+pan+subocc": 2, "disp": 2}  # the batch's forward and its 2/3 pass (ms-pp), and the gate's
+    saved = all(os.path.isfile(os.path.join(out_dir, sub, f"{i:010d}.png")) for i in range(EVAL_SAVED)
+                for sub in ("disp", "pan"))
+    if by_mode != want or len(disps) != EVAL_SAVED or not ev.model.a_maskr_quirk or not saved or \
+            (ev.model.spec.name, ev.model.num_levels) != ("A", VARIANT_LEVELS):
+        raise AssertionError(f"cli.test --maskr_quirk: K1 {by_mode} (want {want}), {len(disps)} images, quirk "
+                             f"{ev.model.a_maskr_quirk}, exports {saved}")
+    k1 += sum(by_mode.values()) - len(ev.med_checked)  # the gate's comparisons apart
+    line(f"phase 16 cli.test --maskr_quirk --save --save_pan FAL_netA N={VARIANT_LEVELS} ({EVAL_SAVED} frames at "
+         f"{next(iter(EVAL_SHAPES.values()))}) in {secs:.2f} s: K1 {by_mode}; abs_rel {metrics['abs_rel']:.6f} a1 "
+         f"{metrics['a1']:.6f}; disp and pan PNGs written [{card}]")
+    line(f"phase 16 FAL_netA and FAL_netC: K1 {k1}, K2 {k2}, L1 {l1} launches on their paths; worst abs err K1 "
+         f"{worst_k1:.3e}, K2 {worst_k2:.3e}")
+    return {"k1": k1, "k2": k2, "l1": l1, "worst_k1": worst_k1, "worst_k2": worst_k2}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2646,7 +2917,9 @@ def main() -> None:
             bf16 = timed("12", phase_bf16, rng, dev, card, args.seed, serve_dir, evaluation, workdir)
             multi = timed("13", phase_multi, dev, card, evaluation, workdir)
             spatial = timed("14", phase_spatial, dev, card, workdir)
-    quick = timed("15", phase_quickstart)
+        quick = timed("15", phase_quickstart)
+        with tempfile.TemporaryDirectory() as workdir:  # phase 10's tree stays for phase 16's cli.test
+            variants = timed("16", phase_variants, rng, dev, card, args.seed, evaluation, workdir)
     line(f"phase seconds (host clock): {PHASE_S}; {time.perf_counter() - t_start:.1f} s in all, the interpreter's "
          f"start and imports apart")
     k1_bound, k1_by = bound(times["disp"][2], OPS_PER_LOGIT["med_fwd"] * times["disp_logits"])
@@ -2659,11 +2932,13 @@ def main() -> None:
             "replaces": "fal_net_tpu/ops/med_pallas.py:116",
             # serving (phase 4), training (phase 7a-c, 7d stage 2, 7e stage 1 slow, 7f the default run with
             # validation, 7g remat), evaluation (phase 10), the serving artifacts (phase 11), bf16 (phase 12) and
-            # the DDP ranks and evaluation replicas (phase 13), the ranks that split rows (phase 14) and the quickstart
-            # (phase 15)
+            # the DDP ranks and evaluation replicas (phase 13), the ranks that split rows (phase 14), the quickstart
+            # (phase 15) and FAL_netA and C at N = 33 (phase 16)
             "launches": serve_launches + train["k1"] + later["k1"] + default["k1"] + remat["k1"] + evaluation["k1"]
-            + artifact["k1"] + bf16_train["k1"] + bf16["k1"] + multi["k1"] + spatial["k1"] + quick["k1"],
-            "max_abs_err": max(worst3, worst4, default["worst"], evaluation["worst"], bf16["worst"]),
+            + artifact["k1"] + bf16_train["k1"] + bf16["k1"] + multi["k1"] + spatial["k1"] + quick["k1"]
+            + variants["k1"],
+            "max_abs_err": max(worst3, worst4, default["worst"], evaluation["worst"], bf16["worst"],
+                               variants["worst_k1"]),
             "ms": times["disp"][0],  # disp-only at (8, 49, 384, 1280)
             "plain_ms": times["disp"][1],
             "bound_ms": k1_bound,
@@ -2676,10 +2951,10 @@ def main() -> None:
             "source": "fal_net_torch/csrc/med_bwd.cu",
             "replaces": "fal_net_tpu/ops/med_pallas.py:253",
             # training paths (phase 7a-c, 7d, 7e, 7f, 7g, the bf16 steps of phase 12, the DDP ranks of phase 13, the
-            # ranks that split rows in phase 14, the quickstart's steps in phase 15)
+            # ranks that split rows in phase 14, the quickstart's steps in phase 15, FAL_netA's and C's in phase 16)
             "launches": train["k2"] + later["k2"] + default["k2"] + remat["k2"] + bf16_train["k2"] + bf16["k2"]
-            + multi["k2"] + spatial["k2"] + quick["k2"],
-            "max_abs_err": max(worst3b, train["worst"], later["worst"], default["k2_worst"]),
+            + multi["k2"] + spatial["k2"] + quick["k2"] + variants["k2"],
+            "max_abs_err": max(worst3b, train["worst"], later["worst"], default["k2_worst"], variants["worst_k2"]),
             "ms": times["k2"][0],  # disp+pan cotangents, no g_img, at (8, 49, 192, 640)
             "plain_ms": times["k2"][1],
             "bound_ms": k2_bound,
@@ -2691,9 +2966,10 @@ def main() -> None:
             "route": "cuda",
             "source": "fal_net_torch/csrc/logits_conv.cu",
             "replaces": "fal_net_tpu/models/layers.py:67",  # _conv_accum, an XLA conv: no Pallas counterpart
-            # the bf16 paths of phase 12: cli.train, the forward, the stage-1 and stage-2 steps, cli.test, the artifact
-            "launches": bf16_train["l1"] + bf16["l1"],
-            "max_abs_err": bf16["l1_kernel"]["max_abs_err"],
+            # the bf16 paths of phase 12: cli.train, the forward, the stage-1 and stage-2 steps, cli.test, the
+            # artifact; FAL_netA's and C's bf16 forwards (33 output channels) in phase 16
+            "launches": bf16_train["l1"] + bf16["l1"] + variants["l1"],
+            "max_abs_err": bf16["l1_kernel"]["max_abs_err"],  # every L1_SHAPES entry, Cout 33 included
             "ms": bf16["l1_kernel"]["ms"],  # (8, 96, 384, 1280) -> 49
             "plain_ms": bf16["l1_kernel"]["plain_ms"],
             "bound_ms": bf16["l1_kernel"]["bound_ms"],

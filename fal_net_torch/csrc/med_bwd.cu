@@ -8,7 +8,8 @@
 //
 // With S_n the lerp gather of plane n (f = floor(s_n), t = s_n - f, zero
 // outside [0, W)), sm0 = softmax_n(l), D = softmax_n(S_n l_n) and the masks
-// stop-gradient, the cotangents of disp and pan give (all math fp32):
+// stop-gradient, the cotangents of disp and pan give (fp32 math, but for
+// disp's weights, see below):
 //   g_l_n(x)   = sm0_n(x) (d_n - disp(x)) g_disp(x)
 //              + (1-t) g_shift_n(x-f) + t g_shift_n(x-f-1)        (S^T)
 //   g_shift_n  = q_n - D_n sum_m q_m,  q_n = D_n gD_n,
@@ -54,6 +55,18 @@
 //   * exponentials in base 2 (ex2.approx on l log2 e); the online softmaxes
 //     take a stage's maximum first and rescale their sums once a stage, with
 //     no branch;
+//   * disp's softmax weights, their sums and disp itself in double, from
+//     double exponents: g_l_n is sm0_n (d_n - disp) g_disp, and where d_n is
+//     near disp an error in disp stays whole while the term vanishes.  With
+//     fp32 weights (ex2.approx, about 2^-22 relative) disp is off by up to
+//     ~7e-5 at |disparity| 300, and g_l_n by as much times sm0_n g_disp,
+//     past the gradient tests' atol of 1e-5; in double the error left is
+//     relative (sm0_n, the fp32 difference), as the tolerance's rtol takes;
+//     each exponent is a product less the maximum (or log2-sum) of the same
+//     products, rounded alike, so it is at most 0 at any finite logits
+//     (disp's products in double, pan's rounded by __fmul_rn: a fused
+//     product would pass the maximum by up to half its ulp, 2^60 at
+//     |l| = 1e9);
 //   * columns wider than one chunk (W > 1280) recompute the plain softmax's
 //     statistics in a sweep before each chunk's gradient sweep.
 // On an H100 it is bound by the consumers' issue rate and shared-memory
@@ -65,6 +78,28 @@
 #include "med_stage.cuh"
 
 namespace {
+
+constexpr double kLog2eD = 1.4426950408889634;  // log2 e for disp's weights, in double
+
+// 2^a in double, to 3e-10 relative, for a <= 0: a = n + f with |f| <= 1/2,
+// 2^f by its Taylor series in f ln 2 to the 8th power, scaled by 2^n
+// through the exponent bits.  Arguments below -1022 (the dummy row's) give
+// 2^-1022, a weight of nothing.  Fewer instructions than exp2(double).
+__device__ __forceinline__ double exp2_d(double a) {
+  a = fmax(a, -1022.0);
+  const double n = rint(a);
+  const double g = (a - n) * 0.6931471805599453;
+  double p = 1.0 / 40320;
+  p = fma(p, g, 1.0 / 5040);
+  p = fma(p, g, 1.0 / 720);
+  p = fma(p, g, 1.0 / 120);
+  p = fma(p, g, 1.0 / 24);
+  p = fma(p, g, 1.0 / 6);
+  p = fma(p, g, 0.5);
+  p = fma(p, g, 1.0);
+  p = fma(p, g, 1.0);
+  return p * __hiloint2double(((int)n + 1023) << 20, 0);
+}
 
 // Floats of the plane tables, a multiple of 4.
 __host__ __device__ inline int bwd_tab_floats(int N) { return 4 * (N + kGroup - 1); }
@@ -140,13 +175,14 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
     }
     RowSweeps sweeps(st, p, ring, N);
     // the plain softmax of the columns of the current chunk: log2-sum, disp
-    float lse0[kCpt], disp[kCpt];
+    double lse0[kCpt], disp[kCpt];
 
     // Statistics of chunk c: the plain softmax into registers (do_disp), the
     // shifted one into shared memory (do_pan).
     auto stats = [&](int ch, bool do_disp, bool do_pan) {
       const RowCols<kDirect> cols{W, kDirect ? ch * chunk_cols - p.margin : 0, p.span};
-      float m0[kCpt], z0[kCpt], a0[kCpt], m1[kCpt], z1[kCpt], aq[kCpt];
+      float m1[kCpt], z1[kCpt], aq[kCpt];
+      double m0[kCpt], z0[kCpt], a0[kCpt];  // disp's statistics, in double (see the header)
       float4 gp[kCpt];  // g_pan at the column, zero past C
 #pragma unroll
       for (int k = 0; k < kCpt; ++k) {
@@ -169,21 +205,22 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
           const int x = column(p, ch, k, tid);
           if (x >= W) continue;
           if (kDisp && do_disp) {
-            float a[kGroup], mx = m0[k];
+            float l[kGroup];
+            double mx = m0[k];
 #pragma unroll
             for (int i = 0; i < kGroup; ++i) {
-              a[i] = cols.in(lr[i], x) * kLog2e;
-              mx = fmaxf(mx, a[i]);
+              l[i] = cols.in(lr[i], x);
+              mx = fmax(mx, (double)l[i] * kLog2eD);
             }
-            const float r = ex2(m0[k] - mx);  // 0 on the first stage
+            const double r = exp2_d(m0[k] - mx);  // ~0 on the first stage
             z0[k] *= r;
             a0[k] *= r;
             m0[k] = mx;
 #pragma unroll
             for (int i = 0; i < kGroup; ++i) {
-              const float e = ex2(a[i] - mx);
+              const double e = exp2_d((double)l[i] * kLog2eD - mx);
               z0[k] += e;
-              a0[k] = fmaf(e, tb[i].lev, a0[k]);
+              a0[k] = fma(e, (double)tb[i].lev, a0[k]);
             }
           }
           if (kPan && do_pan) {
@@ -191,7 +228,7 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
 #pragma unroll
             for (int i = 0; i < kGroup; ++i) {
               const int j = x + tb[i].f;
-              a[i] = cols.lerp(lr[i], j, tb[i].t) * kLog2e;
+              a[i] = __fmul_rn(cols.lerp(lr[i], j, tb[i].t), kLog2e);
               mx = fmaxf(mx, a[i]);
               const float4 v = img_lerp(j, tb[i].t);
               gd[i] = fmaf(v.x, gp[k].x, fmaf(v.y, gp[k].y, fmaf(v.z, gp[k].z, v.w * gp[k].w)));
@@ -214,7 +251,7 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
         const int x = column(p, ch, k, tid);
         if (x >= W) continue;
         if (kDisp && do_disp) {
-          lse0[k] = m0[k] + log2f(z0[k]);
+          lse0[k] = m0[k] + log2(z0[k]);
           disp[k] = a0[k] / z0[k];
         }
         if (kPan && do_pan) {
@@ -259,7 +296,7 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
                 const float2 sy = s_st[st_at(y)];
                 const float4 gq = gp_in(y);
                 const int j = y + tb[i].f;
-                d = ex2(fmaf(cols.lerp(lr[i], j, tb[i].t), kLog2e, -sy.x));
+                d = ex2(__fmul_rn(cols.lerp(lr[i], j, tb[i].t), kLog2e) - sy.x);
                 const float4 v = img_lerp(j, tb[i].t);
                 gs = d * (fmaf(v.x, gq.x, fmaf(v.y, gq.y, fmaf(v.z, gq.z, v.w * gq.w))) - sy.y);
               }
@@ -281,7 +318,7 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
               for (int i = 0; i < kGroup; ++i) {
                 if (i >= g) break;
                 const int j = y + tb[i].f;
-                const float d = ex2(fmaf(lerp_at(lr[i], j, tb[i].t, W), kLog2e, -sy.x));
+                const float d = ex2(__fmul_rn(lerp_at(lr[i], j, tb[i].t, W), kLog2e) - sy.x);
                 const float4 v = img_lerp(j, tb[i].t);
                 const float gdn = fmaf(v.x, gq.x, fmaf(v.y, gq.y, fmaf(v.z, gq.z, v.w * gq.w)));
                 s_gs[i * st.P + y] = d * (gdn - sy.y);
@@ -302,7 +339,10 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
             const int x = column(p, ch, k, tid);
             if (x >= W) continue;
             float gl = 0.f;
-            if (kDisp) gl = ex2(fmaf(cols.in(lr[i], x), kLog2e, -lse0[k])) * (tb[i].lev - disp[k]) * gd[k];
+            if (kDisp) {
+              const float dd = (float)((double)tb[i].lev - disp[k]);  // d_n - disp, rounded once
+              gl = ex2((float)((double)cols.in(lr[i], x) * kLog2eD - lse0[k])) * dd * gd[k];
+            }
             if (kPan) {
               // S^T: y0 = x - f takes weight 1-t, y0 - 1 weight t; zero outside the row
               // (on the direct path, y0 is column u = x - c0 + 1 of the chunk's rows)

@@ -39,7 +39,10 @@
 //     that sweep, and after a barrier of the consumers sums the shifted
 //     probabilities in a second sweep: from the same slots where the row
 //     fits in shared memory (whole row), else from a second stream of the
-//     planes (ring);
+//     planes (ring).  Both sweeps take l log2 e rounded (__fmul_rn), so a
+//     weight's exponent is at most 0 at any finite logits: a fused product
+//     less the log2-sum of rounded ones exceeds it by up to half an ulp of
+//     the product, 2^60 at |l| = 1e9;
 //   * direct path, for rows too wide to stage whole plane rows beside the
 //     image row (16 B a column) and the statistics (at N = 49: W > 9,634
 //     with pan, > 7,225 with pan and subocc, > 28,908 disp alone): a slot
@@ -141,7 +144,7 @@ med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
             float a[kGroup], mx = m0[k];
 #pragma unroll
             for (int i = 0; i < kGroup; ++i) {
-              a[i] = cols.in(lr[i], x) * kLog2e;
+              a[i] = __fmul_rn(cols.in(lr[i], x), kLog2e);  // rounded, as the masks' weights take it
               mx = fmaxf(mx, a[i]);
             }
             const float r = ex2(m0[k] - mx);  // 0 on the first stage
@@ -159,7 +162,7 @@ med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
             float a[kGroup], mx = m1[k];
 #pragma unroll
             for (int i = 0; i < kGroup; ++i) {
-              a[i] = cols.lerp(lr[i], x + tb[i].f, tb[i].t) * kLog2e;
+              a[i] = __fmul_rn(cols.lerp(lr[i], x + tb[i].f, tb[i].t), kLog2e);
               mx = fmaxf(mx, a[i]);
             }
             const float r = ex2(m1[k] - mx);
@@ -219,15 +222,15 @@ med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
             // maskR: S_{+s}(softmax(l)_n), the softmax taken at the source column
             const int j = x + tb.f;
             float a = 0.f, c = 0.f;
-            if (j >= 0 && j < W) a = ex2(fmaf(cols.in(lr[i], j), kLog2e, -s_lse0[lse_at(j)]));
-            if (j + 1 >= 0 && j + 1 < W) c = ex2(fmaf(cols.in(lr[i], j + 1), kLog2e, -s_lse0[lse_at(j + 1)]));
+            if (j >= 0 && j < W) a = ex2(__fmul_rn(cols.in(lr[i], j), kLog2e) - s_lse0[lse_at(j)]);
+            if (j + 1 >= 0 && j + 1 < W) c = ex2(__fmul_rn(cols.in(lr[i], j + 1), kLog2e) - s_lse0[lse_at(j + 1)]);
             mr[k] += fmaf(tb.t, c - a, a);
             // maskL: S_{-s}(Dprob_n), Dprob recomputed at the source column
             const int q = x + fb;
             a = c = 0.f;
-            if (q >= 0 && q < W) a = ex2(fmaf(cols.lerp(lr[i], q + tb.f, tb.t), kLog2e, -s_lse1[lse_at(q)]));
+            if (q >= 0 && q < W) a = ex2(__fmul_rn(cols.lerp(lr[i], q + tb.f, tb.t), kLog2e) - s_lse1[lse_at(q)]);
             if (q + 1 >= 0 && q + 1 < W)
-              c = ex2(fmaf(cols.lerp(lr[i], q + 1 + tb.f, tb.t), kLog2e, -s_lse1[lse_at(q + 1)]));
+              c = ex2(__fmul_rn(cols.lerp(lr[i], q + 1 + tb.f, tb.t), kLog2e) - s_lse1[lse_at(q + 1)]);
             ml[k] += fmaf(tb.tb, c - a, a);
           }
         }

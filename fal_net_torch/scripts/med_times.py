@@ -17,7 +17,12 @@ an empty call: the launch path's floors), the
 FAL_netB N=49 disp forward at batch 8 and batch 1 and 384x1280, and the
 stage-1 training step at batch 8 and 192x640: CUDA events around one call,
 median of 50 calls after warm-up, on inputs and weights from seed 0.
-Prints one JSON object with the card's name.
+Beside K2's times, its accuracy: K2 and the fp32 plain VJP, each against
+the plain VJP evaluated in float64 on the same inputs (disp and disp+pan
+cotangents at FAL_netA/C's N = 33 and FAL_netB's 49, at the serving and
+stage-1 shapes, bounds 2..300), as the largest error over the gradient
+tests' tolerance (rtol 1e-4, atol 1e-5; above 1 is a miss).  Prints one
+JSON object with the card's name.
 
 L1 (the bf16 logits conv) at ``L1_SHAPES`` beside its bytes bound, the bf16
 FAL_netB disp forward at batch 8 (384x1280) and at KITTI's native
@@ -49,6 +54,7 @@ import fal_net_torch
 from fal_net_torch.models import create_model
 from fal_net_torch.ops.logits_conv import logits_conv
 from fal_net_torch.ops.med_kernel import med_outputs_fused, med_vjp_fused
+from fal_net_torch.ops.med_vjp import med_vjp
 from fal_net_torch.ops.roll_probe import roll_window
 from fal_net_torch.train.stages import stage1_loss
 from fal_net_torch.train.state import create_optimizer
@@ -62,6 +68,8 @@ SERVE, TRAIN = (384, 1280), (192, 640)
 L1_SHAPES = (((8, 96, 384, 1280), 49, 1), ((1, 96, 384, 1280), 49, 1), ((8, 96, 192, 640), 49, 1),
              ((4, 96, 375, 1242), 49, 1), ((8, 96, 375, 1242), 49, 1), ((8, 96, 98, 640), 49, 0))
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989.4e12  # H100 SXM, NVIDIA data sheet
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5  # tests/test_med_pallas.py's gradient tests
+K2_ERR_SHAPES = ((B, 33, *SERVE), (B, 33, *TRAIN), (B, N, *SERVE), (B, N, *TRAIN))
 
 
 def host_us(fn, calls: int = 5000) -> float:
@@ -86,6 +94,27 @@ def peak_gb(fn) -> float:
     fn()
     torch.cuda.synchronize()
     return torch.cuda.max_memory_allocated() / 1e9
+
+
+def k2_errors(dev) -> dict:
+    """K2 and the fp32 plain VJP against the plain VJP in float64 at
+    K2_ERR_SHAPES (see the module docstring); seeded inputs from SEED + 5."""
+    rng = np.random.default_rng(SEED + 5)
+    out = {}
+    for b, n, h, w in K2_ERR_SHAPES:
+        logits, image, g_disp, g_pan = (torch.from_numpy(rng.standard_normal((b, c, h, w), np.float32)).to(dev)
+                                        for c in (n, 3, 1, 3))
+        for mode, gp in (("disp", None), ("disp+pan", g_pan)):
+            k2 = med_vjp_fused(logits, image, 2.0, 300.0, g_disp, gp, image_grad=False)[0]
+            f32 = med_vjp(logits, image, 2.0, 300.0, g_disp, gp, image_grad=False)[0]
+            up = lambda t: None if t is None else t.double()
+            f64 = med_vjp(up(logits), up(image), 2.0, 300.0, up(g_disp), up(gp), image_grad=False)[0]
+            over = lambda g: float(((g.double() - f64).abs() / (GRAD_ATOL + GRAD_RTOL * f64.abs())).max())
+            out[f"{(b, n, h, w)} {mode}"] = {"k2": over(k2), "plain fp32": over(f32)}
+            del k2, f32, f64
+        del logits, image, g_disp, g_pan
+        torch.cuda.empty_cache()
+    return out
 
 
 def l1_times(dev) -> dict:
@@ -234,16 +263,16 @@ def main(argv=None) -> dict:
     out[f"stage-1 step B={B} {TRAIN}"] = median_ms(step, REPS, warmup=5)
     del model, opt, sched, batch
     torch.cuda.empty_cache()
-    return report(out, host, l1_times(dev))
+    return report(out, host, {"k2_err_over_tol": k2_errors(dev), **l1_times(dev)})
 
 
-def report(ms: dict, host: dict, l1: dict) -> dict:
+def report(ms: dict, host: dict, rest: dict) -> dict:
     """Print and return the JSON line, with the card's name and power limit."""
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    result = {"package": fal_net_torch.__file__, "card": card, "ms": ms, "host_us": host, **l1}
+    result = {"package": fal_net_torch.__file__, "card": card, "ms": ms, "host_us": host, **rest}
     print(json.dumps(result), flush=True)
     return result
 
