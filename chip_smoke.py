@@ -22,6 +22,11 @@ Phases, each reported on its own line; any failure exits nonzero:
      the whole row (N = 49, W = 640), a ring that streams the planes once a
      sweep (N = 49, W = 1280; two column chunks at W = 1500),
      and cp.async copies where W * 4 is not a multiple of 16 (W = 187);
+     then the scale pass (fal_net_torch/scripts/med_scales.py): K1 in every
+     mode against the plain head at TOL at logits z * s (spread) and s + z
+     (offset) for s = 1e1 ... 1e6, on every staging path (whole row by bulk
+     copies, cp.async, the ring, N = 33's whole row, the direct paths), one
+     line a (scale, form) with the worst error over TOL and where it is;
   3b. K2 vs plain: the MED backward kernel against the plain VJP (evaluated
      in float64 on the same inputs: in fp32 its own error reaches the
      tolerance at |disparity| 300, see ``plain_vjp64``) at the TPU
@@ -35,7 +40,12 @@ Phases, each reported on its own line; any failure exits nonzero:
      gradient tests; then the widest W each kernel takes at N = 49 in each
      mode ("not bounded by W" since the direct path; it fails otherwise) and
      on a staged path, and the largest disparity whose shift margin the
-     direct path takes;
+     direct path takes; then the scale pass for K2 (as phase 3's), every
+     cotangent mode against the exact VJP of the plain head's function
+     (``med_scales.exact_vjp``: float64 but for the forward's fp32 lerped
+     logits; the fp32 plain VJP misses by up to ~10x in the spread form, its
+     disp term, and the float64 one lerps in double), one line a (scale,
+     form) with K2's worst error over GRAD_TOL and the fp32 plain VJP's;
   4. the serving slice: FAL_netB N=49 with seeded random weights is saved to
      a .pt, 19 synthetic 384x1280 PNGs go through ``fal_net_torch.cli.infer``
      at batch 8, and again with ``--ms_post_process`` (two K1 launches a
@@ -242,7 +252,17 @@ Phases, each reported on its own line; any failure exits nonzero:
      ``cli.infer`` with the variant read from it (K1 at N = 33), and
      ``cli.test --maskr_quirk
      --save --save_pan`` on A's checkpoint and 2 of phase 10's frames (K1 by
-     mode, metrics finite, exports written).
+     mode, metrics finite, exports written);
+  17. the training soak (fal_net_torch/scripts/soak_train.py, the JAX
+     package's scripts/soak_train_tpu.py): ``Trainer.fit`` on FAL_netB N=49
+     at 192x640, batch 8, in bf16, on the JAX script's smooth stereo, 2
+     epochs of 25 steps with a checkpoint every 10 steps, then a fresh
+     Trainer resumed from the last checkpoint for a third epoch: the step at
+     50 and 75, one resumed epoch, finite losses, the resumed loss below 1.2x
+     phase 1's, the step-10 checkpoint restoring its step, weights and Adam
+     state exactly in a throwaway Trainer, K1 and K2 once a step and once a
+     gate, L1 once a step; each phase's host seconds, the median step by
+     CUDA events and the Data meter printed.
 After the phases a line gives the seconds each took on the host clock.
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -273,6 +293,7 @@ from fal_net_torch.ops.logits_conv import logits_conv, logits_conv_plain, pitche
 from fal_net_torch.ops.med import med_outputs
 from fal_net_torch.ops.med_kernel import MedForward, describe_plan, med_outputs_fused, med_vjp_fused, stage_plan
 from fal_net_torch.ops.med_vjp import med_vjp
+from fal_net_torch.scripts import med_scales
 from fal_net_torch.utils.timing import median_ms, tf32
 
 # (rtol, atol) of the TPU kernel's own tests (tests/test_med_pallas.py:34-37)
@@ -347,12 +368,13 @@ L1_SHAPES = [((8, 96, 384, 1280), 49, 1), ((1, 96, 384, 1280), 49, 1), ((8, 96, 
 L1_TOL = 1e-5  # rtol, and atol as a fraction of max|plain|: the same products summed in another order
 CONV_TIMED = (8, 64, 192, 640, 64)  # the conv case whose times go into the kernels line
 # fp32 operations per logit, counted from the kernel sources (an exp2 counts
-# one): K1 disp-only (multiply by log2 e, max, subtract, exp2, add,
+# one): K1 disp-only (max, subtract, multiply by log2 e, exp2, add,
 # multiply-add; the rescale once a stage of 7 planes is below one); K2 in the
-# training mode, C=3 (statistics sweep 23 with two exp2, gradient sweep 39
-# with three; disp's weights, taken in double, count as one fp32 exp2 each,
-# so the operations bound is low: bytes bound K2 at every shape timed here)
-OPS_PER_LOGIT = {"med_fwd": 6, "med_bwd": 62}
+# training mode, C=3 (statistics sweep 25 with two exp2, gradient sweep 41
+# with three, each with one logit lerp of four operations; disp's weights,
+# taken in double, count as one fp32 exp2 each, so the operations bound is
+# low: bytes bound K2 at every shape timed here)
+OPS_PER_LOGIT = {"med_fwd": 6, "med_bwd": 66}
 
 
 PHASE_S: dict = {}  # seconds each phase took, by phase
@@ -532,10 +554,22 @@ def k1_vs_plain(rng, dev, shapes) -> float:
     return worst
 
 
+def scale_pass(phase: str, kernel: str, dev) -> None:
+    """``med_scales.check`` of ``kernel`` ("k1" or "k2") at every scale and
+    form; raises on a miss."""
+    res = med_scales.check(kernels=(kernel,), device=dev, say=line)
+    worst = max(res[kernel].values())
+    line(f"phase {phase} scale pass: {kernel.upper()} at logits of 1e1 to 1e6 (spread and offset) on "
+         f"{len(med_scales.PATHS[kernel])} staging paths, worst {worst:.3f} of its tolerance")
+    if not res["ok"]:
+        raise AssertionError(f"phase {phase}: {kernel.upper()} misses its tolerance at large logits: {res}")
+
+
 def phase_kernel_vs_plain(rng, dev) -> float:
     worst = k1_vs_plain(rng, dev, SHAPES)
     line(f"phase 3 kernel vs plain: {len(SHAPES)} shapes x {len(MODES)} modes agree, "
          f"worst abs err {worst:.3e}")
+    scale_pass("3", "k1", dev)
     return worst
 
 
@@ -602,6 +636,7 @@ def phase_bwd_vs_plain(rng, dev) -> float:
     line(f"phase 3b direct path's margin limit at W = 65536: K1 disp+pan+subocc takes |disparity| to "
          f"{widest_disp('med_fwd', pan=True, subocc=True)} px, K2 disp+pan+g_img to "
          f"{widest_disp('med_bwd', pan=True, image_grad=True)} px")
+    scale_pass("3b", "k2", dev)
     return worst
 
 
@@ -2884,6 +2919,26 @@ def phase_variants(rng, dev, card: str, seed: int, evaluation: dict, workdir: st
     return {"k1": k1, "k2": k2, "l1": l1, "worst_k1": worst_k1, "worst_k2": worst_k2}
 
 
+def phase_soak(card: str) -> dict:
+    """Phase 17: the training soak in bf16 (see the module docstring).
+    Returns the launches of its main path, the gates' apart."""
+    from fal_net_torch.scripts import soak_train
+
+    res = soak_train.soak()
+    failed = [name for name, ok in res["checks"].items() if not ok]
+    line(f"phase 17 soak_train FAL_netB N=49 192x640 B=8 bf16: phase 1 epochs {res['losses1']}, step "
+         f"{res['step1']}, {res['seconds1']:.2f} s; phase 2 (a fresh Trainer resumed) {res['losses2']}, step "
+         f"{res['step2']}, {res['seconds2']:.2f} s (host clock); median step {res['step_ms1']:.3f}, "
+         f"{res['step_ms2']:.3f} ms (CUDA events); Data meter {res['data1']:.4f}, {res['data2']:.4f} s a step; "
+         f"K1, K2, L1 launches {res['launches1']}, {res['launches2']} (gates included); "
+         f"{'every check holds' if not failed else f'FAILED {failed}'} [{card}]")
+    if failed:
+        raise AssertionError(f"phase 17 soak_train: {failed}; launches {res['launches1']}, {res['launches2']} "
+                             f"(want {res['want_launches']})")
+    (k1a, k2a, l1a), (k1b, k2b, l1b) = res["launches1"], res["launches2"]
+    return {"k1": k1a + k1b - 2, "k2": k2a + k2b - 2, "l1": l1a + l1b}  # a gate's K1 and K2 in each phase
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2920,6 +2975,7 @@ def main() -> None:
         quick = timed("15", phase_quickstart)
         with tempfile.TemporaryDirectory() as workdir:  # phase 10's tree stays for phase 16's cli.test
             variants = timed("16", phase_variants, rng, dev, card, args.seed, evaluation, workdir)
+    soak = timed("17", phase_soak, card)
     line(f"phase seconds (host clock): {PHASE_S}; {time.perf_counter() - t_start:.1f} s in all, the interpreter's "
          f"start and imports apart")
     k1_bound, k1_by = bound(times["disp"][2], OPS_PER_LOGIT["med_fwd"] * times["disp_logits"])
@@ -2933,10 +2989,10 @@ def main() -> None:
             # serving (phase 4), training (phase 7a-c, 7d stage 2, 7e stage 1 slow, 7f the default run with
             # validation, 7g remat), evaluation (phase 10), the serving artifacts (phase 11), bf16 (phase 12) and
             # the DDP ranks and evaluation replicas (phase 13), the ranks that split rows (phase 14), the quickstart
-            # (phase 15) and FAL_netA and C at N = 33 (phase 16)
+            # (phase 15), FAL_netA and C at N = 33 (phase 16) and the training soak (phase 17)
             "launches": serve_launches + train["k1"] + later["k1"] + default["k1"] + remat["k1"] + evaluation["k1"]
             + artifact["k1"] + bf16_train["k1"] + bf16["k1"] + multi["k1"] + spatial["k1"] + quick["k1"]
-            + variants["k1"],
+            + variants["k1"] + soak["k1"],
             "max_abs_err": max(worst3, worst4, default["worst"], evaluation["worst"], bf16["worst"],
                                variants["worst_k1"]),
             "ms": times["disp"][0],  # disp-only at (8, 49, 384, 1280)
@@ -2951,9 +3007,10 @@ def main() -> None:
             "source": "fal_net_torch/csrc/med_bwd.cu",
             "replaces": "fal_net_tpu/ops/med_pallas.py:253",
             # training paths (phase 7a-c, 7d, 7e, 7f, 7g, the bf16 steps of phase 12, the DDP ranks of phase 13, the
-            # ranks that split rows in phase 14, the quickstart's steps in phase 15, FAL_netA's and C's in phase 16)
+            # ranks that split rows in phase 14, the quickstart's steps in phase 15, FAL_netA's and C's in phase 16,
+            # the soak's 75 in phase 17)
             "launches": train["k2"] + later["k2"] + default["k2"] + remat["k2"] + bf16_train["k2"] + bf16["k2"]
-            + multi["k2"] + spatial["k2"] + quick["k2"] + variants["k2"],
+            + multi["k2"] + spatial["k2"] + quick["k2"] + variants["k2"] + soak["k2"],
             "max_abs_err": max(worst3b, train["worst"], later["worst"], default["k2_worst"], variants["worst_k2"]),
             "ms": times["k2"][0],  # disp+pan cotangents, no g_img, at (8, 49, 192, 640)
             "plain_ms": times["k2"][1],
@@ -2967,8 +3024,9 @@ def main() -> None:
             "source": "fal_net_torch/csrc/logits_conv.cu",
             "replaces": "fal_net_tpu/models/layers.py:67",  # _conv_accum, an XLA conv: no Pallas counterpart
             # the bf16 paths of phase 12: cli.train, the forward, the stage-1 and stage-2 steps, cli.test, the
-            # artifact; FAL_netA's and C's bf16 forwards (33 output channels) in phase 16
-            "launches": bf16_train["l1"] + bf16["l1"] + variants["l1"],
+            # artifact; FAL_netA's and C's bf16 forwards (33 output channels) in phase 16; the soak's 75 bf16
+            # steps in phase 17
+            "launches": bf16_train["l1"] + bf16["l1"] + variants["l1"] + soak["l1"],
             "max_abs_err": bf16["l1_kernel"]["max_abs_err"],  # every L1_SHAPES entry, Cout 33 included
             "ms": bf16["l1_kernel"]["ms"],  # (8, 96, 384, 1280) -> 49
             "plain_ms": bf16["l1_kernel"]["plain_ms"],

@@ -23,17 +23,17 @@
 // else is a few MB, so ~0.12 ms at 3.35 TB/s, against ~62 fp32 operations
 // and 5 exponentials per logit.  The design (staging in med_stage.cuh):
 //   * S^T reads D_n and sum_m q_m at OTHER columns, so a statistics sweep
-//     puts per-column (log2-sum, sum_m q_m / sum) of the shifted-logit
-//     softmax in shared memory, beside the image and g_pan rows (a float4
-//     per column each); the plain softmax's (log2-sum, disp) stay in the
-//     registers of the column's thread;
+//     puts per-column (maximum, log2-sum) and sum_m q_m / sum of the
+//     shifted-logit softmax in shared memory, beside the image and g_pan
+//     rows (a float4 per column each); the plain softmax's (maximum,
+//     log2-sum, disp) stay in the registers of the column's thread;
 //   * after a barrier of the consumers, a gradient sweep writes each
 //     g_l_n(x) once: per stage, every thread puts g_shift_n(y) =
 //     D_n(y) (gD_n(y) - sum_m q_m(y)) of its own columns in shared memory
 //     (each value serves two columns of S^T), and after a barrier gathers
 //     them at x - f and x - f - 1: no atomics, deterministic;
 //   * whole-row path: where the N plane rows fit beside the rest
-//     (125,440 + 48,960 B at N = 49, W = 640), the gradient sweep reads the
+//     (125,440 + 51,520 B at N = 49, W = 640), the gradient sweep reads the
 //     logits from shared memory, so they leave device memory once, and it
 //     releases a stage's slot (7 planes at N = 49) as soon as it has written
 //     their g_l_n, so that the next row's first stages are copied during the
@@ -42,7 +42,7 @@
 //     through fewer slots in both sweeps;
 //   * direct path, for rows too wide to stage whole plane rows beside the
 //     image and g_pan rows (32 B a column) and the statistics (at N = 49:
-//     W > 4,449 with pan cotangents, > 4,131 with g_img, > 28,936 with disp
+//     W > 4,132 with pan cotangents, > 3,856 with g_img, > 28,936 with disp
 //     alone): a slot row holds one 1,280-column chunk's window, the chunk
 //     and the shift margin on each side, so shared memory does not grow
 //     with W; the image and g_pan rows are read from device memory, through
@@ -52,9 +52,14 @@
 //     statistics of c and its gradient, whose S^T reads statistics within a
 //     margin of c.  g_shift_n is made per stage for the 1,282 columns the
 //     chunk's S^T reads (x - f_n - 1 for x in the chunk, and one more);
-//   * exponentials in base 2 (ex2.approx on l log2 e); the online softmaxes
-//     take a stage's maximum first and rescale their sums once a stage, with
-//     no branch;
+//   * the online softmaxes take a stage's maximum first and rescale their
+//     sums once a stage, with no branch.  As in K1 (med_fwd.cu), each keeps
+//     its maximum m of the logits themselves and weighs a logit l by
+//     e^(l - m), the difference taken in the logit domain as the plain
+//     softmax takes it (exact where a weight counts; at most 0 at any finite
+//     logits), and the shifted logits are lerped with the plain head's
+//     rounding (lerp_logit), in the statistics sweep and in the gradient
+//     sweep's recompute of D alike;
 //   * disp's softmax weights, their sums and disp itself in double, from
 //     double exponents: g_l_n is sm0_n (d_n - disp) g_disp, and where d_n is
 //     near disp an error in disp stays whole while the term vanishes.  With
@@ -62,11 +67,6 @@
 //     ~7e-5 at |disparity| 300, and g_l_n by as much times sm0_n g_disp,
 //     past the gradient tests' atol of 1e-5; in double the error left is
 //     relative (sm0_n, the fp32 difference), as the tolerance's rtol takes;
-//     each exponent is a product less the maximum (or log2-sum) of the same
-//     products, rounded alike, so it is at most 0 at any finite logits
-//     (disp's products in double, pan's rounded by __fmul_rn: a fused
-//     product would pass the maximum by up to half its ulp, 2^60 at
-//     |l| = 1e9);
 //   * columns wider than one chunk (W > 1280) recompute the plain softmax's
 //     statistics in a sweep before each chunk's gradient sweep.
 // On an H100 it is bound by the consumers' issue rate and shared-memory
@@ -122,18 +122,20 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
   float* extra;
   const RowStage st = stage_init(smem_raw, p, bulk, &extra);
   // extra: [plane tables], then for pan [image row][g_pan row] (not on the
-  // direct path) [(lse1, sq) W][g_shift: G rows of pitch P][D: G rows, for
-  // g_img]; the rows as the staged ones, column 0 at offset 4 and zero
-  // guards.  On the direct path (lse1, sq) is kept for three chunks' columns
-  // (column y at y mod their count) and the g_shift and D rows are of
-  // gs_pitch, column u standing for x - f_n - 1 + u, x the chunk's first.
+  // direct path) [(maximum, log2-sum) W][sq W, to a multiple of 4][g_shift:
+  // G rows of pitch P][D: G rows, for g_img]; the rows as the staged ones,
+  // column 0 at offset 4 and zero guards.  On the direct path the
+  // statistics are kept for three chunks' columns (column y at y mod their
+  // count) and the g_shift and D rows are of gs_pitch, column u standing for
+  // x - f_n - 1 + u, x the chunk's first.
   const int chunk_cols = p.cpt * p.consumers, st_cols = kDirect ? 3 * chunk_cols : W;
   const int gsp = kDirect ? gs_pitch(chunk_cols) : st.P;  // g_shift and D row pitch
   PlaneTab* s_tab = reinterpret_cast<PlaneTab*>(extra);
   float4* s_img4 = reinterpret_cast<float4*>(extra + bwd_tab_floats(N)) + 1;  // column 0
   float4* s_gp4 = s_img4 + W + 2;
   float2* s_st = kDirect ? reinterpret_cast<float2*>(extra + bwd_tab_floats(N)) : reinterpret_cast<float2*>(s_gp4 + W + 1);
-  float* s_gs = reinterpret_cast<float*>(s_st + st_cols) + 4;
+  float* s_sq = reinterpret_cast<float*>(s_st + st_cols);  // sum_m q_m / sum of the shifted softmax
+  float* s_gs = s_sq + (st_cols + 3) / 4 * 4 + 4;
   float* s_d = s_gs + p.group * gsp;
   auto st_at = [&](int y) { return kDirect ? y % st_cols : y; };  // 0 <= y < W
   if (tab_stride == 0) load_plane_tabs(s_tab, nullptr, tables, N, threadIdx.x, blockDim.x);
@@ -174,15 +176,16 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
       consumers_sync(p.consumers);
     }
     RowSweeps sweeps(st, p, ring, N);
-    // the plain softmax of the columns of the current chunk: log2-sum, disp
-    double lse0[kCpt], disp[kCpt];
+    // the plain softmax of the columns of the current chunk: maximum, log2-sum, disp
+    float max0[kCpt];
+    double lz0[kCpt], disp[kCpt];
 
     // Statistics of chunk c: the plain softmax into registers (do_disp), the
     // shifted one into shared memory (do_pan).
     auto stats = [&](int ch, bool do_disp, bool do_pan) {
       const RowCols<kDirect> cols{W, kDirect ? ch * chunk_cols - p.margin : 0, p.span};
-      float m1[kCpt], z1[kCpt], aq[kCpt];
-      double m0[kCpt], z0[kCpt], a0[kCpt];  // disp's statistics, in double (see the header)
+      float m0[kCpt], m1[kCpt], z1[kCpt], aq[kCpt];
+      double z0[kCpt], a0[kCpt];  // disp's sums, in double (see the header)
       float4 gp[kCpt];  // g_pan at the column, zero past C
 #pragma unroll
       for (int k = 0; k < kCpt; ++k) {
@@ -205,20 +208,19 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
           const int x = column(p, ch, k, tid);
           if (x >= W) continue;
           if (kDisp && do_disp) {
-            float l[kGroup];
-            double mx = m0[k];
+            float l[kGroup], mx = m0[k];
 #pragma unroll
             for (int i = 0; i < kGroup; ++i) {
               l[i] = cols.in(lr[i], x);
-              mx = fmax(mx, (double)l[i] * kLog2eD);
+              mx = fmaxf(mx, l[i]);
             }
-            const double r = exp2_d(m0[k] - mx);  // ~0 on the first stage
+            const double r = exp2_d(((double)m0[k] - mx) * kLog2eD);  // ~0 on the first stage
             z0[k] *= r;
             a0[k] *= r;
             m0[k] = mx;
 #pragma unroll
             for (int i = 0; i < kGroup; ++i) {
-              const double e = exp2_d((double)l[i] * kLog2eD - mx);
+              const double e = exp2_d(((double)l[i] - mx) * kLog2eD);
               z0[k] += e;
               a0[k] = fma(e, (double)tb[i].lev, a0[k]);
             }
@@ -228,18 +230,18 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
 #pragma unroll
             for (int i = 0; i < kGroup; ++i) {
               const int j = x + tb[i].f;
-              a[i] = __fmul_rn(cols.lerp(lr[i], j, tb[i].t), kLog2e);
+              a[i] = cols.lerp(lr[i], j, tb[i].t);
               mx = fmaxf(mx, a[i]);
               const float4 v = img_lerp(j, tb[i].t);
               gd[i] = fmaf(v.x, gp[k].x, fmaf(v.y, gp[k].y, fmaf(v.z, gp[k].z, v.w * gp[k].w)));
             }
-            const float r = ex2(m1[k] - mx);
+            const float r = exp_diff(m1[k] - mx);
             z1[k] *= r;
             aq[k] *= r;
             m1[k] = mx;
 #pragma unroll
             for (int i = 0; i < kGroup; ++i) {
-              const float e = ex2(a[i] - mx);
+              const float e = exp_diff(a[i] - mx);
               z1[k] += e;
               aq[k] = fmaf(e, gd[i], aq[k]);
             }
@@ -251,11 +253,13 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
         const int x = column(p, ch, k, tid);
         if (x >= W) continue;
         if (kDisp && do_disp) {
-          lse0[k] = m0[k] + log2(z0[k]);
+          max0[k] = m0[k];
+          lz0[k] = log2(z0[k]);
           disp[k] = a0[k] / z0[k];
         }
         if (kPan && do_pan) {
-          s_st[st_at(x)] = make_float2(m1[k] + log2f(z1[k]), aq[k] / z1[k]);
+          s_st[st_at(x)] = make_float2(m1[k], log2f(z1[k]));
+          s_sq[st_at(x)] = aq[k] / z1[k];
         }
       }
     };
@@ -293,12 +297,11 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
               const int y = y0 + u;
               float gs = 0.f, d = 0.f;
               if (y >= 0 && y < W) {
-                const float2 sy = s_st[st_at(y)];
                 const float4 gq = gp_in(y);
                 const int j = y + tb[i].f;
-                d = ex2(__fmul_rn(cols.lerp(lr[i], j, tb[i].t), kLog2e) - sy.x);
+                d = softmax_at(cols.lerp(lr[i], j, tb[i].t), s_st[st_at(y)]);
                 const float4 v = img_lerp(j, tb[i].t);
-                gs = d * (fmaf(v.x, gq.x, fmaf(v.y, gq.y, fmaf(v.z, gq.z, v.w * gq.w))) - sy.y);
+                gs = d * (fmaf(v.x, gq.x, fmaf(v.y, gq.y, fmaf(v.z, gq.z, v.w * gq.w))) - s_sq[st_at(y)]);
               }
               s_gs[i * gsp + u] = gs;
               if (kImg) s_d[i * gsp + u] = d;
@@ -312,16 +315,17 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
             for (int k = 0; k < kCpt; ++k) {
               const int y = column(p, c2, k, tid);
               if (y >= W) continue;
-              const float2 sy = s_st[y];  // (log2-sum, sum_m q_m / sum) at y
+              const float2 sy = s_st[y];  // (maximum, log2-sum) at y
+              const float sq = s_sq[y];   // sum_m q_m / sum at y
               const float4 gq = gp_in(y);
 #pragma unroll
               for (int i = 0; i < kGroup; ++i) {
                 if (i >= g) break;
                 const int j = y + tb[i].f;
-                const float d = ex2(__fmul_rn(lerp_at(lr[i], j, tb[i].t, W), kLog2e) - sy.x);
+                const float d = softmax_at(lerp_at(lr[i], j, tb[i].t, W), sy);
                 const float4 v = img_lerp(j, tb[i].t);
                 const float gdn = fmaf(v.x, gq.x, fmaf(v.y, gq.y, fmaf(v.z, gq.z, v.w * gq.w)));
-                s_gs[i * st.P + y] = d * (gdn - sy.y);
+                s_gs[i * st.P + y] = d * (gdn - sq);
                 if (kImg) s_d[i * st.P + y] = d;
               }
             }
@@ -341,7 +345,7 @@ med_bwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
             float gl = 0.f;
             if (kDisp) {
               const float dd = (float)((double)tb[i].lev - disp[k]);  // d_n - disp, rounded once
-              gl = ex2((float)((double)cols.in(lr[i], x) * kLog2eD - lse0[k])) * dd * gd[k];
+              gl = ex2((float)(((double)cols.in(lr[i], x) - max0[k]) * kLog2eD - lz0[k])) * dd * gd[k];
             }
             if (kPan) {
               // S^T: y0 = x - f takes weight 1-t, y0 - 1 weight t; zero outside the row
@@ -416,18 +420,20 @@ int bwd_sweeps(int chunks, bool disp, bool pan) {
 
 bool bwd_plan(StagePlan& p, int N, int C, int W, bool disp, bool pan, bool img, int margin) {
   plan_columns(p, W);
-  // pan: image and g_pan rows, (lse1, sq), and per stage row a g_shift row
-  // (and a D row)
+  // pan: image and g_pan rows, (maximum, log2-sum) and sq, and per stage row
+  // a g_shift row (and a D row)
   const size_t per_row = pan ? 4 * (size_t)row_pitch(W) * (img ? 2 : 1) : 0;
-  const size_t extra = plane_tab_bytes(N) + (pan ? 4 * (2 * (size_t)image_floats(W) + 2 * (size_t)W) : 0);
+  const size_t stats = 2 * (size_t)W + (W + 3) / 4 * 4;
+  const size_t extra = plane_tab_bytes(N) + (pan ? 4 * (2 * (size_t)image_floats(W) + stats) : 0);
   if (plan_slots(p, N, bwd_sweeps(p.chunks, disp, pan), extra, per_row)) return true;
   // the direct path: per chunk the shifted statistics of the next one
-  // (pan), then its plain statistics (disp) and its gradient; (lse1, sq) of
-  // three chunks, the g_shift and D rows of gs_pitch, their offset of 4
+  // (pan), then its plain statistics (disp) and its gradient; the shifted
+  // statistics of three chunks, the g_shift and D rows of gs_pitch, their
+  // offset of 4
   const int chunk_cols = p.cpt * p.consumers, own = disp ? 2 : 1;
   if (!plan_direct(p, margin, pan, own)) return false;
   const size_t d_per_row = pan ? 4 * (size_t)gs_pitch(chunk_cols) * (img ? 2 : 1) : 0;
-  const size_t d_extra = plane_tab_bytes(N) + (pan ? 4 * (6 * (size_t)chunk_cols + 4) : 0);
+  const size_t d_extra = plane_tab_bytes(N) + (pan ? 4 * (9 * (size_t)chunk_cols + 4) : 0);
   return plan_slots(p, N, p.chunks * ((pan ? 1 : 0) + own), d_extra, d_per_row);
 }
 

@@ -29,23 +29,27 @@
 //     reads are shared-memory loads, clamped into zero guards instead of
 //     bounds checks; the image row is one float4 per column, so one load
 //     reads every channel;
-//   * disp and pan are one sweep over the planes with online softmaxes in
-//     base 2 (ex2.approx on l log2 e): one over l_n[x] for disp, one over the
-//     shifted logit carrying the C pan accumulators.  Each takes a stage's
-//     maximum first and rescales its sums once a stage, not once a plane,
-//     with no branch;
+//   * disp and pan are one sweep over the planes with online softmaxes: one
+//     over l_n[x] for disp, one over the shifted logit carrying the C pan
+//     accumulators.  Each takes a stage's maximum first and rescales its
+//     sums once a stage, not once a plane, with no branch;
+//   * every softmax keeps its maximum m of the logits themselves and weighs
+//     a logit l by ex2.approx((l - m) log2 e), as the plain softmax and
+//     JAX's kernel take exp(l - m): the difference is exact where a weight
+//     counts, so the rounding does not grow with |l|, and l <= m keeps every
+//     exponent at most 0 at any finite logits.  The shifted logits are
+//     lerped with the plain head's rounding (lerp_logit), so that both
+//     softmaxes see the same values at |l| = 1e6;
 //   * the masks read softmax statistics at OTHER columns, so subocc mode
-//     stores per-column log2-sums of both softmaxes in shared memory during
-//     that sweep, and after a barrier of the consumers sums the shifted
-//     probabilities in a second sweep: from the same slots where the row
-//     fits in shared memory (whole row), else from a second stream of the
-//     planes (ring).  Both sweeps take l log2 e rounded (__fmul_rn), so a
-//     weight's exponent is at most 0 at any finite logits: a fused product
-//     less the log2-sum of rounded ones exceeds it by up to half an ulp of
-//     the product, 2^60 at |l| = 1e9;
+//     stores per column the maximum and the log2-sum of both softmaxes in
+//     shared memory during that sweep (two parts: m + log2 sum in one float
+//     would round at |m|), and after a barrier of the consumers sums the
+//     shifted probabilities in a second sweep: from the same slots where the
+//     row fits in shared memory (whole row), else from a second stream of
+//     the planes (ring);
 //   * direct path, for rows too wide to stage whole plane rows beside the
 //     image row (16 B a column) and the statistics (at N = 49: W > 9,634
-//     with pan, > 7,225 with pan and subocc, > 28,908 disp alone): a slot
+//     with pan, > 5,780 with pan and subocc, > 28,908 disp alone): a slot
 //     row holds one 1,280-column chunk's window, the chunk and the shift
 //     margin on each side, so shared memory does not grow with W; the image
 //     row is read from device memory, through the caches, at the shifted
@@ -83,16 +87,17 @@ med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
   float* extra;
   const RowStage st = stage_init(smem_raw, p, bulk, &extra);
   // extra: [plane tables][backward floors], [image row] for pan (not on
-  // the direct path), then [lse0][lse1] for subocc: W columns each, or on
-  // the direct path three chunks' columns, column x at x mod their count
+  // the direct path), then for subocc the statistics (maximum, log2-sum) of
+  // softmax(l) and of softmax(S l): W columns each, or on the direct path
+  // three chunks' columns, column x at x mod their count
   constexpr bool kStageImg = kPan && !kDirect;
-  const int chunk_cols = p.cpt * p.consumers, lse_cols = kDirect ? 3 * chunk_cols : W;
+  const int chunk_cols = p.cpt * p.consumers, st_cols = kDirect ? 3 * chunk_cols : W;
   PlaneTab* s_tab = reinterpret_cast<PlaneTab*>(extra);
   int* s_fb = reinterpret_cast<int*>(s_tab + N + kGroup - 1);
   float4* s_img4 = reinterpret_cast<float4*>(extra + fwd_tab_floats(N)) + 1;  // column 0
-  float* s_lse0 = extra + fwd_tab_floats(N) + (kStageImg ? image_floats(W) : 0);
-  float* s_lse1 = s_lse0 + lse_cols;
-  auto lse_at = [&](int x) { return kDirect ? x % lse_cols : x; };  // 0 <= x < W
+  float2* s_st0 = reinterpret_cast<float2*>(extra + fwd_tab_floats(N) + (kStageImg ? image_floats(W) : 0));
+  float2* s_st1 = s_st0 + st_cols;
+  auto st_at = [&](int x) { return kDirect ? x % st_cols : x; };  // 0 <= x < W
   if (tab_stride == 0) load_plane_tabs(s_tab, s_fb, tables, N, threadIdx.x, blockDim.x);
   __syncthreads();
 
@@ -144,16 +149,16 @@ med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
             float a[kGroup], mx = m0[k];
 #pragma unroll
             for (int i = 0; i < kGroup; ++i) {
-              a[i] = __fmul_rn(cols.in(lr[i], x), kLog2e);  // rounded, as the masks' weights take it
+              a[i] = cols.in(lr[i], x);
               mx = fmaxf(mx, a[i]);
             }
-            const float r = ex2(m0[k] - mx);  // 0 on the first stage
+            const float r = exp_diff(m0[k] - mx);  // 0 on the first stage
             z0[k] *= r;
             acc[k] *= r;
             m0[k] = mx;
 #pragma unroll
             for (int i = 0; i < kGroup; ++i) {
-              const float e = ex2(a[i] - mx);
+              const float e = exp_diff(a[i] - mx);
               z0[k] += e;
               if (kDisp) acc[k] = fmaf(e, tb[i].lev, acc[k]);
             }
@@ -162,16 +167,16 @@ med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
             float a[kGroup], mx = m1[k];
 #pragma unroll
             for (int i = 0; i < kGroup; ++i) {
-              a[i] = __fmul_rn(cols.lerp(lr[i], x + tb[i].f, tb[i].t), kLog2e);
+              a[i] = cols.lerp(lr[i], x + tb[i].f, tb[i].t);
               mx = fmaxf(mx, a[i]);
             }
-            const float r = ex2(m1[k] - mx);
+            const float r = exp_diff(m1[k] - mx);
             z1[k] *= r;
             pc[k] = make_float4(pc[k].x * r, pc[k].y * r, pc[k].z * r, pc[k].w * r);
             m1[k] = mx;
 #pragma unroll
             for (int i = 0; i < kGroup; ++i) {
-              const float e = ex2(a[i] - mx);
+              const float e = exp_diff(a[i] - mx);
               z1[k] += e;
               if (kPan) {
                 const float4 v = kDirect ? lerp4_ld(img_row, x + tb[i].f, tb[i].t, C, W, plane)
@@ -196,8 +201,8 @@ med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
             if (c < C) pan[crow + c * plane + x] = v[c] * inv;
         }
         if (kSub) {
-          s_lse0[lse_at(x)] = m0[k] + log2f(z0[k]);
-          s_lse1[lse_at(x)] = m1[k] + log2f(z1[k]);
+          s_st0[st_at(x)] = make_float2(m0[k], log2f(z0[k]));
+          s_st1[st_at(x)] = make_float2(m1[k], log2f(z1[k]));
         }
       }
     };
@@ -222,15 +227,14 @@ med_fwd_kernel(const float* __restrict__ logits,  // (B, N, H, W)
             // maskR: S_{+s}(softmax(l)_n), the softmax taken at the source column
             const int j = x + tb.f;
             float a = 0.f, c = 0.f;
-            if (j >= 0 && j < W) a = ex2(__fmul_rn(cols.in(lr[i], j), kLog2e) - s_lse0[lse_at(j)]);
-            if (j + 1 >= 0 && j + 1 < W) c = ex2(__fmul_rn(cols.in(lr[i], j + 1), kLog2e) - s_lse0[lse_at(j + 1)]);
+            if (j >= 0 && j < W) a = softmax_at(cols.in(lr[i], j), s_st0[st_at(j)]);
+            if (j + 1 >= 0 && j + 1 < W) c = softmax_at(cols.in(lr[i], j + 1), s_st0[st_at(j + 1)]);
             mr[k] += fmaf(tb.t, c - a, a);
             // maskL: S_{-s}(Dprob_n), Dprob recomputed at the source column
             const int q = x + fb;
             a = c = 0.f;
-            if (q >= 0 && q < W) a = ex2(__fmul_rn(cols.lerp(lr[i], q + tb.f, tb.t), kLog2e) - s_lse1[lse_at(q)]);
-            if (q + 1 >= 0 && q + 1 < W)
-              c = ex2(__fmul_rn(cols.lerp(lr[i], q + 1 + tb.f, tb.t), kLog2e) - s_lse1[lse_at(q + 1)]);
+            if (q >= 0 && q < W) a = softmax_at(cols.lerp(lr[i], q + tb.f, tb.t), s_st1[st_at(q)]);
+            if (q + 1 >= 0 && q + 1 < W) c = softmax_at(cols.lerp(lr[i], q + 1 + tb.f, tb.t), s_st1[st_at(q + 1)]);
             ml[k] += fmaf(tb.tb, c - a, a);
           }
         }
@@ -274,10 +278,11 @@ bool fwd_plan(StagePlan& p, int N, int C, int W, bool pan, bool sub, int margin)
   plan_columns(p, W);
   const int sweeps = p.chunks * (sub ? 2 : 1);
   const size_t img = pan ? (size_t)image_floats(W) : 0;
-  if (plan_slots(p, N, sweeps, 4 * (fwd_tab_floats(N) + img + (sub ? 2 * (size_t)W : 0)))) return true;
+  // subocc: the two softmaxes' (maximum, log2-sum) a column
+  if (plan_slots(p, N, sweeps, 4 * (fwd_tab_floats(N) + img + (sub ? 4 * (size_t)W : 0)))) return true;
   const int chunk_cols = p.cpt * p.consumers;
   return plan_direct(p, margin, sub, 1) &&
-         plan_slots(p, N, sweeps, 4 * (fwd_tab_floats(N) + (sub ? 6 * (size_t)chunk_cols : 0)));
+         plan_slots(p, N, sweeps, 4 * (fwd_tab_floats(N) + (sub ? 12 * (size_t)chunk_cols : 0)));
 }
 
 template <bool kDisp, bool kPan, bool kSub>

@@ -147,7 +147,7 @@ constexpr int kStageThreads = kMaxConsumers + 32;  // and the producer warp
 constexpr int kGroup = 7;                         // plane rows per stage, at most: N = 49 is 7 stages
 constexpr float kNoLogit = -1e30f;                // the dummy row's logits: weight 2^(-1e30 log2 e) = 0
 constexpr size_t kMaxSmemBytes = 232448;          // dynamic shared memory of one block
-constexpr float kLog2e = 1.4426950408889634f;     // the kernels work in base 2: 2^(l log2 e) = e^l
+constexpr float kLog2e = 1.4426950408889634f;     // ex2.approx is base 2: e^d = 2^(d log2 e)
 
 struct StagePlan {
   int consumers;  // consumer threads, a multiple of 32
@@ -398,6 +398,15 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// e^d for d = l - m, a logit less a maximum, taken in the logit domain as
+// the plain softmax takes it: l <= m makes d, and so the exponent, at most 0
+// exactly, and the rounding of d * log2 e is relative to |d|, not to |l|.
+__device__ __forceinline__ float exp_diff(float d) { return ex2(d * kLog2e); }
+
+// A softmax's weight of logit l at a column whose statistics are st =
+// (maximum m, log2 of the sum of e^(l' - m)): e^(l - m) / sum, at most 1.
+__device__ __forceinline__ float softmax_at(float l, float2 st) { return ex2((l - st.x) * kLog2e - st.y); }
+
 // A plane's table entry in shared memory (one 16-byte load): level, forward
 // floor and fraction, backward fraction; the backward floor is apart.
 // Entries N .. N + kGroup - 2 are zeros: the dummy planes of a short stage.
@@ -436,10 +445,18 @@ __device__ __forceinline__ void stage_rows(const RowStage& st, const float* rows
 // v[j] of a row with zero guards (row_pitch): zero outside [0, W).
 __device__ __forceinline__ float pad(const float* v, int j, int W) { return v[min(max(j, -1), W)]; }
 
-// The lerp gather (1-t) v[j] + t v[j+1] of a row with zero guards.
+// The lerp (1-t) a + t b of two logits, rounded as the plain head
+// (ops/shift.py) and JAX's kernel round it: 1 - t, each product and the sum
+// on their own, so that nvcc contracts nothing into a fused multiply-add.
+// t is the tables' fp32 fraction, the plain head's `frac`; at |l| = 1e4 a
+// fused form differs by up to 2 ulps of l, 2e-3 in an exponent.
+__device__ __forceinline__ float lerp_logit(float a, float b, float t) {
+  return __fadd_rn(__fmul_rn(__fsub_rn(1.f, t), a), __fmul_rn(t, b));
+}
+
+// The lerp gather (1-t) v[j] + t v[j+1] of a logit row with zero guards.
 __device__ __forceinline__ float lerp_at(const float* v, int j, float t, int W) {
-  const float a = pad(v, j, W);
-  return fmaf(t, pad(v, j + 1, W) - a, a);
+  return lerp_logit(pad(v, j, W), pad(v, j + 1, W), t);
 }
 
 // Reads of a slot row v at image column j, zero outside [0, W): the whole
@@ -452,11 +469,9 @@ struct RowCols {
   int W, ws, span;
   // column j, 0 <= j < W
   __device__ __forceinline__ float in(const float* v, int j) const { return kWin ? v[j - ws] : v[j]; }
-  // the lerp gather (1-t) v[j] + t v[j+1]
+  // the lerp gather (1-t) v[j] + t v[j+1] of logits (lerp_logit)
   __device__ __forceinline__ float lerp(const float* v, int j, float t) const {
-    if (!kWin) return lerp_at(v, j, t, W);
-    const float a = win(v, j);
-    return fmaf(t, win(v, j + 1) - a, a);
+    return kWin ? lerp_logit(win(v, j), win(v, j + 1), t) : lerp_at(v, j, t, W);
   }
 
  private:

@@ -2,14 +2,13 @@
 
     python -m fal_net_torch.scripts.med_times
 
-K1 (disp, disp+pan and disp+pan+subocc at (8, 49, 384, 1280); disp+pan at
-(8, 49, 192, 640); disp at the evaluation's KITTI shapes (8, 49, 375, 1242)
-and its 2/3 shape (8, 49, 250, 828); where the package has K1's direct path,
-disp+pan at (8, 49, 16, 11572) beside the ring at (8, 49, 16, 1500)), K2
-(disp+pan cotangents, without and with the image gradient, at
-(8, 49, 192, 640); and, where the package has K2's direct path, at
-(8, 49, 16, 5000) and (8, 49, 16, 11572) beside the ring at
-(8, 49, 16, 1500), the same per logit), K5 (the windowed roll at the probe's
+K1 and K2 at ``K1_TABLE``'s and ``K2_TABLE``'s shapes: those of PERF.md's
+table of the TPU kernels (FAL_netB's N = 49 and FAL_netA/C's N = 33 at the
+serving, stage-1 and KITTI shapes in the modes their paths launch, the
+validation's subocc batch of 4, the direct paths, K2 also with the image
+gradient), the evaluation's 2/3 shape (8, 49, 250, 828) and the ring at
+(8, 49, 16, 1500) beside the direct paths (a package without a direct path
+refuses W = 5000 and 11572, and the key is left out); K5 (the windowed roll at the probe's
 (8, 128), wp = 640) beside ``torch.roll`` of the zero-padded row (also in
 host microseconds a call, the mean over 5,000 calls, beside one native
 single-kernel op, ``torch.neg``, an ``empty_like``, and the events around
@@ -33,6 +32,8 @@ serving and the evaluation shapes: NCHW ``torch.cat``, a channels-last
 concat (the two parts copied into a channels-last buffer) and, where the
 package has it, ``pitched_cat`` (the rows on L1's 16-byte pitch).
 ``--l1`` times only these (python -m fal_net_torch.scripts.med_times --l1).
+
+``--med`` times only K1 and K2 (the tables).
 
 It calls only entry points that earlier versions of the package have too,
 so run as a file with another checkout of the package first on PYTHONPATH
@@ -70,6 +71,16 @@ L1_SHAPES = (((8, 96, 384, 1280), 49, 1), ((1, 96, 384, 1280), 49, 1), ((8, 96, 
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989.4e12  # H100 SXM, NVIDIA data sheet
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5  # tests/test_med_pallas.py's gradient tests
 K2_ERR_SHAPES = ((B, 33, *SERVE), (B, 33, *TRAIN), (B, N, *SERVE), (B, N, *TRAIN))
+# K1 and K2 at the shapes of PERF.md's table of the TPU kernels, the evaluation's 2/3 shape and the ring at
+# W = 1500: ((B, N, H, W), modes)
+K1_TABLE = (((B, N, *SERVE), ("disp", "disp+pan", "disp+pan+subocc")), ((B, N, *TRAIN), ("disp+pan", "disp+pan+subocc")),
+            ((4, N, 375, 1242), ("disp+pan+subocc",)), ((B, N, 375, 1242), ("disp",)), ((B, N, 250, 828), ("disp",)),
+            ((B, N, 16, 1500), ("disp+pan",)), ((B, N, 16, 11572), ("disp+pan",)),
+            ((B, 33, *SERVE), ("disp", "disp+pan", "disp+pan+subocc")), ((B, 33, *TRAIN), ("disp+pan", "disp+pan+subocc")),
+            ((B, 33, 375, 1242), ("disp",)))
+K2_TABLE = (((B, N, *TRAIN), ("disp+pan", "disp+pan+g_img")), ((B, N, 16, 1500), ("disp+pan",)),
+            ((B, N, 16, 5000), ("disp+pan", "disp+pan+g_img")), ((B, N, 16, 11572), ("disp+pan",)),
+            ((B, 33, *TRAIN), ("disp+pan",)), ((B, 33, *SERVE), ("disp+pan",)), ((B, 33, 375, 1242), ("disp+pan",)))
 
 
 def host_us(fn, calls: int = 5000) -> float:
@@ -184,49 +195,50 @@ def l1_times(dev) -> dict:
     return {"l1": ms, "l1_bound": bounds, "cat": cat, "paths": paths}
 
 
+def table_times(dev) -> dict:
+    """K1 and K2 at K1_TABLE's and K2_TABLE's shapes and modes; inputs drawn
+    on the card from seed SEED + 6.  A package without the direct paths
+    refuses W = 5000 and 11572: those keys are left out."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    draw = lambda *shape: torch.randn(shape, device=dev, generator=gen)
+    out = {}
+
+    def timed(key, fn):
+        try:
+            out[key] = median_ms(fn, REPS)
+        except ValueError:  # no plan fits: no direct path in this package
+            pass
+
+    for (b, n, h, w), modes in K1_TABLE:
+        logits, image = draw(b, n, h, w), draw(b, 3, h, w)
+        for mode in modes:
+            kw = dict(ret_disp=True, ret_pan="pan" in mode, ret_subocc="subocc" in mode)
+            timed(f"k1 {mode} {(b, n, h, w)}", lambda: med_outputs_fused(logits, image, 2.0, 300.0, **kw))
+        del logits, image
+    for (b, n, h, w), modes in K2_TABLE:
+        logits, image, g_disp, g_pan = draw(b, n, h, w), draw(b, 3, h, w), draw(b, 1, h, w), draw(b, 3, h, w)
+        for mode in modes:
+            img = "g_img" in mode
+            timed(f"k2 {mode} {(b, n, h, w)}", lambda: med_vjp_fused(logits, image, 2.0, 300.0, g_disp, g_pan,
+                                                                    image_grad=img))
+        del logits, image, g_disp, g_pan
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--l1", action="store_true", help="time only L1, the concat it reads and its bf16 paths")
+    parser.add_argument("--med", action="store_true", help="time only K1 and K2 at PERF.md's table's shapes")
     args = parser.parse_args(argv)
     dev = resolve_device("cuda")
     if args.l1:
         return report({}, {}, l1_times(dev))
+    out = table_times(dev)
+    if args.med:
+        return report(out, {}, {})
     rng = np.random.default_rng(SEED)
     draw = lambda c, hw: torch.from_numpy(rng.standard_normal((B, c, *hw), np.float32)).to(dev)
-    out = {}
-    lg, im = draw(N, SERVE), draw(3, SERVE)
-    for mode, kw in (("disp", {}), ("disp+pan", dict(ret_pan=True)), ("disp+pan+subocc", dict(ret_pan=True, ret_subocc=True))):
-        out[f"k1 {mode} {SERVE}"] = median_ms(lambda: med_outputs_fused(lg, im, 2.0, 300.0, ret_disp=True, **kw), REPS)
-    del lg, im
-    tl, ti, gd, gp = draw(N, TRAIN), draw(3, TRAIN), draw(1, TRAIN), draw(3, TRAIN)
-    out[f"k1 disp+pan {TRAIN}"] = median_ms(lambda: med_outputs_fused(tl, ti, 2.0, 300.0, ret_disp=True, ret_pan=True), REPS)
-    for img in (False, True):
-        out[f"k2 disp+pan{'+g_img' if img else ''} {TRAIN}"] = median_ms(
-            lambda: med_vjp_fused(tl, ti, 2.0, 300.0, gd, gp, image_grad=img), REPS
-        )
-    del tl, ti, gd, gp
-    wide = np.random.default_rng(SEED + 1)  # apart, so that the draws below stay as they were
-    kitti = np.random.default_rng(SEED + 2)
-    for hw in ((375, 1242), (250, 828)):  # the evaluation's bucket shape and its ms-pp shape
-        kl, ki = (torch.from_numpy(kitti.standard_normal((B, c, *hw), np.float32)).to(dev) for c in (N, 3))
-        out[f"k1 disp {hw}"] = median_ms(lambda: med_outputs_fused(kl, ki, 2.0, 300.0, ret_disp=True), REPS)
-        del kl, ki
-    for w in (1500, 11572):  # K1's ring, and its direct path (image row unstaged)
-        kl, ki = (torch.from_numpy(kitti.standard_normal((B, c, 16, w), np.float32)).to(dev) for c in (N, 3))
-        try:
-            out[f"k1 disp+pan (16, {w})"] = median_ms(lambda: med_outputs_fused(kl, ki, 2.0, 300.0, ret_disp=True,
-                                                                              ret_pan=True), REPS)
-        except ValueError:  # a version without K1's direct path refuses W = 11572
-            pass
-        del kl, ki
-    for w in (1500, 5000, 11572):  # K2's ring, and its direct path (image rows unstaged)
-        wl, wi, wd, wp = (torch.from_numpy(wide.standard_normal((B, c, 16, w), np.float32)).to(dev) for c in (N, 3, 1, 3))
-        try:
-            out[f"k2 disp+pan (16, {w})"] = median_ms(lambda: med_vjp_fused(wl, wi, 2.0, 300.0, wd, wp,
-                                                                          image_grad=False), REPS)
-        except ValueError:  # a version without the direct path refuses W = 5000 (older ones 11572 too)
-            pass
-        del wl, wi, wd, wp
 
     row = torch.from_numpy(np.random.default_rng(SEED + 3).standard_normal((8, 128), np.float32)).to(dev)
     f = torch.tensor([17], dtype=torch.int32, device=dev)

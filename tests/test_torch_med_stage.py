@@ -6,11 +6,13 @@ negative bounds.
 
 On the CPU the plain head and the plain VJP are held against the JAX head
 and its jax.grad on the same seeded numpy inputs (H <= 4), and one small case
-against the JAX package's Pallas backward in interpret mode.  On a card the
+against the JAX package's Pallas backward in interpret mode; both also at
+large logits against JAX's Pallas kernel in interpret mode.  On a card the
 kernels are held against the plain versions at the same sizes, K1 in every
-mode and K2 in every cotangent mode, and the staging plans are checked.
-Tolerances are those of tests/test_med_pallas.py: 1e-4 on forward outputs;
-rtol 1e-4, atol 1e-5 on gradients.
+mode and K2 in every cotangent mode, and at logit magnitudes of 1e1 to 1e6
+on every staging path (fal_net_torch/scripts/med_scales.py), and the staging
+plans are checked.  Tolerances are those of tests/test_med_pallas.py: 1e-4
+on forward outputs; rtol 1e-4, atol 1e-5 on gradients.
 """
 
 import jax
@@ -24,6 +26,7 @@ from fal_net_tpu.ops.med_pallas import med_outputs_fused as jax_med_outputs_fuse
 from fal_net_torch.ops.med import med_outputs
 from fal_net_torch.ops.med_kernel import MedForward, med_outputs_fused, med_vjp_fused, stage_plan
 from fal_net_torch.ops.med_vjp import med_vjp
+from fal_net_torch.scripts import med_scales
 
 TOL = {"disp": (1e-5, 1e-4), "pan": (1e-4, 1e-4), "maskL": (1e-4, 1e-4), "maskR": (1e-4, 1e-4)}
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
@@ -51,6 +54,19 @@ BWD_MODES = {
     "pan+g_img": (False, True, True),
     "disp+pan+g_img": (True, True, True),
 }
+# Large logits on the CPU, against JAX's Pallas kernel in interpret mode (its
+# float64 shift tables are the port's): a spread z * s at every scale, an
+# offset s + z where JAX's lerp is rounded alike.  XLA on the CPU contracts
+# JAX's (1 - t) a + t b into fma(1 - t, a, t b), where the plain head (and
+# the CUDA kernels) round each product and the sum, so the offset form
+# parts from the plain head as |l| grows; measured at SCALED_SHAPE, in units
+# of the tolerance: at 1e4 pan 8.3, maskL 2.3, g_logits 31.4, g_img 5.1; at
+# 1e6 pan 360.6, maskL 115.7, g_logits 2784.5, g_img 391.3 (at 1e2 at most
+# 0.24).  The spread form agrees at every scale (at most 0.29).
+SCALED_SHAPE = (1, 9, 8, 187, 3)
+SCALED = [("spread", 1e2), ("spread", 1e4), ("spread", 1e6), ("offset", 1e2)]
+HEAD_CASES = [pytest.param(path, None, id=path) for path in PATHS] + [
+    pytest.param("scaled", scaled, id=f"{scaled[0]} {scaled[1]:g}") for scaled in SCALED]
 # K1's outputs as stage_plan takes them
 FWD_PLANS = [dict(disp=True), dict(disp=False, pan=True), dict(disp=True, pan=True), dict(disp=False, subocc=True),
              dict(disp=True, pan=True, subocc=True)]
@@ -89,12 +105,26 @@ def _jax_loss(head, mn, mx):
     return loss
 
 
-@pytest.mark.parametrize("path", list(PATHS))
-def test_plain_head_matches_jax(rng, path):
-    b, n, h, w, c, mn, mx = PATHS[path]
-    logits, image = _inputs(rng, b, n, h, w, c)
+def _scaled(scaled):
+    """Logits and image at SCALED_SHAPE in ``scaled`` = (form, scale), as
+    numpy, and the bounds."""
+    logits, image, _, _ = med_scales.scaled_inputs(SCALED_SHAPE, scaled[1], scaled[0], "cpu")
+    return logits.numpy(), image.numpy(), med_scales.MIN_DISP, med_scales.MAX_DISP
+
+
+@pytest.mark.parametrize("path,scaled", HEAD_CASES)
+def test_plain_head_matches_jax(rng, path, scaled):
+    """The plain JAX head on the paths' sizes; at large logits (``scaled``)
+    JAX's Pallas kernel in interpret mode."""
+    if scaled is None:
+        b, n, h, w, c, mn, mx = PATHS[path]
+        logits, image = _inputs(rng, b, n, h, w, c)
+        jax_head = jax_med_outputs
+    else:
+        logits, image, mn, mx = _scaled(scaled)
+        jax_head = lambda *a, **kw: jax_med_outputs_fused(*a, interpret=True, **kw)
     got = med_outputs(torch.from_numpy(logits), torch.from_numpy(image), *_bounds(mn, mx, torch.from_numpy), **ALL)
-    want = jax_med_outputs(_nhwc(logits), _nhwc(image), *_bounds(mn, mx, jnp.asarray), **ALL)
+    want = jax_head(_nhwc(logits), _nhwc(image), *_bounds(mn, mx, jnp.asarray), **ALL)
     for name, (rtol, atol) in TOL.items():
         np.testing.assert_allclose(
             getattr(got, name).numpy(), _nchw(getattr(want, name)), rtol=rtol, atol=atol, err_msg=name
@@ -121,11 +151,17 @@ def test_plain_vjp_matches_jax_grad(rng, path):
     np.testing.assert_allclose(gi.numpy(), _nchw(ji), rtol=GRAD_RTOL, atol=GRAD_ATOL)
 
 
-def test_plain_vjp_matches_jax_pallas_interpret(rng):
+@pytest.mark.parametrize("scaled", [pytest.param(None, id="N(0, 1)")] + [
+    pytest.param(scaled, id=f"{scaled[0]} {scaled[1]:g}") for scaled in SCALED])
+def test_plain_vjp_matches_jax_pallas_interpret(rng, scaled):
     """The JAX package's own backward kernel (Pallas, interpret mode) at the
-    unaligned width of the cp.async path."""
-    b, n, h, w, c, mn, mx = 1, 9, 8, 187, 3, 2.0, 300.0
-    logits, image = _inputs(rng, b, n, h, w, c)
+    unaligned width of the cp.async path, on N(0, 1) logits and at large
+    logits (``scaled``)."""
+    if scaled is None:
+        b, n, h, w, c, mn, mx = 1, 9, 8, 187, 3, 2.0, 300.0
+        logits, image = _inputs(rng, b, n, h, w, c)
+    else:
+        logits, image, mn, mx = _scaled(scaled)
     lg, im = torch.from_numpy(logits), torch.from_numpy(image)
     gl, gi = med_vjp(lg, im, mn, mx, *_loss_cotangents(med_outputs(lg, im, mn, mx, ret_disp=True, ret_pan=True)))
     head = lambda lg_, im_, a, z: jax_med_outputs_fused(lg_, im_, a, z, ret_disp=True, ret_pan=True, interpret=True)
@@ -184,6 +220,38 @@ def test_k2_matches_plain_on_gpu(cuda_device, path, mode):
         torch.testing.assert_close(got[1], want[1], rtol=GRAD_RTOL, atol=GRAD_ATOL)
 
 
+def _scale_cases(kernel):
+    return [pytest.param(path, form, scale, id=f"{path}-{form}-{scale:g}")
+            for path in med_scales.PATHS[kernel] for form in med_scales.FORMS for scale in med_scales.SCALES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,form,scale", _scale_cases("k1"))
+def test_k1_matches_plain_at_large_logits_on_gpu(cuda_device, path, form, scale):
+    """K1 in every mode against the plain head at logits z * scale (spread)
+    and scale + z (offset), on each staging path: every softmax subtracts
+    its maximum in the logit domain and lerps the logits as the plain head
+    does, so no output drifts with |l| (before, the products l log2 e were
+    rounded at |l|: 3e-4 relative at 1e4)."""
+    logits, image, _, _ = med_scales.scaled_inputs(med_scales.SHAPES[path], scale, form, cuda_device)
+    for mode in med_scales.MODES:
+        errs = med_scales.k1_over_tol(logits, image, mode)
+        assert max(errs.values()) <= 1.0, (mode, errs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,form,scale", _scale_cases("k2"))
+def test_k2_matches_exact_vjp_at_large_logits_on_gpu(cuda_device, path, form, scale):
+    """K2 in every cotangent mode against the exact VJP of the plain head's
+    function (float64 but for the forward's fp32 lerped logits,
+    ``med_scales.exact_vjp``) at the same logits; the fp32 plain VJP itself
+    misses by up to ~10x in the spread form (its disp term)."""
+    logits, image, g_disp, g_pan = med_scales.scaled_inputs(med_scales.SHAPES[path], scale, form, cuda_device)
+    for mode in med_scales.GRAD_MODES:
+        errs = med_scales.k2_over_tol(logits, image, g_disp, g_pan, mode)
+        assert errs["k2"] <= 1.0, (mode, errs)
+
+
 @pytest.mark.cuda
 def test_stage_plans_on_gpu(cuda_device):
     """The main path's plans, and three times the serving width planned in
@@ -212,10 +280,10 @@ def test_stage_plans_on_gpu(cuda_device):
     for w, flags, want in (
         (640, dict(disp=True), (7, 7, 1, 7, 130_816, 0)),
         (640, dict(disp=True, pan=True), (7, 7, 1, 7, 141_088, 0)),
-        (640, dict(disp=True, pan=True, subocc=True), (7, 7, 1, 7, 146_208, 0)),
+        (640, dict(disp=True, pan=True, subocc=True), (7, 7, 1, 7, 151_328, 0)),
         (1280, dict(disp=True), (7, 6, 0, 7, 222_736, 0)),
         (1280, dict(disp=True, pan=True), (7, 5, 0, 7, 207_168, 0)),
-        (1280, dict(disp=True, pan=True, subocc=True), (7, 5, 0, 14, 217_408, 0)),
+        (1280, dict(disp=True, pan=True, subocc=True), (7, 5, 0, 14, 227_648, 0)),
     ):
         p = stage_plan("med_fwd", 49, 3, w, **flags)
         assert tuple(p[k] for k in keys) == want, (w, flags, p)
@@ -329,9 +397,11 @@ def test_k2_direct_path_at_w5000_on_gpu(cuda_device, mode):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", list(FWD_MODES))
 def test_k1_at_k2_pan_width_on_gpu(cuda_device, mode):
-    """K1 takes every width K2 trains at: at N = 49, W = 11,572 (K2's widest
-    with pan cotangents), pan modes read the image row from device memory
-    (the direct path) and every mode matches the plain head."""
+    """K1 takes every width K2 trains at: at N = 49, W = 11,572, pan modes
+    read the image row from device memory (the direct path), and so does
+    subocc alone, whose per-column statistics (maximum and log2-sum of both
+    softmaxes) leave no room for a staged plane row; every mode matches the
+    plain head."""
     w = 11_572
     rng = np.random.default_rng(0)
     draw = lambda ch: torch.from_numpy(rng.standard_normal((1, ch, 2, w), np.float32)).to(cuda_device)
@@ -339,7 +409,7 @@ def test_k1_at_k2_pan_width_on_gpu(cuda_device, mode):
     kw = FWD_MODES[mode]
     plan = stage_plan("med_fwd", 49, 3, w, disp=kw.get("ret_disp", False), pan=kw.get("ret_pan", False),
                       subocc=kw.get("ret_subocc", False))
-    assert plan["direct"] == kw.get("ret_pan", False)
+    assert plan["direct"] == (kw.get("ret_pan", False) or kw.get("ret_subocc", False))
     got = med_outputs_fused(logits, image, 2.0, 300.0, **kw)
     torch.cuda.synchronize()
     want = med_outputs(logits, image, 2.0, 300.0, **kw)

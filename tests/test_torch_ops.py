@@ -205,24 +205,23 @@ def test_med_bwd_op_matches_plain_on_gpu(cuda_device, mode):
 @pytest.mark.parametrize("scale", [1e8, 1e10, 1e12])
 def test_med_kernels_stay_finite_at_saturated_logits_on_gpu(cuda_device, scale):
     """Logits of 1e8 and more, as FAL_netC's convergence run reaches: a
-    one-hot softmax.  K1's disp and K2's g_logits equal the plain versions;
-    pan, the masks and g_image are finite and bounded (K2 once gave NaN
-    there: an exponent built from a fused product passed the maximum)."""
+    one-hot softmax.  K1's outputs and K2's gradients equal the plain
+    versions at the kernel tests' tolerances (K2 once gave NaN there: an
+    exponent built from a fused product passed the maximum; since both
+    kernels subtract the maximum in the logit domain, pan, the masks and
+    g_image equal the plain versions too, not only finite and bounded)."""
     rng, dev = np.random.default_rng(1), cuda_device
     logits = (_draw(rng, 2, 33, 8, 300) * scale).to(dev)
     image, g_pan = _draw(rng, 2, 3, 8, 300).to(dev), _draw(rng, 2, 3, 8, 300).to(dev)
     g_disp = _draw(rng, 2, 1, 8, 300).to(dev)
     got = med_kernel.med_outputs_fused(logits, image, 2.0, 300.0, ret_disp=True, ret_pan=True, ret_subocc=True)
     want = med_outputs(logits, image, 2.0, 300.0, ret_disp=True, ret_pan=True, ret_subocc=True)
-    torch.testing.assert_close(got.disp, want.disp, rtol=TOL["disp"][0], atol=TOL["disp"][1])
-    assert bool(torch.isfinite(got.pan).all()) and float(got.pan.abs().max()) <= float(image.abs().max()) + 1e-4
-    for mask in (got.maskL, got.maskR):
-        assert bool(((mask >= 0) & (mask <= 1)).all())
+    for name in ("disp", "pan", "maskL", "maskR"):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=TOL[name][0], atol=TOL[name][1])
     g_logits, g_image = med_kernel.med_vjp_fused(logits, image, 2.0, 300.0, g_disp, g_pan, image_grad=True)
     want = med_vjp(logits, image, 2.0, 300.0, g_disp, g_pan, image_grad=True)
     torch.testing.assert_close(g_logits, want[0], **GRAD_TOL)
-    # each image column feeds at most two taps of each of the row's columns
-    assert bool(torch.isfinite(g_image).all()) and float(g_image.abs().max()) <= 2 * 300 * float(g_pan.abs().max())
+    torch.testing.assert_close(g_image, want[1], **GRAD_TOL)
 
 
 @pytest.mark.cuda
