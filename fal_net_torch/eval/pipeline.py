@@ -22,6 +22,7 @@ import torch
 from fal_net_torch.data.transforms import normalize_device
 from fal_net_torch.eval.postprocess import ms_post_process
 from fal_net_torch.parallel.mesh import as_mesh, check_divides, launch, replicate
+from fal_net_torch.utils.trace import span
 
 UINT16_MAX_DISP = 65535 / 256.0
 
@@ -137,11 +138,14 @@ class DisparityPipeline:
     def _dispatch(self, host: np.ndarray):
         """Upload, run and start the fetch of one batch (each part on its
         device, parallel/mesh.py::launch)."""
-        return launch(torch.from_numpy(host), self.replicas, self.mesh, self.device,
-                      lambda model, images: [self._forward(images, model)])
+        with span("pipeline.dispatch"):
+            return launch(torch.from_numpy(host), self.replicas, self.mesh, self.device,
+                          lambda model, images: [self._forward(images, model)])
 
     def _fetch(self, names, launched):
-        (disp,) = launched.fetch()
+        # the span holds the wait alone: it must not stay open across a yield
+        with span("pipeline.fetch"):
+            (disp,) = launched.fetch()
         disp = disp.numpy()
         if self.quantize_uint16:
             disp = from_fixed_point(disp)

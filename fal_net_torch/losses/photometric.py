@@ -18,6 +18,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from fal_net_torch.utils.trace import span
+
 
 def perceptual_loss(
     out_features: Sequence[torch.Tensor],
@@ -53,5 +55,7 @@ def rec_loss(
     loss = (torch.mean if rows is None else rows.mean)(mask * torch.abs(synth - label))
     if a_p > 0 and vgg_label is not None:
         composited = mask * synth + (1 - mask) * label
-        loss = loss + a_p * perceptual_loss(vgg_apply(composited), vgg_label, rows=rows)
+        with span("loss.perceptual"):
+            features = vgg_apply(composited)
+        loss = loss + a_p * perceptual_loss(features, vgg_label, rows=rows)
     return loss

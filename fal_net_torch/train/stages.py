@@ -36,6 +36,7 @@ import torch
 from fal_net_torch.losses.photometric import rec_loss
 from fal_net_torch.losses.smoothness import smoothness
 from fal_net_torch.ops.shift import hflip
+from fal_net_torch.utils.trace import span
 
 VggFn = Optional[Callable[[torch.Tensor], Sequence[torch.Tensor]]]
 Aux = Dict[str, torch.Tensor]
@@ -71,7 +72,7 @@ def _label_features(vgg_fn, *images):
     """VGG features of the real views, the perceptual term's labels: the
     loss's constants, computed without autograd (the VGG is frozen and the
     views are data, so no gradient reaches them either way)."""
-    with torch.no_grad():
+    with torch.no_grad(), span("loss.perceptual"):
         return tuple(vgg_fn(im) for im in images)
 
 

@@ -94,6 +94,7 @@ from fal_net_torch.train.state import create_optimizer
 from fal_net_torch.utils.device import resolve_device
 from fal_net_torch.utils.logging import MetricsLogger, dump_settings
 from fal_net_torch.utils.meters import AverageMeter, MultiAverageMeter
+from fal_net_torch.utils.trace import span
 from fal_net_torch.utils.viz import disp2rgb
 
 
@@ -287,14 +288,18 @@ class Trainer:
             part = {k: v.chunk(accum)[micro] for k, v in batch.items()}
             sync = micro == accum - 1 or not ddp.active()
             with contextlib.nullcontext() if sync else self.train_model.no_sync():
-                loss, aux = self._loss(part)
-                (loss / accum).backward()
+                with span("train.loss"):
+                    loss, aux = self._loss(part)
+                with span("train.backward"):
+                    (loss / accum).backward()
             for k, v in aux.items():
                 aux_sum[k] = aux_sum.get(k, 0.0) + v.detach()
-        self.optimizer.step()
-        self.scheduler.step()
+        with span("train.optimizer"):
+            self.optimizer.step()
+            self.scheduler.step()
         self.step += 1
-        return ddp.all_reduce_mean({k: float(v) / accum for k, v in aux_sum.items()}, self.device)
+        with span("train.aux"):
+            return ddp.all_reduce_mean({k: float(v) / accum for k, v in aux_sum.items()}, self.device)
 
     def _loss(self, batch: Dict[str, torch.Tensor]):
         """The stage's loss and aux on one (micro)batch (counterpart of
