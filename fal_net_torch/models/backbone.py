@@ -1,5 +1,9 @@
 """U-Net style encoder-decoder backbone over the A/B/C variants
-(counterpart of fal_net_tpu/models/backbone.py, plain NCHW form).
+(counterpart of fal_net_tpu/models/backbone.py, plain form).  NCHW shapes;
+channels-last storage for fp32 on the card with no row shard (the image and
+the weights come so, conv1's input is built so, and every op keeps it;
+``FalNet.logits`` runs the backbone under ``channels_last_storage``), NCHW
+for bf16, row shards and the CPU (models/layers.py).
 
   variant | encoder conv1..conv6    | deconv6..1            | iconv6..2
   --------+-------------------------+-----------------------+-------------------
@@ -31,7 +35,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from fal_net_torch.models.layers import ConvElu, Deconv, ResidualBlock, conv
+from fal_net_torch.models.layers import ConvElu, Deconv, ResidualBlock, conv, in_channels_last, padded_channels
 from fal_net_torch.ops.logits_conv import pitched_cat
 from fal_net_torch.parallel.spatial import ONE_RANK, Level, RowShard, level_heights
 
@@ -135,6 +139,24 @@ class FalNetBackbone(nn.Module):
                 conv(c, c // 2, 3), nn.ELU(), conv(c // 2, 1, 3, bias=False), nn.Sigmoid()
             )
 
+    def stem(self, x0: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+        """conv1's input: ``x0`` and the flow plane concatenated, in ``x0``'s
+        dtype.  Under :func:`channels_last_storage` (the fp32 backbone on
+        the card), written into channels-last storage with zero channels up
+        to :func:`padded_channels`, which conv1's weight gets too
+        (``Conv2d.weight_for``): cuDNN would pad the 33 channels in passes
+        of its own, and ``torch.cat`` of 32 and 1 channels takes a slow
+        path."""
+        if not in_channels_last():
+            return torch.cat([x0, flow.to(x0.dtype)], dim=1)
+        b, c, h, w = x0.shape
+        x = torch.empty((b, padded_channels(c + 1), h, w), dtype=x0.dtype, device=x0.device,
+                        memory_format=torch.channels_last)
+        x[:, c + 1:] = 0
+        x[:, c:c + 1] = flow
+        x[:, :c] = x0
+        return x
+
     def forward(self, image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         return self.iconv1(self.features(image, flow).x)
 
@@ -153,8 +175,7 @@ class FalNetBackbone(nn.Module):
             return lambda t: getattr(self, f"deconv{j}")(t, (hs[j - 1] * t.shape[-2] // hs[j], w))
 
         x0 = level(lambda x: self.conv0_1(self.conv0(x)), [Level(image, hs[0], False)], 0)
-        x = level(lambda a, f: self.conv1(torch.cat([a, f.to(a.dtype)], dim=1)), [x0, Level(flow, hs[0], False)], 1,
-                  row_local=x0.split)
+        x = level(lambda a, f: self.conv1(self.stem(a, f)), [x0, Level(flow, hs[0], False)], 1, row_local=x0.split)
         x = level(self.conv1_1, [x], 1)
         skips = [x0, x]
         for i in range(2, 7):

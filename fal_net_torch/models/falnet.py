@@ -24,6 +24,13 @@ and an fp32 result, plus the 1x1's fp32 bias: one fp32 convolution in
 fp32, the kernel L1 (ops/logits_conv.py) in bf16.  The parameters and their
 state_dict keys are those of the two convs.
 
+Shapes are NCHW throughout; storage follows the rule of models/layers.py.
+On the card with no row shard, the fp32 backbone holds its activations and
+conv weights channels-last (``create_model`` places the weights so,
+``logits`` converts the image once), so cuDNN runs its NHWC kernels with no
+transposes around them, and the composed kernel is built channels-last
+too.  bf16, row shards and the CPU keep NCHW.
+
 ``phase_deconv`` (off by default): the decoder's exactly-2x deconvs run as
 one transposed conv with a composed 4x4 kernel (ops/phase_deconv.py), 2.25x
 fewer multiply-adds, the same sums up to fp32 rounding; JAX's default
@@ -36,9 +43,11 @@ copy (``with_dtype``) keeps it: the deconv modules are shared.
   * ``"fused"``: the CUDA kernel; CPU tensors raise;
   * ``"auto"``: the kernel whenever the tensors are on CUDA, whatever the
     bounds (numbers or per-sample tensors) and the outputs requested
-    (disp-only included: NCHW logits are already the kernel's layout, so
-    there is no relayout to avoid); the plain head for CPU tensors, where
-    the kernel cannot run.
+    (disp-only included); the plain head for CPU tensors, where the kernel
+    cannot run.  Both read NCHW logits: the fp32 logits conv on the card
+    writes them channels-last and :func:`composed_logits` relays them once,
+    the one relayout left on that path (it replaces cuDNN's own); L1 and
+    the CPU write NCHW.
 
 ``a_maskr_quirk`` (opt-in, off by default): reproduce the reference
 FAL_netA's maskR resample, whose warp omits ``align_corners``
@@ -73,13 +82,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from fal_net_torch.models.backbone import VARIANTS, FalNetBackbone, VariantSpec
-from fal_net_torch.models.layers import conv, init_conv
+from fal_net_torch.models.layers import ToNCHW, channels_last_storage, conv, in_channels_last, init_conv, padded_channels
 from fal_net_torch.ops._build import ensure_loaded
 from fal_net_torch.ops.logits_conv import logits_conv
 from fal_net_torch.ops.med import MedOutputs, med_outputs, quirk_mask_r
 from fal_net_torch.ops.med_kernel import med_outputs_fused
 from fal_net_torch.parallel.spatial import ONE_RANK, Level, RowShard, active_rows
-from fal_net_torch.utils.device import resolve_device
+from fal_net_torch.utils.device import place, resolve_device
 
 Bound = Union[float, torch.Tensor]
 MED_IMPLS = ("auto", "fused", "reference")
@@ -111,12 +120,27 @@ def composed_logits(x: torch.Tensor, iconv1_weight: torch.Tensor, conv1x1: nn.Co
     with their halo.  On the card L1 takes ``x``'s rows only on a 16-byte
     pitch and raises otherwise (:mod:`fal_net_torch.ops.logits_conv`): the
     backbone builds its bf16 concat on it and the halo keeps the row
-    stride, so ``x`` goes to the kernel as it is."""
-    k = torch.einsum("om,mihw->oihw", conv1x1.weight[:, :, 0, 0], iconv1_weight).to(x.dtype)
+    stride, so ``x`` goes to the kernel as it is.  For fp32 under
+    :func:`~fal_net_torch.models.layers.channels_last_storage` (on the
+    card), the kernel is composed in channels-last storage (the same sums,
+    one matmul on a view of the weight's storage), with zero output
+    channels up to :func:`~fal_net_torch.models.layers.padded_channels`
+    (else cuDNN pads them in passes of its own), and the first N planes of
+    the conv's channels-last output come back NCHW through
+    :class:`~fal_net_torch.models.layers.ToNCHW`.  The logits are NCHW in
+    every path."""
+    w1x1 = conv1x1.weight[:, :, 0, 0]
     pad = (iconv1_weight.shape[-2] // 2, iconv1_weight.shape[-1] // 2)
     rows = active_rows()
     if rows is not None:
         x, pad = rows.halo(x, pad[0]), (0, pad[1])
+    if x.dtype == torch.float32 and in_channels_last():
+        n, (m, kh, kw, cin) = w1x1.shape[0], iconv1_weight.permute(0, 2, 3, 1).shape
+        zeros = padded_channels(n) - n
+        k = F.pad(w1x1, (0, 0, 0, zeros)) @ iconv1_weight.permute(0, 2, 3, 1).reshape(m, kh * kw * cin)
+        y = F.conv2d(x, k.view(n + zeros, kh, kw, cin).permute(0, 3, 1, 2), F.pad(conv1x1.bias, (0, zeros)), 1, pad)
+        return ToNCHW.apply(y, n)
+    k = torch.einsum("om,mihw->oihw", w1x1, iconv1_weight).to(x.dtype, memory_format=torch.contiguous_format)
     if x.dtype == torch.float32:
         return F.conv2d(x, k, conv1x1.bias, 1, pad)
     return logits_conv(x, k, conv1x1.bias, pad[0])
@@ -171,15 +195,20 @@ class FalNet(nn.Module):
         return other
 
     def logits(self, left: torch.Tensor, max_disp: Bound) -> torch.Tensor:
-        """Plane logits (B, N, H, W) in fp32 for a normalized NCHW image; on
-        a spatial model, this rank's rows where the rule splits the
-        full-resolution level, else all H."""
+        """Plane logits (B, N, H, W) in fp32 and NCHW storage for a
+        normalized NCHW image; on a spatial model, this rank's rows where the
+        rule splits the full-resolution level, else all H.  The fp32
+        backbone on the card with no row shard takes the image in
+        channels-last storage (see the module docstring)."""
         b, _, h, w = left.shape
         max_t = torch.as_tensor(max_disp, dtype=torch.float32, device=left.device)
         flow = (max_t / 100.0).reshape(-1, 1, 1, 1).expand(b, 1, h, w)
+        x = left.to(self.dtype)
+        cl = x.is_cuda and x.dtype == torch.float32 and self.spatial.size == 1
         backbone = self.get_submodule(self.spec.torch_backbone_key)
-        feats = backbone.features(left.to(self.dtype), flow, self.spatial)
-        return self.spatial.apply(lambda f: self._head(backbone, f), [feats], feats.split)
+        with channels_last_storage(cl):
+            feats = backbone.features(x.contiguous(memory_format=torch.channels_last) if cl else x, flow, self.spatial)
+            return self.spatial.apply(lambda f: self._head(backbone, f), [feats], feats.split)
 
     def _head(self, backbone: FalNetBackbone, feats: torch.Tensor) -> torch.Tensor:
         """iconv1 and the logits 1x1 on the backbone's features, composed
@@ -240,11 +269,13 @@ def create_model(
     unless the caller asks for the CPU.  Without a card, "cuda" raises; with
     one, the kernels are built (once) and loaded before the first forward.
     ``a_maskr_quirk``, ``dtype`` (the compute dtype, ``"float32"`` or
-    ``"bfloat16"``) and ``phase_deconv``: see the module docstring."""
+    ``"bfloat16"``) and ``phase_deconv``: see the module docstring.  On the
+    card the conv weights are held channels-last (:func:`place`);
+    ``load_state_dict`` copies into them and keeps it."""
     device = resolve_device(device)
     ensure_loaded(device)
     spec = resolve_variant(variant)
     model = FalNet(spec, num_levels or spec.default_levels, med_impl=med_impl, a_maskr_quirk=a_maskr_quirk,
                    dtype=dtype, phase_deconv=phase_deconv)
     model.reset_parameters(generator)
-    return model.to(device)
+    return place(model, device)

@@ -21,7 +21,7 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from fal_net_torch.utils.device import resolve_device
+from fal_net_torch.utils.device import place, resolve_device
 
 Device = Union[str, torch.device]
 
@@ -118,7 +118,7 @@ def replicate(model: torch.nn.Module, mesh: Mesh) -> List[torch.nn.Module]:
     by_device = {home: model}
     for d in mesh.distinct():
         if d not in by_device:
-            by_device[d] = copy.deepcopy(model).to(d).eval()
+            by_device[d] = place(copy.deepcopy(model), d).eval()
     return [by_device[d] for d in mesh.devices]
 
 

@@ -47,7 +47,7 @@ from fal_net_torch.data.transforms import normalize_device
 from fal_net_torch.ops import _build
 from fal_net_torch.ops.med import quirk_mask_r
 from fal_net_torch.ops.med_kernel import med_outputs_op
-from fal_net_torch.utils.device import resolve_device
+from fal_net_torch.utils.device import place, resolve_device
 
 FORMAT = "fal_net_torch.export/1"
 
@@ -102,7 +102,7 @@ def _export(model, *, batch, height, width, min_disp=2.0, max_disp=300.0, ret_pa
     device = resolve_device(device)
     _build.ensure_loaded(device)
     if next(model.parameters()).device != device:
-        model = copy.deepcopy(model).to(device)
+        model = place(copy.deepcopy(model), device)
     fwd = _Forward(model.eval(), min_disp, max_disp, ret_pan, ret_subocc, uint8_input).eval()
     example = torch.zeros((batch, height, width, 3), dtype=torch.uint8 if uint8_input else torch.float32,
                           device=device)
