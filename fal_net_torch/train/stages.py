@@ -194,7 +194,7 @@ def stage2_loss(
 
     # Teacher (frozen): disparities of the mirrored pair.
     if a_mr > 0:
-        with torch.no_grad():
+        with torch.no_grad(), span("train.teacher"):
             t_disp = teacher(torch.cat([hflip(left), right]), mn, mx, ret_disp=True).disp
         mldisp, mrdisp = hflip(t_disp[:b]), t_disp[b:]
 
@@ -206,27 +206,24 @@ def stage2_loss(
     rlmask, lrmask = out.maskR[:b], hflip(out.maskR[b:])
     left, right, vgg_fn = _on_rows(rows, left, right, vgg_fn)
 
-    if a_mr > 0:
-        # occlusion masks with the dis-occluded borders forced visible
-        # (Train_Stage2_K.py:296-299)
-        col = torch.arange(w, device=left.device).reshape(1, 1, 1, w)
-        o_l = torch.where(col < x0, 1.0, lmask * lrmask)
-        o_r = torch.where(col >= x1, 1.0, rmask * rlmask)
-    else:
-        o_l = o_r = 1.0  # "just more training" (Train_Stage2_K.py:300-302)
-
-    rec, sm = _two_sided(left, right, ldisp, rdisp, lpan, rpan, (o_l, o_r), a_p, a_sm, vgg_fn, rows)
-
+    o_l = o_r = 1.0  # "just more training" without the mirror (Train_Stage2_K.py:300-302)
     mirror = torch.zeros((), device=left.device)
     if a_mr > 0:
-        # normalized by each image's largest teacher disparity
-        amax = functools.partial(torch.amax, dim=(1, 2, 3), keepdim=True) if rows is None else rows.amax
-        mean = torch.mean if rows is None else rows.mean
-        nmaxl, nmaxr = 1.0 / amax(mldisp), 1.0 / amax(mrdisp)
-        mirror = (
-            mean(nmaxl * (1.0 - o_l)[..., x0:] * torch.abs(ldisp - mldisp)[..., x0:])
-            + mean(nmaxr * (1.0 - o_r)[..., :x1] * torch.abs(rdisp - mrdisp)[..., :x1])
-        ) / 2.0
+        with span("loss.mirror"):
+            # occlusion masks with the dis-occluded borders forced visible
+            # (Train_Stage2_K.py:296-299)
+            col = torch.arange(w, device=left.device).reshape(1, 1, 1, w)
+            o_l = torch.where(col < x0, 1.0, lmask * lrmask)
+            o_r = torch.where(col >= x1, 1.0, rmask * rlmask)
+            # normalized by each image's largest teacher disparity
+            amax = functools.partial(torch.amax, dim=(1, 2, 3), keepdim=True) if rows is None else rows.amax
+            mean = torch.mean if rows is None else rows.mean
+            nmaxl, nmaxr = 1.0 / amax(mldisp), 1.0 / amax(mrdisp)
+            mirror = (
+                mean(nmaxl * (1.0 - o_l)[..., x0:] * torch.abs(ldisp - mldisp)[..., x0:])
+                + mean(nmaxr * (1.0 - o_r)[..., :x1] * torch.abs(rdisp - mrdisp)[..., :x1])
+            ) / 2.0
 
+    rec, sm = _two_sided(left, right, ldisp, rdisp, lpan, rpan, (o_l, o_r), a_p, a_sm, vgg_fn, rows)
     loss = rec + a_sm * sm + a_mr * mirror
     return loss, {"rec_loss": rec, "sm_loss": sm, "mirror_loss": mirror, "loss": loss}

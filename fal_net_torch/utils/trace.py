@@ -18,7 +18,10 @@ The spans (each opened by its layer, never inside ``models/`` or ``ops/``):
     schedule), ``train.aux`` (the aux losses' fetch and their all-reduce):
     one training step (train/trainer.py);
   * ``loss.perceptual``: each VGG19 call of a loss (train/stages.py,
-    losses/photometric.py).
+    losses/photometric.py);
+  * ``train.teacher``: stage 2's frozen teacher's forward on the mirrored
+    pair, and ``loss.mirror``: stage 2's occlusion masks and mirror term
+    (train/stages.py::stage2_loss).
 """
 
 from __future__ import annotations
