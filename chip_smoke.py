@@ -49,7 +49,9 @@ Phases, each reported on its own line; any failure exits nonzero:
   4. the serving slice: FAL_netB N=49 with seeded random weights is saved to
      a .pt, 19 synthetic 384x1280 PNGs go through ``fal_net_torch.cli.infer``
      at batch 8, and again with ``--ms_post_process`` (two K1 launches a
-     batch), then the disp+pan forward runs at batch 1 and 8, and at batch
+     batch; under ``torch.profiler``, whose ``med_fwd_kernel`` count must
+     equal the launch counter's, the CUDA graph's replays included), then
+     the disp+pan forward runs at batch 1 and 8, and at batch
      8 with per-sample bound tensors; each run must launch the kernel, and the
      kernel and the plain head must agree on the model's own logits;
   5. times (CUDA events, median after warm-up): K1 vs plain head at
@@ -653,6 +655,7 @@ def synthetic_image(rng) -> np.ndarray:
 
 def phase_slice(rng, dev, seed: int, workdir: str):
     from PIL import Image
+    from torch.autograd import DeviceType
 
     model = create_model("B", 49, generator=torch.Generator().manual_seed(seed), device=dev)
     ckpt = os.path.join(workdir, "falnetB_n49.pt")
@@ -678,12 +681,17 @@ def phase_slice(rng, dev, seed: int, workdir: str):
     cli_s = time.perf_counter() - t0
     cli_launches = MedForward.launches
     ms_dir = os.path.join(workdir, "out_ms")
-    written_ms = infer.main([
-        "--pretrained", ckpt, "--images", img_dir, "--out_dir", ms_dir, "--batch_size", str(BATCH),
-        "--ms_post_process",
-    ])
-    torch.cuda.synchronize()
+    # under the profiler: the pipeline replays all but a shape's first batch from a CUDA graph, and the
+    # launch counter adds a replay's launches; they must be the launches the card ran
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        written_ms = infer.main([
+            "--pretrained", ckpt, "--images", img_dir, "--out_dir", ms_dir, "--batch_size", str(BATCH),
+            "--ms_post_process",
+        ])
+        torch.cuda.synchronize()
     ms_launches = MedForward.launches - cli_launches
+    ms_kernels = sum(e.device_type == DeviceType.CUDA and not e.is_user_annotation and "med_fwd_kernel" in e.name
+                     for e in prof.events())
     outs = {}
     # per-sample bounds, as a training batch carries them: the same pair here
     bounds_t = [torch.full((BATCH,), v, device=dev) for v in (2.0, 300.0)]
@@ -705,10 +713,11 @@ def phase_slice(rng, dev, seed: int, workdir: str):
         raise AssertionError(f"disparity PNGs have shape {disp_png.shape}")
     if not (disp_png.min() >= 2.0 - 1 / 256 and disp_png.max() <= 300.0):
         raise AssertionError(f"PNG disparities span [{disp_png.min()}, {disp_png.max()}]")
-    if cli_launches != batches or ms_launches != 2 * batches or launches != expect or MedForward.bwd_launches:
+    if cli_launches != batches or ms_launches != 2 * batches or ms_kernels != ms_launches or launches != expect \
+            or MedForward.bwd_launches:
         raise AssertionError(
             f"kernel launches: {cli_launches} in cli.infer (want {batches}), {ms_launches} with ms-pp (want "
-            f"{2 * batches}), {launches} in all (want {expect})"
+            f"{2 * batches}; the profiler saw {ms_kernels}), {launches} in all (want {expect})"
         )
     ms_png = np.stack([np.asarray(Image.open(os.path.join(ms_dir, f))) for f in pngs]).astype(np.float64) / 256.0
     # the blend reaches 1.5x the 2/3 pass's disparity; the PNG caps at 65535/256
@@ -717,7 +726,8 @@ def phase_slice(rng, dev, seed: int, workdir: str):
     line(f"phase 4a cli.infer: {written} disparity PNGs at {SERVE_H}x{SERVE_W} in {cli_s:.2f} s "
          f"through {cli_launches} kernel launches; PNG disparity in "
          f"[{disp_png.min():.4f}, {disp_png.max():.4f}] px; with --ms_post_process {written_ms} PNGs through "
-         f"{ms_launches} launches, in [{ms_png.min():.4f}, {ms_png.max():.4f}] px")
+         f"{ms_launches} launches (the profiler's med_fwd_kernel count), "
+         f"in [{ms_png.min():.4f}, {ms_png.max():.4f}] px")
 
     # same logits and tables, so the same numbers as the number-bound run
     worst = compare(out_t, outs[BATCH], f"B={BATCH} per-sample bound tensors vs numbers")

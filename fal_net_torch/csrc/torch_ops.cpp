@@ -270,6 +270,13 @@ extern "C" {
 // The launch count of counter `i` (see the enum above); -1 past the last.
 long long fal_net_torch_launches(int i) { return i >= 0 && i < kCounters ? launches[i].load() : -1; }
 
+// Add `n` to counter `i`: a CUDA graph's replay launches the kernels its
+// capture recorded without passing through the impls above, so its caller
+// counts them here (eval/pipeline.py).  Ignores an `i` past the last.
+void fal_net_torch_add_launches(int i, long long n) {
+  if (i >= 0 && i < kCounters) launches[i] += n;
+}
+
 void fal_net_torch_reset_launches() {
   for (auto& c : launches) c = 0;
 }

@@ -21,6 +21,8 @@ import numpy as np
 import torch
 from PIL import Image
 
+from fal_net_torch.utils.device import device_constant
+
 RGB_MEAN = np.asarray([0.411, 0.432, 0.45], np.float32)
 
 Arrays = List[np.ndarray]
@@ -36,12 +38,17 @@ def denormalize(image: np.ndarray) -> np.ndarray:
     return np.clip((np.asarray(image, np.float32) + RGB_MEAN) * 255.0, 0, 255)
 
 
+@device_constant
+def _device_mean(device) -> torch.Tensor:
+    """:data:`RGB_MEAN` as (1, 3, 1, 1) on ``device``, made once per device."""
+    return torch.as_tensor(RGB_MEAN, device=device).view(1, -1, 1, 1)
+
+
 def normalize_device(image: torch.Tensor) -> torch.Tensor:
     """uint8 NCHW tensor -> normalized float32 NCHW on the tensor's device:
     the same recipe as :func:`normalize`, so a raw uint8 upload (4x fewer
     host-to-device bytes) gives the same input."""
-    mean = torch.as_tensor(RGB_MEAN, device=image.device).view(1, -1, 1, 1)
-    return image.to(torch.float32) / 255.0 - mean
+    return image.to(torch.float32) / 255.0 - _device_mean(image.device)
 
 
 class Compose:

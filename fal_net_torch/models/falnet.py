@@ -86,9 +86,9 @@ from fal_net_torch.models.layers import ToNCHW, channels_last_storage, conv, in_
 from fal_net_torch.ops._build import ensure_loaded
 from fal_net_torch.ops.logits_conv import logits_conv
 from fal_net_torch.ops.med import MedOutputs, med_outputs, quirk_mask_r
-from fal_net_torch.ops.med_kernel import med_outputs_fused
+from fal_net_torch.ops.med_kernel import _is_number, med_outputs_fused
 from fal_net_torch.parallel.spatial import ONE_RANK, Level, RowShard, active_rows
-from fal_net_torch.utils.device import place, resolve_device
+from fal_net_torch.utils.device import device_constant, place, resolve_device
 
 Bound = Union[float, torch.Tensor]
 MED_IMPLS = ("auto", "fused", "reference")
@@ -146,6 +146,14 @@ def composed_logits(x: torch.Tensor, iconv1_weight: torch.Tensor, conv1x1: nn.Co
     return logits_conv(x, k, conv1x1.bias, pad[0])
 
 
+@device_constant
+def _flow_value(max_disp: float, device) -> torch.Tensor:
+    """The flow plane's value for a number ``max_disp``, 0-d on ``device``:
+    ``float32(max_disp) / 100`` computed there in fp32, as the per-sample
+    tensor path computes it, made once per (value, device)."""
+    return torch.as_tensor(max_disp, dtype=torch.float32, device=device) / 100.0
+
+
 class FalNet(nn.Module):
     def __init__(self, spec: VariantSpec, num_levels: int, med_impl: str = "auto", a_maskr_quirk: bool = False,
                  dtype: DType = torch.float32, phase_deconv: bool = False):
@@ -201,8 +209,9 @@ class FalNet(nn.Module):
         backbone on the card with no row shard takes the image in
         channels-last storage (see the module docstring)."""
         b, _, h, w = left.shape
-        max_t = torch.as_tensor(max_disp, dtype=torch.float32, device=left.device)
-        flow = (max_t / 100.0).reshape(-1, 1, 1, 1).expand(b, 1, h, w)
+        flow = (_flow_value(float(max_disp), left.device) if _is_number(max_disp)
+                else torch.as_tensor(max_disp, dtype=torch.float32, device=left.device) / 100.0)
+        flow = flow.reshape(-1, 1, 1, 1).expand(b, 1, h, w)
         x = left.to(self.dtype)
         cl = x.is_cuda and x.dtype == torch.float32 and self.spatial.size == 1
         backbone = self.get_submodule(self.spec.torch_backbone_key)

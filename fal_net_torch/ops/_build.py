@@ -165,6 +165,8 @@ def load_library() -> ctypes.CDLL:
         fn.restype = i
     lib.fal_net_torch_launches.argtypes = [i]
     lib.fal_net_torch_launches.restype = ctypes.c_longlong
+    lib.fal_net_torch_add_launches.argtypes = [i, ctypes.c_longlong]
+    lib.fal_net_torch_add_launches.restype = None
     lib.fal_net_torch_reset_launches.restype = None
     return lib
 
@@ -183,6 +185,14 @@ def launch_counts() -> dict:
         return dict.fromkeys(COUNTERS, 0)
     lib = load_library()
     return {name: int(lib.fal_net_torch_launches(i)) for i, name in enumerate(COUNTERS)}
+
+
+def add_launch_counts(counts: Mapping) -> None:
+    """Add ``counts`` (by :data:`COUNTERS`' names) to the launch counts: a
+    CUDA graph's replay launches what its capture recorded, and no op's impl
+    counts it (eval/pipeline.py)."""
+    for name, n in counts.items():
+        load_library().fal_net_torch_add_launches(COUNTERS.index(name), n)
 
 
 def reset_launch_counts() -> None:

@@ -28,7 +28,6 @@ K1's by mode.  ``_build.reset_launch_counts()`` sets them to 0.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 import numbers
 
@@ -36,6 +35,7 @@ import torch
 
 from fal_net_torch.ops._build import K1_MODES, launch_counts, load_library
 from fal_net_torch.ops.med import MedOutputs, disparity_levels
+from fal_net_torch.utils.device import device_constant
 
 MAX_PLANES = 128  # kMaxPlanes in csrc/med_stage.cuh
 MAX_CHANNELS = 4  # kMaxChannels in csrc/med_stage.cuh
@@ -56,18 +56,10 @@ def plane_tables(min_disp, max_disp, num_levels: int, width: int, *, device=None
     return torch.stack(rows, dim=1).float().contiguous()
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant
 def _scalar_tables(min_disp: float, max_disp: float, num_levels: int, width: int, device) -> torch.Tensor:
-    """The tables of number bounds, made once per key and kept on ``device``:
-    the serving path passes the same bounds with every batch.  Read-only.
-    Made outside inference mode, since later calls may run outside it, and
-    outside any tracing mode, so that a trace (``torch.export``) finds a
-    real tensor here, which it lifts as a constant, and never leaves a fake
-    one in the cache."""
-    from torch.utils._python_dispatch import _disable_current_modes
-
-    with torch.inference_mode(False), _disable_current_modes():
-        return plane_tables(min_disp, max_disp, num_levels, width).to(device)
+    """The tables of number bounds, made once per key and kept on ``device``."""
+    return plane_tables(min_disp, max_disp, num_levels, width).to(device)
 
 
 def _is_number(v) -> bool:

@@ -127,8 +127,19 @@ class Launched:
     """A batch's outputs on their way to the host: each part's host copies,
     and the events that say they have landed (none off the card)."""
 
-    parts: List[List[torch.Tensor]]
-    events: List[torch.cuda.Event]
+    parts: List[List[torch.Tensor]] = dataclasses.field(default_factory=list)
+    events: List[torch.cuda.Event] = dataclasses.field(default_factory=list)
+
+    def add(self, tensors: Sequence[torch.Tensor], device: torch.device) -> Launched:
+        """Start the copies of one part's ``tensors`` (on ``device``) to the
+        host: pinned, without blocking and behind an event on ``device``'s
+        current stream where it is a card."""
+        cuda = device.type == "cuda"
+        self.parts.append([t.to("cpu", non_blocking=cuda) for t in tensors])  # pinned when non_blocking
+        if cuda:
+            self.events.append(torch.cuda.Event())
+            self.events[-1].record(torch.cuda.current_stream(device))
+        return self
 
     def fetch(self) -> List[torch.Tensor]:
         """Wait for the copies; each output with its parts gathered in order."""
@@ -148,10 +159,7 @@ def launch(batch: torch.Tensor, replicas: Sequence[torch.nn.Module], mesh: Optio
     if cuda:
         batch = batch.pin_memory()
     parts = [batch.to(device, non_blocking=cuda)] if mesh is None else split_batch(batch, mesh, non_blocking=cuda)
-    host, events = [], []
+    launched = Launched()
     for model, part in zip(replicas, parts):
-        host.append([t.to("cpu", non_blocking=cuda) for t in fn(model, part)])  # pinned when non_blocking
-        if cuda:
-            events.append(torch.cuda.Event())
-            events[-1].record(torch.cuda.current_stream(part.device))
-    return Launched(host, events)
+        launched.add(fn(model, part), part.device)
+    return launched

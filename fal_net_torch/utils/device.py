@@ -1,9 +1,12 @@
 """The port's device rule: entry points run on the card unless the caller
 asks for the CPU, and never fall back to it.  A model's conv weights are
-held in the storage its fp32 convs compute in there (:func:`place`)."""
+held in the storage its fp32 convs compute in there (:func:`place`), and
+the constants of a forward are made on the device once
+(:func:`device_constant`)."""
 
 from __future__ import annotations
 
+import functools
 from typing import Union
 
 import torch
@@ -30,3 +33,25 @@ def place(module: nn.Module, device: Union[str, torch.device]) -> nn.Module:
     (models/layers.py)."""
     device = torch.device(device)
     return module.to(device, memory_format=torch.channels_last if device.type == "cuda" else torch.contiguous_format)
+
+
+def device_constant(make):
+    """``make(*key)``, a tensor, cached by its hashable arguments (the device
+    among them) and read-only: the serving path and the trainer pass the
+    same bounds and constants with every batch, so there is no host copy
+    (and no wait) a call, and a CUDA graph's capture, which takes no copy
+    from pageable host memory, finds them on the device.  Made outside
+    inference mode, since later calls may run outside it, and outside any
+    tracing mode, so that a trace (``torch.export``) finds a real tensor,
+    which it lifts as a constant, and never leaves a fake one in the
+    cache."""
+
+    @functools.lru_cache(maxsize=64)
+    @functools.wraps(make)
+    def cached(*key):
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        with torch.inference_mode(False), _disable_current_modes():
+            return make(*key)
+
+    return cached

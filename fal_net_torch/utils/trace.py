@@ -13,6 +13,9 @@ The spans (each opened by its layer, never inside ``models/`` or ``ops/``):
 
   * ``pipeline.dispatch``: one batch's pin, upload, forward launches and
     the start of its fetch copy (eval/pipeline.py);
+  * ``pipeline.replay``: inside ``pipeline.dispatch``, the launch of a
+    batch's forward from its CUDA graph (one card, eval/pipeline.py), one
+    a replayed batch;
   * ``pipeline.fetch``: the wait for that copy;
   * ``train.loss``, ``train.backward``, ``train.optimizer`` (Adam and the
     schedule), ``train.aux`` (the aux losses' fetch and their all-reduce):

@@ -19,7 +19,7 @@ from PIL import Image
 from fal_net_tpu.eval.pipeline import DisparityPipeline as JaxDisparityPipeline
 from fal_net_tpu.models import create_model as jax_create_model
 from fal_net_torch.cli import infer
-from fal_net_torch.data.transforms import RGB_MEAN, normalize, normalize_device
+from fal_net_torch.data.transforms import RGB_MEAN, _device_mean, normalize, normalize_device
 from fal_net_torch.eval.pipeline import DisparityPipeline
 from fal_net_torch.models import create_model
 from fal_net_torch.models.checkpoint import load_checkpoint, save_checkpoint
@@ -77,6 +77,9 @@ def test_normalize_device_matches_host():
     dev = normalize_device(torch.from_numpy(img).permute(2, 0, 1)[None])[0].permute(1, 2, 0)
     np.testing.assert_allclose(dev.numpy(), normalize(img), rtol=0, atol=1e-7)
     assert RGB_MEAN.dtype == np.float32
+    # the mean is made once per device (no upload a call on the card)
+    cpu = torch.device("cpu")
+    assert _device_mean(cpu) is _device_mean(cpu) and _device_mean(cpu).shape == (1, 3, 1, 1)
 
 
 def test_infer_cli_writes_one_png_per_image(models, tmp_path):
