@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (fal_net_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--profile DIR]
+    python3 chip_smoke.py [--seed 0]
 
 Phases, each reported on its own line; any failure exits nonzero:
   1. device: name, power limit, TF32 settings (no GPU -> exit 1);
@@ -69,10 +69,6 @@ Phases, each reported on its own line; any failure exits nonzero:
      weights, in turns with peak memory: the disp forward at 384x1280, B=8
      and B=1, fp32 (TF32 convolutions) and bf16, the stage-1 step at B=8,
      and the two models' disparities with TF32 off (printed);
-  6. only with ``--profile DIR``: ``torch.profiler`` over the disp-only
-     forward at batch 8 and 1 and over the stage-1 training step (device
-     window, busy share, kernel time by kind; the per-kernel tables go to
-     DIR), and the forward with TF32 convolutions off;
   7. the training slice: a synthetic KITTI-raw tree (16 smooth 375x1242 stereo
      pairs, right = left shifted by 20 px) trains FAL_netB N=49 through
      ``fal_net_torch.cli.train --stage 1`` at batch 8, 192x640, for 2 steps;
@@ -1348,8 +1344,8 @@ def train_setup(dev, seed: int, batch_size: int = BATCH, phase_deconv: bool = Fa
                 levels: int = 49):
     """FAL_netB N=49 (or ``variant`` at ``levels``), its Adam and a seeded
     192x640 batch: the training step that phase 5 times (stage 1 at batch 8;
-    stage 1 slow and stage 2 at their batch 4, a double batch of 8), phase 6
-    profiles and phase 16 runs for FAL_netA and C."""
+    stage 1 slow and stage 2 at their batch 4, a double batch of 8) and
+    phase 16 runs for FAL_netA and C."""
     from fal_net_torch.train.state import create_optimizer
 
     model = create_model(variant, levels, generator=torch.Generator().manual_seed(seed), device=dev,
@@ -1674,100 +1670,6 @@ def later_stage_times(dev, seed: int, card: str, vgg) -> dict:
                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
             del model, opt, sched, batch, step
     return times
-
-
-def _union_us(spans) -> float:
-    """Total length of the union of (start, end) intervals."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(spans):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    return total + (cur_e - cur_s if cur_e is not None else 0.0)
-
-
-# kernel kinds, matched in order against device kernel names
-KINDS = [
-    ("K1 med_fwd", "med_fwd_kernel"),
-    ("K2 med_bwd", "med_bwd_kernel"),
-    ("layout transposes", "nchwtonhwc|nhwctonchw|transpose"),
-    ("nearest upsample", "upsample"),
-    ("ELU", "elu"),
-    ("concat", "catarray|cat_"),
-    ("convolutions", "conv|xmma|cudnn|implicit|gemm|cutlass|sm90|winograd|fft|dgrad|wgrad"),
-    ("Adam", "adam|multi_tensor|foreach"),
-    ("reductions", "reduce"),
-    ("adds", "add"),
-]
-
-
-def profile_kinds(fn, reps: int, title: str, path: str, card: str, unit: str, no_grad: bool) -> None:
-    """torch.profiler over ``reps`` calls of ``fn``: device window, busy
-    share and device time by kind per call; the per-kernel table to ``path``."""
-    import re
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    ctx = torch.inference_mode if no_grad else torch.enable_grad
-    with ctx():
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-    # device work only: the GPU-side ranges of user annotations such as
-    # "Optimizer.step#Adam.step" would count their kernels twice
-    kernels = [
-        e for e in prof.events()
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-    ]
-    if not kernels:
-        raise AssertionError("torch.profiler recorded no device activity")
-    spans = [(e.time_range.start, e.time_range.end) for e in kernels]
-    window = max(e for _, e in spans) - min(s for s, _ in spans)
-    by_name: dict[str, float] = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    kind_of = lambda name: next((k for k, rx in KINDS if re.search(rx, name.lower())), "other")
-    by_kind = {k: 0.0 for k, _ in KINDS} | {"other": 0.0}
-    for name, us in by_name.items():
-        by_kind[kind_of(name)] += us
-    with open(path, "w") as f:
-        f.write(f"{title}, {reps} calls [{card}]\n")
-        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
-            f.write(f"{us / reps / 1000:10.4f} ms/{unit}  {kind_of(name):18s} {name}\n")
-    line(f"phase 6 profile {title}: device window {window / reps / 1000:.4f} ms/{unit}, "
-         f"busy share {_union_us(spans) / window:.4f}; ms/{unit} by kind: "
-         + ", ".join(f"{k} {us / reps / 1000:.4f}" for k, us in by_kind.items())
-         + f"; table {path} [{card}]")
-
-
-def phase_profile(model, lefts, card: str, out_dir: str, dev, seed: int, reps: int = 5) -> None:
-    os.makedirs(out_dir, exist_ok=True)
-    for b in (BATCH, 1):
-        profile_kinds(
-            lambda: model(lefts[b], 2.0, 300.0, ret_disp=True), reps,
-            f"FAL_netB N=49 {SERVE_H}x{SERVE_W} disp-only B={b}",
-            os.path.join(out_dir, f"profile_b{b}.txt"), card, "fwd", no_grad=True,
-        )
-    with tf32(False), torch.inference_mode():
-        for b in (BATCH, 1):
-            ms = median_ms(lambda: model(lefts[b], 2.0, 300.0, ret_disp=True))
-            line(f"phase 6 forward TF32 off FAL_netB N=49 {SERVE_H}x{SERVE_W} disp B={b}: "
-                 f"{ms:.3f} ms [{card}]")
-    tmodel, opt, sched, batch = train_setup(dev, seed)
-    profile_kinds(
-        train_step_fn(tmodel, opt, sched, batch), reps,
-        f"stage-1 step FAL_netB N=49 {TRAIN_H}x{TRAIN_W} B={BATCH}",
-        os.path.join(out_dir, "profile_train_step.txt"), card, "step", no_grad=False,
-    )
-    line(f"phase 6 peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
 
 
 # phase 10: KITTI raw's native sizes, 8 frames each, in two drives
@@ -2952,7 +2854,6 @@ def phase_soak(card: str) -> dict:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--profile", metavar="DIR", help="also run phase 6, writing its tables to DIR")
     args = parser.parse_args()
     t_start = time.perf_counter()
     name, card = timed("1", phase_device)
@@ -2964,8 +2865,6 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as serve_dir, tempfile.TemporaryDirectory() as eval_dir:
         model, lefts, serve_launches, worst4 = timed("4", phase_slice, rng, dev, args.seed, serve_dir)
         times = timed("5", phase_times, model, lefts, card, dev, args.seed)
-        if args.profile:
-            timed("6", phase_profile, model, lefts, card, args.profile, dev, args.seed)
         del model, lefts
         with tempfile.TemporaryDirectory() as workdir:
             train = timed("7a-7c", phase_train, rng, dev, workdir)

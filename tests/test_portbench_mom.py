@@ -7,6 +7,7 @@ weights at FAL_netB's widths, N = 49, batch 2 (a double batch of 4) at
 comparison; the reference's masks equal the port's plain head's; and
 ``stage2_loss`` opens its spans under a profiler only."""
 
+import torch_lane  # noqa: F401  (torch's threads sized to the xdist worker)
 import dataclasses
 import os
 import time

@@ -14,6 +14,7 @@ largest magnitude, a bound that a bf16-rounded result fails.  A bf16
 artifact equals the live bf16 model exactly on the CPU.
 """
 
+from torch_lane import nchw
 import io
 import json
 import os
@@ -63,10 +64,6 @@ def _port(variables, variant, dtype, num_levels=N):
     sd = state_dict_from_jax(variables["params"], variant)
     port.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
     return port
-
-
-def _nchw(a):
-    return np.ascontiguousarray(np.asarray(a, np.float32).transpose(0, 3, 1, 2))
 
 
 class ConvDtypes(TorchDispatchMode):
@@ -120,13 +117,13 @@ def test_logits_conv_matches_conv_accum(rng):
     with torch.no_grad():
         conv1x1.weight.copy_(torch.from_numpy(k1.transpose(3, 2, 0, 1).copy()))
         conv1x1.bias.copy_(torch.from_numpy(b1))
-        xt = torch.from_numpy(_nchw(np.asarray(x.astype(jnp.float32)))).to(torch.bfloat16)
+        xt = torch.from_numpy(nchw(x.astype(jnp.float32))).to(torch.bfloat16)
         got = composed_logits(xt, torch.from_numpy(ki.transpose(3, 2, 0, 1).copy()), conv1x1)
     assert got.dtype == torch.float32
     tol = dict(rtol=1e-5, atol=1e-5 * float(np.abs(want).max()))
-    np.testing.assert_allclose(got.numpy(), _nchw(want), **tol)
+    np.testing.assert_allclose(got.numpy(), nchw(want), **tol)
     rounded = got.to(torch.bfloat16).float().numpy()
-    assert not np.allclose(rounded, _nchw(want), **tol)  # the bound sees a bf16 rounding
+    assert not np.allclose(rounded, nchw(want), **tol)  # the bound sees a bf16 rounding
 
 
 def _seeded_variables(variant, seed):
@@ -151,12 +148,13 @@ def test_forward_within_jaxs_bf16_gap(variables, variant, rng):
             v, x, 2.0, 30.0, ret_disp=True, ret_pan=True, capture_intermediates=True,
             mutable=["intermediates"]))(variables[variant], jnp.asarray(x))
         logits = inter["intermediates"]["backbone"]["__call__"][0]
-        outs[dt] = {"logits": _nchw(logits), "disp": _nchw(out.disp), "pan": _nchw(out.pan)}
+        outs[dt] = {k: nchw(v).astype(np.float32)
+                    for k, v in (("logits", logits), ("disp", out.disp), ("pan", out.pan))}
     ports = {}
     for dt in ("float32", "bfloat16"):
         port = _port(variables[variant], variant, dt)
         with torch.no_grad():
-            left = torch.from_numpy(_nchw(x))
+            left = torch.from_numpy(nchw(x))
             out = port(left, 2.0, 30.0, ret_disp=True, ret_pan=True)
             ports[dt] = {"logits": port.logits(left, 30.0).numpy(), "disp": out.disp.numpy(), "pan": out.pan.numpy()}
     for k in ("logits", "disp", "pan"):
@@ -192,7 +190,7 @@ def test_stage_gradients_within_jaxs_bf16_gap(variables, stage, rng):
     loss16, g16 = _stage_loss_and_grads(stage, student, teacher, batch, jnp.bfloat16)
 
     port = _port(student, GRAD_VARIANT, "bfloat16")
-    tb = {k: torch.from_numpy(_nchw(v)) for k, v in batch.items()}
+    tb = {k: torch.from_numpy(nchw(v)) for k, v in batch.items()}
     kw = dict(min_disp=2.0, max_disp=30.0, a_p=0.0, a_sm=A_SM * 50)
     if stage == "stage1":
         loss, _ = stages.stage1_loss(port, tb, **kw)

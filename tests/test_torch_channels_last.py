@@ -32,6 +32,7 @@ gradient within 1e-4 of that tensor's largest magnitude
 kink in reach (see the test).
 """
 
+from torch_lane import cuda_device  # noqa: F401  (cuda_device: a fixture)
 import contextlib
 
 import numpy as np
@@ -236,13 +237,6 @@ def test_nearest_up2_matches_interpolate():
 
 GPU_MODELS = [("B", 49), ("A", 33)]
 STAGE1 = dict(min_disp=2.0, max_disp=30.0, a_p=0.0, a_sm=0.2 * 2 / 512 * 50)  # as tests/test_torch_train.py
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the channels-last path is the card's)")
-    return torch.device("cuda")
 
 
 @pytest.mark.cuda

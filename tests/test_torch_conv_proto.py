@@ -12,6 +12,7 @@ The tests marked cuda hold each CUDA kernel against its plain versions and
 skip without a card.
 """
 
+from torch_lane import cuda_device  # noqa: F401  (cuda_device: a fixture)
 import contextlib
 import functools
 import importlib.util
@@ -171,13 +172,6 @@ def test_roll_plain_matches_tpu_probe(jax_scripts, tiles):
         want = np.asarray(run(jnp.asarray([f], jnp.int32), jnp.asarray(x)))
         got = roll_window_plain(torch.from_numpy(x), torch.tensor([f], dtype=torch.int32), wp, k5.L)
         np.testing.assert_array_equal(got.numpy(), want, err_msg=f"wp={wp} f={f}")
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the conv and roll kernels have no CPU mode)")
-    return torch.device("cuda")
 
 
 @pytest.mark.cuda

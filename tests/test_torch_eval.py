@@ -15,6 +15,7 @@ Batch 1 and batch 8 agree at rtol 1e-5 / atol 1e-6 (tests/test_evaluate.py's
 batched identity).
 """
 
+import torch_lane  # noqa: F401  (torch's threads sized to the xdist worker)
 import json
 import os
 

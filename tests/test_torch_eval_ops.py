@@ -14,6 +14,7 @@ levels rounded once); whole-model post-processing rtol 1e-3 / atol 5e-3 as
 tests/test_models.py:93 (fp32 conv summation order, XLA vs oneDNN).
 """
 
+import torch_lane  # noqa: F401  (torch's threads sized to the xdist worker)
 import importlib
 
 import jax

@@ -14,6 +14,7 @@ capture a shape, every answer already handed back left as it was, and K1's
 launch counter against the profiler's ``med_fwd_kernel`` launches.
 """
 
+from torch_lane import cuda_device  # noqa: F401  (cuda_device: a fixture)
 import types
 
 import numpy as np
@@ -109,13 +110,6 @@ def test_graph_replay_share_reads_replays_over_model_calls():
 
 
 # ---- on the card (marked cuda; the GPU lane runs without tests/conftest.py) ----
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the pipeline captures CUDA graphs only on a card)")
-    return torch.device("cuda")
 
 
 def _model(variant, levels, device, dtype=torch.float32):

@@ -5,6 +5,7 @@ MED kernel gate that raises, a clear build error without nvcc,
 and chip_smoke.py refusing to run without a GPU.  The tests marked cuda need
 a GPU and skip without one."""
 
+from torch_lane import cuda_device, env  # noqa: F401  (cuda_device: a fixture)
 import importlib
 import importlib.util
 import os
@@ -27,10 +28,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _run(code_or_args, cwd=REPO, env_drop=()):
-    env = {k: v for k, v in os.environ.items() if k not in env_drop}
     args = code_or_args if isinstance(code_or_args, list) else ["-c", code_or_args]
     return subprocess.run(
-        [sys.executable, *args], cwd=cwd, env=env, capture_output=True, text=True, timeout=300
+        [sys.executable, *args], cwd=cwd, env=env(env_drop), capture_output=True, text=True, timeout=300
     )
 
 
@@ -230,13 +230,6 @@ def test_chip_smoke_fails_without_gpu(tmp_path):
     proc = _run(["chip_smoke.py"], cwd=tmp_path, env_drop=("PYTHONPATH",))
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the MED kernel has no CPU mode)")
-    return torch.device("cuda")
 
 
 @pytest.mark.cuda

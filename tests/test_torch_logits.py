@@ -25,6 +25,7 @@ Tolerances:
     1e-6 max|want| (the same sums).
 """
 
+from torch_lane import cuda_device, nchw  # noqa: F401  (cuda_device: a fixture)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -57,10 +58,6 @@ def _pitched(x):
     return pitched_empty(x.shape, x).copy_(x)
 
 
-def _nchw(a):
-    return np.ascontiguousarray(np.asarray(a, np.float32).transpose(0, 3, 1, 2))
-
-
 def _jax_fused(variant, num_levels, dtype):
     from fal_net_tpu.models import create_model as jax_create_model  # flax: the CPU lane only
 
@@ -75,7 +72,7 @@ def _jax_logits(variant, num_levels, dtype, x, params=None):
     variables = params or jax_model.init(jax.random.PRNGKey(0), jnp.asarray(x), 2.0, 300.0, ret_disp=True)
     _, inter = jax_model.apply(variables, jnp.asarray(x), 2.0, 300.0, ret_disp=True, capture_intermediates=True,
                                mutable=["intermediates"])
-    return _nchw(inter["intermediates"]["backbone"]["__call__"][0]), variables
+    return nchw(inter["intermediates"]["backbone"]["__call__"][0]).astype(np.float32), variables
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -92,7 +89,7 @@ def test_model_logits_match_jax_fused(rng, variant, h, w, dtype):
     port = create_model(variant, num_levels, device="cpu", dtype=dtype)
     port.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict_from_jax(variables["params"], variant).items()})
     with torch.no_grad():
-        got = port.logits(torch.from_numpy(_nchw(x)), 300.0)
+        got = port.logits(torch.from_numpy(nchw(x)), 300.0)
     assert got.dtype == torch.float32
     if dtype == "float32":
         np.testing.assert_allclose(got.numpy(), want32, **MODEL_TOL)
@@ -120,7 +117,7 @@ def _jax_fused_conv(x, ki, k1, b1):
 
 
 def _port_conv(x, ki, k1, b1):
-    xt = torch.from_numpy(_nchw(np.asarray(x.astype(jnp.float32)))).to(torch.bfloat16).requires_grad_()
+    xt = torch.from_numpy(nchw(x.astype(jnp.float32))).to(torch.bfloat16).requires_grad_()
     wi = torch.from_numpy(ki.transpose(3, 2, 0, 1).copy()).requires_grad_()
     conv1x1 = torch.nn.Conv2d(k1.shape[-1], k1.shape[-1], 1)
     with torch.no_grad():
@@ -146,10 +143,10 @@ def test_composed_conv_and_grads_match_jax(rng, cin, n):
     xt, wi, conv1x1 = _port_conv(x, ki, k1, b1)
     got = composed_logits(xt, wi, conv1x1)
     assert got.dtype == torch.float32
-    _close(got.detach().numpy(), _nchw(want), FWD_TOL, FWD_TOL, "forward")
-    got.backward(torch.from_numpy(_nchw(g)))
+    _close(got.detach().numpy(), nchw(want), FWD_TOL, FWD_TOL, "forward")
+    got.backward(torch.from_numpy(nchw(g)))
     assert xt.grad.dtype == torch.bfloat16 and wi.grad.dtype == conv1x1.weight.grad.dtype == torch.float32
-    _close(xt.grad.float().numpy(), _nchw(dx), GRAD_RTOL, GRAD_ATOL, "d concat")
+    _close(xt.grad.float().numpy(), nchw(dx).astype(np.float32), GRAD_RTOL, GRAD_ATOL, "d concat")
     _close(wi.grad.numpy(), np.asarray(dki).transpose(3, 2, 0, 1), GRAD_RTOL, GRAD_ATOL, "d iconv1")
     _close(conv1x1.weight.grad.numpy(), np.asarray(dk1).transpose(3, 2, 0, 1), GRAD_RTOL, GRAD_ATOL, "d 1x1")
     _close(conv1x1.bias.grad.numpy(), np.asarray(db1), GRAD_RTOL, GRAD_ATOL, "d bias")
@@ -372,13 +369,6 @@ def test_fp32_head_is_one_conv(variant):
 
 
 # ---- on the card (marked cuda; the GPU lane runs without tests/conftest.py) ----
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (L1 is a hand-written kernel)")
-    return torch.device("cuda")
 
 
 @pytest.mark.cuda

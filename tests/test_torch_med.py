@@ -5,6 +5,7 @@ Same seeded numpy inputs go through fal_net_tpu (NHWC) and fal_net_torch
 mode.  Tolerances are those of tests/test_med_pallas.py.
 """
 
+import torch_lane  # noqa: F401  (torch's threads sized to the xdist worker)
 import numpy as np
 import pytest
 import jax.numpy as jnp

@@ -6,6 +6,7 @@ Shapes and bounds are those of tests/test_med_pallas.py's gradient tests;
 tolerances are theirs too: rtol 1e-4, atol 1e-5.
 """
 
+from torch_lane import nchw
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,10 +29,6 @@ def _data(rng, b, n, h, w, c=3):
 
 def _nhwc(a):
     return jnp.asarray(a.transpose(0, 2, 3, 1))
-
-
-def _nchw(a):
-    return np.asarray(a).transpose(0, 3, 1, 2)
 
 
 def _torch_loss_grads(logits, image, mn, mx, disp_term=True, pan_term=True):
@@ -72,8 +69,8 @@ def test_med_vjp_matches_autograd_and_jax_grad(rng, n, min_disp, max_disp):
         return jnp.sum(jnp.sin(out.pan)) + jnp.sum(jnp.cos(out.disp / 300.0))
 
     jl, ji = jax.grad(jax_loss, argnums=(0, 1))(_nhwc(logits), _nhwc(image))
-    np.testing.assert_allclose(gl.numpy(), _nchw(jl), rtol=RTOL, atol=ATOL)
-    np.testing.assert_allclose(gi.numpy(), _nchw(ji), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(gl.numpy(), nchw(jl), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(gi.numpy(), nchw(ji), rtol=RTOL, atol=ATOL)
 
 
 def test_med_vjp_matches_jax_fused_interpret(rng):
@@ -92,8 +89,8 @@ def test_med_vjp_matches_jax_fused_interpret(rng):
         return jnp.sum(jnp.sin(out.pan)) + jnp.sum(jnp.cos(out.disp / 300.0))
 
     jl, ji = jax.grad(jax_loss, argnums=(0, 1))(_nhwc(logits), _nhwc(image))
-    np.testing.assert_allclose(gl.numpy(), _nchw(jl), rtol=RTOL, atol=ATOL)
-    np.testing.assert_allclose(gi.numpy(), _nchw(ji), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(gl.numpy(), nchw(jl), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(gi.numpy(), nchw(ji), rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("disp_term,pan_term", [(True, False), (False, True)])
@@ -135,8 +132,8 @@ def test_med_vjp_per_sample_bounds(rng):
         return jnp.sum(jnp.sin(out.pan)) + jnp.sum(jnp.cos(out.disp / 300.0))
 
     jl, ji = jax.grad(jax_loss, argnums=(0, 1))(_nhwc(logits), _nhwc(image))
-    np.testing.assert_allclose(gl.numpy(), _nchw(jl), rtol=RTOL, atol=ATOL)
-    np.testing.assert_allclose(gi.numpy(), _nchw(ji), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(gl.numpy(), nchw(jl), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(gi.numpy(), nchw(ji), rtol=RTOL, atol=ATOL)
 
 
 def test_masks_carry_no_gradient(rng):

@@ -15,6 +15,7 @@ plans are checked.  Tolerances are those of tests/test_med_pallas.py: 1e-4
 on forward outputs; rtol 1e-4, atol 1e-5 on gradients.
 """
 
+from torch_lane import cuda_device, nchw  # noqa: F401  (cuda_device: a fixture)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -81,10 +82,6 @@ def _nhwc(a):
     return jnp.asarray(a.transpose(0, 2, 3, 1))
 
 
-def _nchw(a):
-    return np.asarray(a).transpose(0, 3, 1, 2)
-
-
 def _bounds(mn, mx, as_tensor):
     """Numbers as they are; per-sample lists as float32 arrays of ``as_tensor``."""
     if isinstance(mn, list):
@@ -127,7 +124,7 @@ def test_plain_head_matches_jax(rng, path, scaled):
     want = jax_head(_nhwc(logits), _nhwc(image), *_bounds(mn, mx, jnp.asarray), **ALL)
     for name, (rtol, atol) in TOL.items():
         np.testing.assert_allclose(
-            getattr(got, name).numpy(), _nchw(getattr(want, name)), rtol=rtol, atol=atol, err_msg=name
+            getattr(got, name).numpy(), nchw(getattr(want, name)), rtol=rtol, atol=atol, err_msg=name
         )
 
 
@@ -147,8 +144,8 @@ def test_plain_vjp_matches_jax_grad(rng, path):
     kw = dict(interpret=True) if w >= 640 else {}
     head = lambda lg_, im_, a, z: jax_head(lg_, im_, a, z, ret_disp=True, ret_pan=True, **kw)
     jl, ji = jax.grad(_jax_loss(head, *_bounds(mn, mx, jnp.asarray)), argnums=(0, 1))(_nhwc(logits), _nhwc(image))
-    np.testing.assert_allclose(gl.numpy(), _nchw(jl), rtol=GRAD_RTOL, atol=GRAD_ATOL)
-    np.testing.assert_allclose(gi.numpy(), _nchw(ji), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    np.testing.assert_allclose(gl.numpy(), nchw(jl), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    np.testing.assert_allclose(gi.numpy(), nchw(ji), rtol=GRAD_RTOL, atol=GRAD_ATOL)
 
 
 @pytest.mark.parametrize("scaled", [pytest.param(None, id="N(0, 1)")] + [
@@ -166,15 +163,8 @@ def test_plain_vjp_matches_jax_pallas_interpret(rng, scaled):
     gl, gi = med_vjp(lg, im, mn, mx, *_loss_cotangents(med_outputs(lg, im, mn, mx, ret_disp=True, ret_pan=True)))
     head = lambda lg_, im_, a, z: jax_med_outputs_fused(lg_, im_, a, z, ret_disp=True, ret_pan=True, interpret=True)
     jl, ji = jax.grad(_jax_loss(head, mn, mx), argnums=(0, 1))(_nhwc(logits), _nhwc(image))
-    np.testing.assert_allclose(gl.numpy(), _nchw(jl), rtol=GRAD_RTOL, atol=GRAD_ATOL)
-    np.testing.assert_allclose(gi.numpy(), _nchw(ji), rtol=GRAD_RTOL, atol=GRAD_ATOL)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the MED kernels have no CPU mode)")
-    return torch.device("cuda")
+    np.testing.assert_allclose(gl.numpy(), nchw(jl), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    np.testing.assert_allclose(gi.numpy(), nchw(ji), rtol=GRAD_RTOL, atol=GRAD_ATOL)
 
 
 def _cuda_inputs(path, dev):

@@ -7,6 +7,7 @@ mode.  Tolerances: logits rtol/atol 1e-3 (fp32 conv summation order, XLA vs
 oneDNN); disp and pan rtol 1e-3 / atol 5e-3, as tests/test_models.py:93.
 """
 
+from torch_lane import nchw
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -99,14 +100,13 @@ def test_forward_matches_jax(rng, variant, h, w):
     port.load_state_dict(
         {k: torch.from_numpy(v) for k, v in state_dict_from_jax(variables["params"], variant).items()}
     )
-    left = torch.from_numpy(x.transpose(0, 3, 1, 2).copy())
+    left = torch.from_numpy(nchw(x))
     with torch.no_grad():
         logits = port.logits(left, 300.0)
         got = port(left, 2.0, 300.0, ret_disp=True, ret_pan=True)
-    to_nchw = lambda a: np.asarray(a).transpose(0, 3, 1, 2)
-    np.testing.assert_allclose(logits.numpy(), to_nchw(want_logits), rtol=1e-3, atol=1e-3)
-    np.testing.assert_allclose(got.disp.numpy(), to_nchw(want.disp), rtol=1e-3, atol=5e-3)
-    np.testing.assert_allclose(got.pan.numpy(), to_nchw(want.pan), rtol=1e-3, atol=5e-3)
+    np.testing.assert_allclose(logits.numpy(), nchw(want_logits), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(got.disp.numpy(), nchw(want.disp), rtol=1e-3, atol=5e-3)
+    np.testing.assert_allclose(got.pan.numpy(), nchw(want.pan), rtol=1e-3, atol=5e-3)
     assert got.maskL is None and got.maskR is None
 
 

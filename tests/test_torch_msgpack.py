@@ -5,6 +5,7 @@ TrainState, ``model_best``, a bare params dict, a variables dict, a run
 directory with its sidecar, a bad structure) against the ``.pt`` of the
 same weights: state_dicts equal array for array, forwards equal exactly."""
 
+import torch_lane  # noqa: F401  (torch's threads sized to the xdist worker)
 import json
 import os
 

@@ -7,6 +7,7 @@ the KITTI flow loader against JAX's; and cli.infer's disparity PNG, the
 same uint16 values whichever encoder writes it.  Pixels compare exactly.
 """
 
+import torch_lane  # noqa: F401  (torch's threads sized to the xdist worker)
 import io as _io
 import os
 

@@ -9,6 +9,7 @@ Tolerances are those of tests/test_med_pallas.py: 1e-4 on forward outputs
 (disp 1e-5 relative), rtol 1e-4 and atol 1e-5 on gradients.
 """
 
+from torch_lane import cuda_device  # noqa: F401  (cuda_device: a fixture)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -146,13 +147,6 @@ def test_launch_counts_read_zero_without_the_library(monkeypatch):
     assert dict(conv3x3.LAUNCHES) == {"conv3x3": 0} and dict(roll_probe.LAUNCHES) == {"roll_window": 0}
     with pytest.raises(AttributeError):
         MedForward.launches = 0  # read-only: _build.reset_launch_counts() sets them to 0
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the ops' CUDA impls are the hand-written kernels)")
-    return torch.device("cuda")
 
 
 @pytest.mark.cuda

@@ -5,6 +5,7 @@ binding includes no torch/extension.h (minutes of build), and no kernel
 launches through ctypes.  Each of the JAX package's console scripts has a
 ``falnet-torch-*`` counterpart whose exit status is the command's."""
 
+import torch_lane  # noqa: F401  (torch's threads sized to the xdist worker)
 import fnmatch
 import glob
 import importlib

@@ -15,6 +15,7 @@ within 1e-4 of its largest magnitude); replicas against one device within
 1e-6 relative.
 """
 
+from torch_lane import THREADS, default_threads  # noqa: F401  (default_threads: a fixture)
 import functools
 import json
 import os
@@ -47,7 +48,7 @@ from test_torch_eval import MixedShapes, raw_tree  # noqa: F401  (the Eigen tree
 from test_torch_train import _write_tree
 
 N, H, W = 5, 32, 64
-GROUP = dict(timeout=60.0, join_timeout=180.0, threads=1)  # every spawned group in this file
+GROUP = dict(timeout=60.0, join_timeout=180.0, threads=THREADS)  # every spawned group in this file
 
 
 class Indexed:
@@ -118,6 +119,7 @@ def _check_against_jax(port_report, jax_loss, jax_grads):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max(), err_msg=k)
 
 
+@pytest.mark.usefixtures("default_threads")  # this process's step at one thread: 1.12 units; 2 and 8: 0.38, 0.87
 def test_two_gloo_ranks_stage1(tmp_path):
     """dryrun_multigpu on the CPU: two gloo ranks, one DDP stage-1 step,
     against the one-process step (inside the dry run) and JAX's 2-device

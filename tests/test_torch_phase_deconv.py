@@ -13,6 +13,7 @@ atol 5e-3); the stage-1 loss at rtol 1e-5 and each gradient within 1e-4 of
 its largest magnitude (tests/test_torch_stages.py).
 """
 
+from torch_lane import nchw
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -130,14 +131,13 @@ def test_default_model_matches_jax(rng, variant, h, w):
 
     port = create_model(variant, N, device="cpu", phase_deconv=True)
     port.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict_from_jax(variables["params"], variant).items()})
-    left = torch.from_numpy(x.transpose(0, 3, 1, 2).copy())
+    left = torch.from_numpy(nchw(x))
     with torch.no_grad():
         logits = port.logits(left, 300.0)
         got = port(left, 2.0, 300.0, ret_disp=True, ret_pan=True)
-    to_nchw = lambda a: np.asarray(a).transpose(0, 3, 1, 2)
-    np.testing.assert_allclose(logits.numpy(), to_nchw(want_logits), rtol=1e-3, atol=1e-3)
-    np.testing.assert_allclose(got.disp.numpy(), to_nchw(want.disp), rtol=1e-3, atol=5e-3)
-    np.testing.assert_allclose(got.pan.numpy(), to_nchw(want.pan), rtol=1e-3, atol=5e-3)
+    np.testing.assert_allclose(logits.numpy(), nchw(want_logits), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(got.disp.numpy(), nchw(want.disp), rtol=1e-3, atol=5e-3)
+    np.testing.assert_allclose(got.pan.numpy(), nchw(want.pan), rtol=1e-3, atol=5e-3)
 
 
 @pytest.mark.parametrize("per_sample", [False, True])
@@ -148,8 +148,8 @@ def test_stage1_grads_match_jax(rng, per_sample):
     jax_model = jax_create_model("tiny", 5, med_impl="reference")
     variables = jax_model.init(jax.random.PRNGKey(0), jnp.zeros((1, h, w, 3)), 2.0, 30.0, ret_disp=True)
     left, right = ((rng.standard_normal((b, h, w, 3)) * 0.3).astype(np.float32) for _ in range(2))
-    nchw = lambda a: torch.from_numpy(a.transpose(0, 3, 1, 2).copy())
-    jb, tb = {"left": jnp.asarray(left), "right": jnp.asarray(right)}, {"left": nchw(left), "right": nchw(right)}
+    jb = {"left": jnp.asarray(left), "right": jnp.asarray(right)}
+    tb = {"left": torch.from_numpy(nchw(left)), "right": torch.from_numpy(nchw(right))}
     if per_sample:
         mx = np.asarray([30.0, -20.0], np.float32)
         jb["max_disp"], tb["max_disp"] = jnp.asarray(mx), torch.from_numpy(mx)

@@ -4,6 +4,7 @@ sharding idiom in :data:`COUNTERPARTS`; importing them builds no kernel,
 starts no thread and imports no JAX.  ``denormalize`` against JAX's on
 numpy."""
 
+from torch_lane import env
 import importlib
 import os
 import subprocess
@@ -60,7 +61,8 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "fla
 assert not bad, bad
 print("LIGHT")
 """
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env(), capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0 and "LIGHT" in proc.stdout, proc.stdout + proc.stderr
 
 

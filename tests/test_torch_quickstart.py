@@ -3,6 +3,7 @@ JAX's (examples/quickstart_synthetic.py): the same synthetic stereo samples,
 bit for bit, and the walkthrough run to its end on the CPU (16 stage-1
 steps of the tiny model at 64x128, then multi-scale post-processing)."""
 
+import torch_lane  # noqa: F401  (torch's threads sized to the xdist worker)
 import importlib.util
 import math
 import os

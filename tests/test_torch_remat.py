@@ -14,6 +14,7 @@ magnitude); ``cli.train --remat --device cpu`` runs two steps and records
 ``remat: True``.  On a card, tests/test_torch_ops.py counts the launches.
 """
 
+from torch_lane import nchw
 import os
 
 import jax
@@ -85,9 +86,8 @@ def _port_step(stage, cfg, device="cpu", seed=0):
     calls = []
     hook = tr.model.register_forward_pre_hook(lambda *_: calls.append(1))
     left, right = _batch(seed)
-    nchw = lambda a: torch.from_numpy(a.transpose(0, 3, 1, 2).copy()).to(tr.device)
     try:
-        aux = tr.train_step({"left": nchw(left), "right": nchw(right)})
+        aux = tr.train_step({k: torch.from_numpy(nchw(a)).to(tr.device) for k, a in (("left", left), ("right", right))})
     finally:
         hook.remove()
     grads = {n: None if p.grad is None else p.grad.detach().cpu().clone() for n, p in tr.model.named_parameters()}

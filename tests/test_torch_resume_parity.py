@@ -11,6 +11,7 @@ The epochs' train losses are fixed (1.0, then 2.0) so that a carried best
 would show.
 """
 
+import torch_lane  # noqa: F401  (torch's threads sized to the xdist worker)
 import json
 import os
 import re

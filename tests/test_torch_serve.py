@@ -14,6 +14,7 @@ masks likewise; metrics.json at rtol 5e-4 / atol 5e-4 as
 tests/test_torch_eval.py.
 """
 
+from torch_lane import env
 import io
 import json
 import os
@@ -167,9 +168,8 @@ bad = sorted(m for m in sys.modules if m == "fal_net_torch.models" or m.startswi
              or m.split(".")[0] in ("jax", "jaxlib", "flax", "fal_net_tpu"))
 print("IMPORTED", bad)
 """
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
-                          timeout=300)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env(["PYTHONPATH"]), capture_output=True,
+                          text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "IMPORTED []" in proc.stdout
 

@@ -7,6 +7,7 @@ quantization step of 1/256 px, since a value near a rounding boundary may
 land on either side.
 """
 
+import torch_lane  # noqa: F401  (torch's threads sized to the xdist worker)
 import os
 
 import jax

@@ -5,6 +5,7 @@ tiny model, 64x128, batch 2, 3 steps an epoch, a checkpoint every 2 steps)
 with every check of the card's run but the launch counts, which are 0 here
 (the plain head), and ``main`` refusing to run without a card."""
 
+import torch_lane  # noqa: F401  (torch's threads sized to the xdist worker)
 import importlib.util
 import os
 

@@ -26,6 +26,7 @@ remat exactly; the collectives and the row-split losses against autograd
 through the unsharded ops at rtol 1e-5, atol 1e-6.
 """
 
+from torch_lane import THREADS, cuda_device  # noqa: F401  (cuda_device: a fixture)
 import functools
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -47,7 +48,7 @@ from fal_net_torch.train.config import Stage1Config, Stage2Config
 N, MN, MX = 5, 2.0, 30.0
 H, W = 48, 78  # the forwards
 SH, SW = 32, 64  # the steps
-GROUP = dict(timeout=60.0, join_timeout=180.0, threads=1)  # every spawned group in this file
+GROUP = dict(timeout=60.0, join_timeout=180.0, threads=THREADS)  # every spawned group in this file
 TOL = dict(rtol=1e-5, atol=1e-6)
 OUTPUTS = ("disp", "pan", "maskL", "maskR")
 
@@ -432,13 +433,6 @@ def test_grid_forward_matches_jax(started):
     got, want = _assembled(started["grid"].result(), 0, 2), started["forward"].result()
     for k in OUTPUTS:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-4, err_msg=k)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (K1 and K2 are the hand-written kernels)")
-    return torch.device("cuda")
 
 
 @pytest.mark.cuda

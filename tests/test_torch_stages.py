@@ -10,6 +10,7 @@ of tests/test_torch_train.py: loss and aux at rtol 1e-5, each parameter
 gradient within 1e-4 of that tensor's largest magnitude.
 """
 
+from torch_lane import nchw
 import os
 
 import jax
@@ -38,10 +39,6 @@ H, W, N, B = 32, 64, 5, 2
 A_SM = 0.2 * 2 / 512
 
 
-def _nchw(a):
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2)))
-
-
 @pytest.fixture(scope="module")
 def tiny():
     """The JAX tiny model in plain form; student variables from seed 0,
@@ -67,7 +64,7 @@ def _batches(rng, per_sample):
     left = (rng.standard_normal((B, H, W, 3)) * 0.3).astype(np.float32)
     right = (rng.standard_normal((B, H, W, 3)) * 0.3).astype(np.float32)
     jb = {"left": jnp.asarray(left), "right": jnp.asarray(right)}
-    tb = {"left": _nchw(left), "right": _nchw(right)}
+    tb = {"left": torch.from_numpy(nchw(left)), "right": torch.from_numpy(nchw(right))}
     if per_sample:
         mx = np.asarray([30.0, -20.0], np.float32)
         jb["max_disp"], tb["max_disp"] = jnp.asarray(mx), torch.from_numpy(mx)

@@ -3,6 +3,7 @@ context with no profiler, ``record_function`` events under one, where the
 serving pipeline and a stage-1 training step open them, and the same
 answers with the profiler on and off (the tiny model, 32x64)."""
 
+import torch_lane  # noqa: F401  (torch's threads sized to the xdist worker)
 import contextlib
 
 import numpy as np

@@ -9,6 +9,7 @@ XLA vs oneDNN); Adam steps fed the same gradients at rtol 1e-6; the data
 path exactly.
 """
 
+from torch_lane import default_threads, nchw  # noqa: F401  (default_threads: a fixture)
 import os
 
 import jax
@@ -45,10 +46,6 @@ H, W, N, B = 32, 64, 5, 2
 A_SM = 0.2 * 2 / 512
 
 
-def _nchw(a):
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2)))
-
-
 @pytest.fixture(scope="module")
 def tiny():
     """The JAX tiny model in plain form and its variables."""
@@ -73,12 +70,12 @@ def test_rec_loss_and_smoothness_match_jax(rng):
     disp = np.abs(draw(B, H, W, 1)) * 50
     mask = rng.random((B, H, W, 1)).astype(np.float32)
     for m_np in (1.0, mask):
-        m_t = m_np if isinstance(m_np, float) else _nchw(m_np)
-        got = rec_loss(m_t, _nchw(synth), _nchw(label), None, 0.0)
+        m_t = m_np if isinstance(m_np, float) else torch.from_numpy(nchw(m_np))
+        got = rec_loss(m_t, torch.from_numpy(nchw(synth)), torch.from_numpy(nchw(label)), None, 0.0)
         want = jax_rec_loss(m_np, jnp.asarray(synth), jnp.asarray(label), None, 0.0)
         np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
     for x0 in (0, int(0.2 * W)):
-        got = smoothness(_nchw(img)[..., x0:], _nchw(disp)[..., x0:], gamma=2.0)
+        got = smoothness(torch.from_numpy(nchw(img))[..., x0:], torch.from_numpy(nchw(disp))[..., x0:], gamma=2.0)
         want = jax_smoothness(jnp.asarray(img)[:, :, x0:], jnp.asarray(disp)[:, :, x0:], gamma=2.0)
         np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
@@ -90,7 +87,7 @@ def test_stage1_loss_and_grads_match_jax(tiny, rng, per_sample):
     left = (rng.standard_normal((B, H, W, 3)) * 0.3).astype(np.float32)
     right = (rng.standard_normal((B, H, W, 3)) * 0.3).astype(np.float32)
     jb = {"left": jnp.asarray(left), "right": jnp.asarray(right)}
-    tb = {"left": _nchw(left), "right": _nchw(right)}
+    tb = {"left": torch.from_numpy(nchw(left)), "right": torch.from_numpy(nchw(right))}
     if per_sample:
         mx = np.asarray([30.0, -20.0], np.float32)
         jb["max_disp"], tb["max_disp"] = jnp.asarray(mx), torch.from_numpy(mx)
@@ -252,6 +249,7 @@ def test_warm_start_continues_the_schedule(tmp_path):
     assert meta["epoch"] == 1 and meta["step"] == 4
 
 
+@pytest.mark.usefixtures("default_threads")  # one thread: 1.96 tolerance units (iconv1.weight); 2-8: 0.17-0.34
 def test_grad_accum_gives_the_full_batch_gradient(tmp_path):
     """grad_accum=2 applies the mean of two half-batch gradients: the full
     batch's gradient up to fp32 summation order."""

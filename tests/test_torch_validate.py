@@ -11,6 +11,7 @@ plain: every metric at rtol 1e-4.  A resumed second epoch equals an
 uninterrupted run's at rtol 1e-5.
 """
 
+import torch_lane  # noqa: F401  (torch's threads sized to the xdist worker)
 import json
 import os
 

@@ -29,6 +29,7 @@ the bf16 forward launching it, and ``scripts/jax_init.py``'s weights drawn
 on the card against those drawn on the CPU.
 """
 
+from torch_lane import cuda_device, nchw  # noqa: F401  (cuda_device: a fixture)
 from types import SimpleNamespace
 
 import numpy as np
@@ -93,10 +94,6 @@ def jx():
                            stage1_loss=stage1_loss, model=model, variables=variables)
 
 
-def _nchw(a):
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2)))
-
-
 def _carried(variables, variant, num_levels=None, **kw):
     port = create_model(variant, num_levels, device="cpu", **kw)
     sd = state_dict_from_jax(variables["params"], variant)
@@ -120,13 +117,13 @@ def test_default_levels_forward_matches_jax(jx, variant, quirk):
 
     port = _carried(variables, variant, a_maskr_quirk=quirk)
     assert port.num_levels == 33
-    left = _nchw(x)
+    left = torch.from_numpy(nchw(x))
     with torch.no_grad():
         logits = port.logits(left, 300.0)
         got = port(left, 2.0, 300.0, **ALL)
-    np.testing.assert_allclose(logits.numpy(), _nchw(want_logits).numpy(), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(logits.numpy(), nchw(want_logits), rtol=1e-3, atol=1e-3)
     for name in ("disp", "pan", "maskL", "maskR"):
-        np.testing.assert_allclose(getattr(got, name).numpy(), _nchw(getattr(want, name)).numpy(), rtol=1e-3,
+        np.testing.assert_allclose(getattr(got, name).numpy(), nchw(getattr(want, name)), rtol=1e-3,
                                    atol=5e-3, err_msg=name)
 
 
@@ -143,7 +140,8 @@ def test_stage1_loss_and_grads_match_jax(jx, variant):
     ))(variables)
 
     port = _carried(variables, variant, 9)
-    loss, aux = stage1_loss(port, {"left": _nchw(left), "right": _nchw(right)}, **STAGE1)
+    tb = {"left": torch.from_numpy(nchw(left)), "right": torch.from_numpy(nchw(right))}
+    loss, aux = stage1_loss(port, tb, **STAGE1)
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(want), rtol=1e-5)
     for k in ("rec_loss", "sm_loss"):
@@ -193,13 +191,6 @@ def test_verify_variants_check_variant_on_cpu(variant):
     assert res["ok"] and res["num_levels"] == 33
     if variant == "A":
         assert res["quirk"]["mask_diff"] > 1e-4
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (K1, K2 and L1 have no CPU mode)")
-    return torch.device("cuda")
 
 
 def _gpu_model(variant, dev, **kw):

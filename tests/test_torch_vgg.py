@@ -10,6 +10,7 @@ magnitude; losses at rtol 1e-5 and each parameter gradient within 1e-4 of
 that tensor's largest magnitude, as tests/test_torch_stages.py.
 """
 
+import torch_lane  # noqa: F401  (torch's threads sized to the xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np
